@@ -1,0 +1,420 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py               # from the repository root
+
+Phases, in order; any failure ends the run with a non-zero exit and
+without the final ``{"ok": true, ...}`` line:
+
+1. print the card's name and power limit (``nvidia-smi``);
+2. build every CUDA kernel of the serving path from ``src/repro_torch/csrc``
+   with ``nvcc`` (one ``nvcc`` per source, all started together);
+3. hold ``bcoo_spmm`` against its plain PyTorch version on the card over
+   (bm, bk) ∈ {8, 32, 64, 128}², d ∈ {41, 256, 602}, f32 and bf16, every
+   epilogue, empty row segments, sentinel padding and ``row_ptr=None``,
+   and the serving forward at full width on a small graph against the
+   same forward on the CPU (the kernels' plain versions);
+4. drive the serving path (``repro_torch.launch.serve_gnn``) at the full
+   width of the repository's GCN (3 layers, hidden 256, block 128) on
+   synthetic Reddit at ``--scale`` (0.1 by default) with the launch counts
+   set to 0 just before and read just after; assert finite logits, query
+   answers equal to the cached logits rows, and kernel launches equal to
+   layers × partitions; compare the kernel with its plain version on the
+   heaviest partition of every layer;
+5. time the kernel, its plain version and ``torch.sparse.mm`` on a BSR
+   tensor of the same operand (a yardstick the port never calls) at the
+   serving path's shapes, work out the card's bound for the same work, and
+   time the stages of one full forward;
+6. print the kernel line, the card line and, last, the result line.
+
+Without a CUDA device it exits with code 2 and prints no result. It
+imports nothing of JAX and nothing of the ``repro`` package.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+KERNEL_SOURCES = ["bcoo_spmm"]          # csrc/<name>.cu on the serving path
+# NVIDIA H100 SXM data sheet (dense, no sparsity), at the full 700 W limit.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12,     # FP32 outside the tensor cores:
+              torch.bfloat16: 989e12}   # TF32 is off, so f32 runs here
+# f32: the kernel and the plain version sum the same f32 products in a
+# different order. bf16: both round an f32 sum once to 8 significant bits,
+# so the order can flip the last bit (2^-7 relative).
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}
+TILES = [(8, 8), (32, 32), (64, 64), (128, 128)]
+WIDTHS = [41, 256, 602]
+EPILOGUES = [(b, r, u) for b in (False, True) for r in (False, True)
+             for u in (False, True)]
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def assert_close(out: torch.Tensor, ref: torch.Tensor, dtype) -> float:
+    """Kernel output against the plain version, in f32; returns the max
+    absolute error."""
+    out, ref = out.float(), ref.float()
+    rtol, atol = TOL[dtype]
+    scale = max(1.0, float(ref.abs().max())) if ref.numel() else 1.0
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol * scale)
+    return float((out - ref).abs().max()) if ref.numel() else 0.0
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean time of ``fn`` on the card from CUDA events over ``reps`` runs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ------------------------------------------------------------------ phases
+
+def build_kernels(build) -> float:
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
+        built = list(ex.map(build.build, KERNEL_SOURCES))
+    secs = time.perf_counter() - t0
+    for name, (path, log) in zip(KERNEL_SOURCES, built):
+        say(f"[build] {name}: {path.name}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                say(f"[build]   {line.strip()}")
+    say(f"[build] {len(KERNEL_SOURCES)} kernel(s) in {secs:.2f} s")
+    return secs
+
+
+def sweep_case(rng, bm, bk, d, dtype, dev, n_rb=6, n_cb=7, n_tiles=14):
+    """A random operand with row block 2 empty, a sentinel inside the
+    first segment and three sentinel pad entries on the last row."""
+    pairs = set()
+    while len(pairs) < n_tiles:
+        r = int(rng.integers(0, n_rb))
+        if r != 2:
+            pairs.add((r, int(rng.integers(0, n_cb))))
+    entries = sorted(pairs)
+    s = len(entries)
+    rows, cols, sel = ([e[0] for e in entries], [e[1] for e in entries],
+                       list(range(s)))
+    sel.insert(1, s)
+    rows.insert(1, rows[0])
+    cols.insert(1, 0)
+    sel, rows, cols = sel + [s] * 3, rows + [rows[-1]] * 3, cols + [0] * 3
+    blocks = rng.standard_normal((s + 1, bm, bk)).astype(np.float32)
+    blocks[s] = 0.0
+
+    def f(x):
+        return torch.from_numpy(x).to(dev, dtype)
+
+    def i(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    return dict(
+        blocks=f(blocks), sel=i(sel), row_ids=i(rows), col_ids=i(cols),
+        h=f(rng.standard_normal((n_cb * bk, d)).astype(np.float32)),
+        bias=f(rng.standard_normal(d).astype(np.float32)),
+        residual=f(rng.standard_normal((n_rb * bm, d)).astype(np.float32)),
+        n_rb=n_rb)
+
+
+def sweep(ops, kmod, bcoo_spmm_ref, plan_row_ptr, dev) -> dict:
+    rng = np.random.default_rng(0)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for bm, bk in TILES:
+        for d in WIDTHS:
+            for dtype in (torch.float32, torch.bfloat16):
+                c = sweep_case(rng, bm, bk, d, dtype, dev)
+                rptr = plan_row_ptr(c["row_ids"], c["n_rb"])
+                runs = [(e, rptr) for e in EPILOGUES] + [(EPILOGUES[-1], None)]
+                for (b, r, u), ptr in runs:
+                    kw = dict(n_row_blocks=c["n_rb"], bm=bm, bk=bk, relu=u,
+                              bias=c["bias"] if b else None,
+                              residual=c["residual"] if r else None)
+                    ids = (c["blocks"], c["sel"], c["row_ids"], c["col_ids"],
+                           c["h"])
+                    before = kmod.launches
+                    out = ops.bcoo_spmm(*ids, row_ptr=ptr, **kw)
+                    torch.cuda.synchronize()
+                    if kmod.launches != before + 1:
+                        raise AssertionError("kernel launch not counted")
+                    ref = bcoo_spmm_ref(*ids, **kw)
+                    if out.dtype != dtype or out.shape != ref.shape:
+                        raise AssertionError(f"got {out.dtype} {out.shape}")
+                    err = assert_close(out, ref, dtype)
+                    worst[dtype] = max(worst[dtype], err)
+                    n += 1
+    say(f"[sweep] {n} cases agree; max abs err f32 "
+        f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}")
+    return {"cases": n, "max_abs_err_f32": worst[torch.float32],
+            "max_abs_err_bf16": worst[torch.bfloat16]}
+
+
+def small_reference(sbm_graph, StreamingInference, StreamConfig,
+                    gcn) -> float:
+    """The serving forward (3 layers, hidden 256, 602 features, 41
+    classes, block 128, 2 partitions) on the card against the same forward
+    on the CPU, on a 1,000-node graph. Tolerance 1e-4·max|logit|: the two
+    sum the same f32 products in different orders."""
+    g = sbm_graph(n_nodes=1000, n_clusters=41, avg_degree=20, feat_dim=602,
+                  seed=0)
+    cfg = dict(block=128, n_partitions=2, memory_budget_mb=None)
+    outs = []
+    for device in ("cpu", "cuda"):
+        net = gcn.init(602, 256, 41, 3, True, seed=0, device=device)
+        outs.append(StreamingInference(
+            g, "gcn", net, StreamConfig(device=device, **cfg)).forward())
+    ref, got = outs
+    scale = float(np.abs(ref).max())
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4 * scale)
+    err = float(np.abs(got - ref).max())
+    say(f"[reference] card forward = CPU forward on 1,000 nodes: max abs "
+        f"err {err:.3e} (max |logit| {scale:.3e})")
+    return err
+
+
+def main_path(serve_gnn, ops, scale: float):
+    argv = ["--dataset", "reddit", "--scale", str(scale), "--model", "gcn",
+            "--layers", "3", "--hidden", "256", "--block", "128",
+            "--memory-budget-mb", "2048", "--replicas", "0",
+            "--train-epochs", "0", "--queries", "256", "--query-batch", "64",
+            "--device", "cuda"]
+    args = serve_gnn.build_parser().parse_args(argv)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    report, server = serve_gnn.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    si = server.si
+    want = args.layers * si.n_partitions
+    say(f"[serve] {report['n_nodes']} nodes, {si.n_partitions} partitions, "
+        f"{si.host.s_total} tiles, build {server.build_seconds:.2f} s, "
+        f"run {wall:.2f} s, launches {counts}")
+    if counts["bcoo_spmm"] != want:
+        raise AssertionError(f"bcoo_spmm launched {counts['bcoo_spmm']} "
+                             f"times, expected layers x partitions = {want}")
+    logits = si.logits
+    if logits.shape != (si.host.n_rows, 41) or not np.isfinite(logits).all():
+        raise AssertionError(f"logits {logits.shape} not finite/shaped")
+    rng = np.random.default_rng(1)
+    for _ in range(4):
+        ids = rng.integers(0, si.n_valid, 64)
+        got = server.query(ids)
+        if not np.array_equal(got, logits[si.pos[ids]]):
+            raise AssertionError("query answers differ from cached logits")
+    return report, server, counts["bcoo_spmm"], wall
+
+
+def bsr_operand(blocks, plan, nb_pad, bm, n_cols):
+    """The partition's real tiles as a torch BSR tensor (yardstick only)."""
+    keep = plan.sel != blocks.shape[0] - 1
+    rows = plan.row_ids[keep].long()
+    crow = torch.zeros(nb_pad + 1, dtype=torch.int64, device=blocks.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=nb_pad), 0)
+    return torch.sparse_bsr_tensor(
+        crow, plan.col_ids[keep].long(), blocks[plan.sel[keep].long()],
+        size=(nb_pad * bm, n_cols), check_invariants=True)
+
+
+def layer_checks(server, ops, kmod, bcoo_spmm_ref, gcn) -> list[dict]:
+    """Kernel vs plain version on the heaviest partition of every layer,
+    then timings of kernel, plain version and BSR ``sparse.mm`` there."""
+    si, params = server.si, server.si.params
+    bm, bk = si.host.bm, si.host.bk
+    p = max(si.parts, key=lambda q: q.n_active)
+    nb_pad = p.row_ptr.shape[0] - 1
+    rows = []
+    for l in range(si.n_layers):
+        with torch.inference_mode():
+            blocks, plan = si.upload(p)
+            slab = si.gather(p, si.layer_store[l], gcn.infer_pre(params, l))
+            args = (blocks, plan.sel, plan.row_ids, plan.col_ids, slab)
+            kw = dict(n_row_blocks=nb_pad, bm=bm, bk=bk)
+            out = ops.bcoo_spmm(*args, row_ptr=plan.row_ptr, **kw)
+            ref = bcoo_spmm_ref(*args, **kw)
+            err = assert_close(out, ref, torch.float32)
+            if l == si.n_layers - 1:
+                # the served logits of this partition are this output
+                torch.testing.assert_close(
+                    torch.from_numpy(si.logits[p.out_rows]),
+                    out[: p.n_rows].cpu(), rtol=1e-6, atol=1e-6)
+            d = slab.shape[1]
+            bd = ops.resolve_bd(None, d)
+            buf = torch.empty_like(out)
+            ms = cuda_ms(lambda: kmod.launch(
+                blocks, plan.sel, plan.col_ids, plan.row_ptr, slab, None,
+                None, buf, bm=bm, bk=bk, bd=bd, relu=False), reps=20)
+            plain_ms = cuda_ms(lambda: bcoo_spmm_ref(*args, **kw), reps=3,
+                               warmup=1)
+            bsr = bsr_operand(blocks, plan, nb_pad, bm, slab.shape[0])
+            lib_out = torch.sparse.mm(bsr, slab)
+            assert_close(lib_out, ref, torch.float32)
+            library_ms = cuda_ms(lambda: torch.sparse.mm(bsr, slab), reps=5,
+                                 warmup=1)
+        es = blocks.element_size()
+        n_active = p.n_active
+        nbytes = (n_active * bm * bk * es             # tiles, read once
+                  + p.n_gather * bk * d * es          # gathered h rows
+                  + nb_pad * bm * d * es              # output, written once
+                  + (2 * plan.s_pad + nb_pad + 1) * 4)  # sel, col_ids, ptr
+        flops = 2 * n_active * bm * bk * d
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[blocks.dtype] * 1e3
+        row = dict(layer=l, d=d, bd=bd, bm=bm, bk=bk, nb_pad=nb_pad,
+                   s_pad=plan.s_pad, n_active=n_active, n_gather=p.n_gather,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bytes=nbytes, flops=flops,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   tflops=flops / ms / 1e9)
+        rows.append(row)
+        say(f"[layer {l}] d={d} n_active={n_active} s_pad={plan.s_pad} "
+            f"err={err:.3e} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bsr {library_ms:.3f} ms, bound {row['bound_ms']:.3f} ms "
+            f"({row['bound_by']}), {row['tflops']:.2f} TFLOP/s")
+        del blocks, plan, slab, out, ref, buf, bsr, lib_out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def forward_stages(server, gcn) -> dict:
+    """One more full forward, each stage timed on the host clock after a
+    synchronize: where a serving build spends its time."""
+    from repro_torch.core.rsc_spmm import spmm_apply
+    si, params = server.si, server.si.params
+    bm, bk = si.host.bm, si.host.bk
+    t = dict(upload=0.0, premap=0.0, spmm=0.0, download=0.0, host=0.0)
+    clock = time.perf_counter
+    t_all = clock()
+    with torch.inference_mode():
+        h, ctx = gcn.infer_init(params, si.features)
+        for l in range(si.n_layers):
+            out = None
+            for p in si.parts:
+                t0 = clock()
+                blocks, plan = si.upload(p)
+                raw = torch.from_numpy(np.ascontiguousarray(
+                    h[p.gather_rows])).to(si.device)
+                torch.cuda.synchronize()
+                t1 = clock()
+                fn, lin = gcn.infer_pre(params, l)
+                slab = fn(lin, raw)
+                torch.cuda.synchronize()
+                t2 = clock()
+                res = spmm_apply(blocks, plan, slab, p.row_ptr.shape[0] - 1,
+                                 bm, bk, "kernel")
+                torch.cuda.synchronize()
+                t3 = clock()
+                res = res.cpu().numpy()
+                t4 = clock()
+                if out is None:
+                    out = np.zeros((si.host.n_rows, res.shape[1]), np.float32)
+                out[p.out_rows] = res[: p.n_rows]
+                t["upload"] += t1 - t0
+                t["premap"] += t2 - t1
+                t["spmm"] += t3 - t2
+                t["download"] += t4 - t3
+            t0 = clock()
+            h, _ = gcn.infer_post(params, l, out, h, ctx, si.valid, None)
+            t["host"] += clock() - t0
+    total = clock() - t_all
+    np.testing.assert_allclose(h, si.logits, rtol=1e-5, atol=1e-5)
+    stages = {k: v * 1e3 for k, v in t.items()}
+    stages["total"] = total * 1e3
+    stages["device_share"] = (t["premap"] + t["spmm"]) / total
+    say("[stages] " + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items()
+                                if k != "device_share")
+        + f", device share {stages['device_share']:.3f}")
+    return stages
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--scale", type=float, default=0.1,
+                    help="synthetic Reddit scale of the serving run")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    smi = nvidia_smi()
+    say(f"[card] {smi}")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.plan import plan_row_ptr
+    from repro_torch.graphs.synthetic import sbm_graph
+    from repro_torch.infer import StreamConfig, StreamingInference
+    from repro_torch.kernels import bcoo_spmm as kmod
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.ref import bcoo_spmm_ref
+    from repro_torch.launch import serve_gnn
+    from repro_torch.models.gnn import gcn
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_s = build_kernels(build)
+    sweep_res = sweep(ops, kmod, bcoo_spmm_ref, plan_row_ptr, dev)
+    ref_err = small_reference(sbm_graph, StreamingInference, StreamConfig,
+                              gcn)
+    report, server, launches, run_s = main_path(serve_gnn, ops, args.scale)
+    rows = layer_checks(server, ops, kmod, bcoo_spmm_ref, gcn)
+    stages = forward_stages(server, gcn)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    if bad:
+        raise AssertionError(f"JAX or the reference was imported: {bad}")
+
+    hidden = next(r for r in rows if r["d"] == 256)
+    kernels = [{
+        "name": "bcoo_spmm", "route": "cuda",
+        "source": "src/repro_torch/csrc/bcoo_spmm.cu",
+        "replaces": "src/repro/kernels/bcoo_spmm.py:51",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": hidden["ms"], "plain_ms": hidden["plain_ms"],
+        "bound_ms": hidden["bound_ms"], "bound_by": hidden["bound_by"],
+        "library_ms": hidden["library_ms"]}]
+    say(json.dumps({"slice": {
+        "build_kernels_s": build_s, "serve_run_s": run_s,
+        "cache_build_s": report["cache_build_s"],
+        "queries_per_s": report["queries_per_s"],
+        "n_nodes": report["n_nodes"], "n_partitions": report["n_partitions"],
+        "sweep": sweep_res, "small_reference_max_abs_err": ref_err,
+        "stages_ms": stages}}))
+    say(json.dumps({"bcoo_spmm_shapes": rows}))
+    say(json.dumps({"kernels": kernels}))
+    say(smi)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

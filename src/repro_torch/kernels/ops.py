@@ -1,0 +1,64 @@
+"""Public dispatch for the hand-written kernels.
+
+``bcoo_spmm`` picks the column tile ``bd`` the way ``repro.kernels.ops``
+does (the reference's heuristic default when none is given, the ``gcd``
+fallback when a given ``bd`` does not divide ``d``) and calls the kernel
+wrapper, which launches the CUDA kernel for a CUDA tensor and runs the
+plain version for a CPU tensor. There is no autotuner yet: ``bd`` comes
+from the heuristic or the caller.
+"""
+from __future__ import annotations
+
+import logging
+import math
+
+from repro_torch.kernels import bcoo_spmm as _bcoo
+
+logger = logging.getLogger(__name__)
+
+DEFAULT_BD = 512
+_bd_fallback_logged: set[tuple[int, int]] = set()
+
+
+def default_bd(d: int) -> int:
+    """The reference's heuristic column tile: ``min(512, d)``, or the
+    whole of ``d`` when that does not divide it."""
+    bd = min(DEFAULT_BD, d)
+    return d if d % bd else bd
+
+
+def resolve_bd(bd: int | None, d: int) -> int:
+    if bd is None:
+        bd = default_bd(d)
+    bd = min(bd, d)
+    if d % bd:
+        # A requested bd that does not divide d falls back to the largest
+        # common tile rather than failing dispatch; logged once per (bd, d).
+        fell = math.gcd(bd, d)
+        if (bd, d) not in _bd_fallback_logged:
+            _bd_fallback_logged.add((bd, d))
+            logger.info("bd=%d does not divide d=%d; dispatching gcd tile "
+                        "bd=%d instead", bd, d, fell)
+        bd = fell
+    return bd
+
+
+def bcoo_spmm(blocks, sel, row_ids, col_ids, h, *, n_row_blocks, bm, bk,
+              bd: int | None = None, row_ptr=None, bias=None, residual=None,
+              relu: bool = False):
+    if h.dim() != 2 or h.shape[-1] < 1:
+        raise ValueError(f"h must be (n_cols, d) with d >= 1, got "
+                         f"{tuple(h.shape)}")
+    return _bcoo.bcoo_spmm(
+        blocks, sel, row_ids, col_ids, h, n_row_blocks=n_row_blocks,
+        bm=bm, bk=bk, bd=resolve_bd(bd, h.shape[-1]), row_ptr=row_ptr,
+        bias=bias, residual=residual, relu=relu)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per kernel since the last reset."""
+    return {"bcoo_spmm": _bcoo.launches}
+
+
+def reset_launch_counts() -> None:
+    _bcoo.reset_launches()

@@ -1,0 +1,104 @@
+"""GCN (Kipf & Welling 2017) — paper Eq. 1, full-batch.
+
+Layer l:  H^{l+1} = ReLU(BN(SpMM(Ã, H^l Θ^l + b^l)))   (no ReLU/BN on the last)
+
+``GCN`` holds the parameters; the streaming-inference hooks below run the
+forward with the SpMM on the device and the row ops on the host, as the
+reference's hooks (``repro/models/gnn/gcn.py``) do.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models.gnn import common as C
+
+
+class GCN(nn.Module):
+    """``lin[l]`` maps ``dims[l] → dims[l+1]``; ``bn[str(l)]`` exists for
+    the hidden layers that carry batchnorm.
+
+    ``nn.Linear.weight`` is ``(d_out, d_in)``, the transpose of the
+    reference's ``w``; ``convert.gnn_params_from_numpy`` transposes once.
+    """
+
+    def __init__(self, dims: list[int], batchnorm: bool, *,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        n_layers = len(dims) - 1
+        self.lin = nn.ModuleList(
+            nn.utils.skip_init(nn.Linear, dims[l], dims[l + 1],
+                               device=device)
+            for l in range(n_layers))
+        self.bn = nn.ModuleDict(
+            {str(l): C.GraphBatchNorm(dims[l + 1], device=device)
+             for l in range(n_layers - 1) if batchnorm})
+        self.reset_parameters(generator if generator is not None
+                              else torch.Generator().manual_seed(0))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """He-normal weights ``N(0, 2/d_in)`` and zero biases, drawn from
+        ``generator`` (the reference's ``dense_init`` scheme; the draws
+        differ from JAX's, so parity tests carry weights across with
+        ``convert.gnn_params_from_numpy``)."""
+        for lin in self.lin:
+            w = torch.randn(lin.in_features, lin.out_features,
+                            generator=generator)
+            lin.weight.copy_(w.t() * math.sqrt(2.0 / lin.in_features))
+            lin.bias.zero_()
+
+    def batchnorm(self, l: int) -> C.GraphBatchNorm | None:
+        return self.bn[str(l)] if str(l) in self.bn else None
+
+
+def init(d_in: int, hidden: int, n_classes: int, n_layers: int,
+         batchnorm: bool, *, seed: int = 0, device="cpu") -> GCN:
+    """A seeded GCN: ``n_layers`` layers, ``hidden`` wide, on ``device``."""
+    dims = [d_in] + [hidden] * (n_layers - 1) + [n_classes]
+    gen = torch.Generator().manual_seed(seed)
+    return GCN(dims, batchnorm, generator=gen, device=device)
+
+
+def uses_mean_agg() -> bool:
+    return False
+
+
+# ---------------------- streaming-inference hooks --------------------------
+# (protocol in models/gnn/common.py; orchestration in infer/stream.py)
+
+def infer_n_layers(model: GCN) -> int:
+    return len(model.lin)
+
+
+def infer_spmm_dims(model: GCN, feat_dim: int) -> list[int]:
+    # layer l's SpMM consumes lin[l](h): dim = lin[l] output width
+    return [lin.out_features for lin in model.lin]
+
+
+def infer_init(model: GCN, feats):
+    return np.asarray(feats, np.float32), None
+
+
+def _pre(lin: nn.Linear, h: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(h, lin.weight.t()) + lin.bias
+
+
+def infer_pre(model: GCN, l: int):
+    return _pre, model.lin[l]
+
+
+def infer_post(model: GCN, l: int, p, h, ctx, valid, bn_stats=None):
+    if l == len(model.lin) - 1:
+        return p, None
+    bn = model.batchnorm(l)
+    if bn is not None:
+        p, bn_stats = C.np_batchnorm(bn.host_params(), p, valid, bn_stats)
+    return np.maximum(p, 0.0).astype(np.float32), bn_stats
+
+
+def infer_out(model: GCN, h, ctx):
+    return h

@@ -1,0 +1,189 @@
+"""Block-COO: the tiled sparse format the SpMM kernel consumes.
+
+A sparse matrix is stored as a list of dense (bm, bk) tiles:
+
+    blocks:  (S+1, bm, bk)  — value tiles; entry S is an all-zero SENTINEL
+    row_ids: (S,) int32     — tile row-block coordinate, sorted ascending
+    col_ids: (S,) int32     — tile column-block coordinate
+
+Sampling never moves tile data: a sampled operand is a new index list into
+``blocks`` (a ``SamplePlan``), with padding entries pointing at the sentinel.
+
+The host side (``host_row_ptr``, ``BlockMeta``, ``HostBlockCOO``,
+``csr_to_bcoo_host``, ``degree_sort_permutation``) is a copy of
+``repro.sparse.bcoo`` and yields bit-identical arrays. The device operand
+``BlockCOO`` is a dataclass of torch tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.sparse.csr import CSR
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def host_row_ptr(row_ids: np.ndarray, n_row_blocks: int) -> np.ndarray:
+    """CSR-of-tiles pointers from sorted row ids (host, O(n log s))."""
+    return np.searchsorted(
+        row_ids, np.arange(n_row_blocks + 1)).astype(np.int32)
+
+
+def _expand_ranges(starts: np.ndarray, ends: np.ndarray) -> np.ndarray:
+    """Concatenate ``arange(starts[i], ends[i])`` without a Python loop."""
+    counts = (ends - starts).astype(np.int64)
+    total = int(counts.sum())
+    if total == 0:
+        return np.empty(0, dtype=np.int64)
+    offs = np.repeat(np.cumsum(counts) - counts, counts)
+    return np.repeat(starts.astype(np.int64), counts) \
+        + (np.arange(total) - offs)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockCOO:
+    """Device block-COO sparse matrix (torch tensors on one device).
+
+    ``blocks`` has ``s_total + 1`` tiles; index ``s_total`` is the zero
+    sentinel used by sampled plans for padding. ``row_ptr`` is the
+    CSR-of-tiles pointer array: tiles of row block ``r`` are
+    ``[row_ptr[r], row_ptr[r+1])`` in the sorted id lists. Id lists are
+    int32, as in the reference; index sites cast them to int64.
+    """
+
+    blocks: torch.Tensor     # (s_total + 1, bm, bk)
+    row_ids: torch.Tensor    # (s_total,) int32, sorted ascending
+    col_ids: torch.Tensor    # (s_total,) int32
+    bm: int
+    bk: int
+    n_rows: int              # padded logical row count (multiple of bm)
+    n_cols: int              # padded logical col count (multiple of bk)
+    n_row_blocks: int
+    n_col_blocks: int
+    s_total: int             # number of real (non-sentinel) tiles
+    row_ptr: torch.Tensor | None = None  # (n_row_blocks + 1,) int32
+
+    def nbytes(self) -> int:
+        return self.blocks.numel() * self.blocks.element_size()
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockMeta:
+    """Host-side planner metadata for one BlockCOO operand."""
+
+    row_ids: np.ndarray          # (s_total,) int32, sorted by row
+    col_ids: np.ndarray          # (s_total,) int32
+    # tiles-per-column-block: the Eq. 4b cost unit (each tile costs
+    # 2*bm*bk*d FLOPs in an SpMM against a (n_cols, d) dense operand).
+    col_block_tiles: np.ndarray  # (n_col_blocks,) int64
+    # Σ_{column i in block} ‖A_{:,i}‖₂  — the static half of Eq. 3 scores.
+    col_block_norm: np.ndarray   # (n_col_blocks,) float32
+    # per-column nnz — exact Eq. 4b cost for the reference (unblocked) path
+    col_nnz: np.ndarray          # (n_cols_unpadded,) int64
+    col_norm: np.ndarray         # (n_cols_unpadded,) float32
+
+
+@dataclasses.dataclass(frozen=True)
+class HostBlockCOO:
+    """Host (numpy) mirror of :class:`BlockCOO`.
+
+    ``blocks`` carries the trailing zero sentinel, exactly like the device
+    layout; ``to_device`` is where host tiles cross to the card.
+    """
+
+    blocks: np.ndarray    # (s_total + 1, bm, bk) float32, incl. sentinel
+    row_ids: np.ndarray   # (s_total,) int32, sorted ascending
+    col_ids: np.ndarray   # (s_total,) int32
+    bm: int
+    bk: int
+    n_rows: int
+    n_cols: int
+    n_row_blocks: int
+    n_col_blocks: int
+    s_total: int
+    row_ptr: np.ndarray | None = None  # (n_row_blocks + 1,) int32
+
+    def to_device(self, device: str | torch.device,
+                  dtype: torch.dtype = torch.float32) -> BlockCOO:
+        row_ptr = (self.row_ptr if self.row_ptr is not None
+                   else host_row_ptr(self.row_ids, self.n_row_blocks))
+        return BlockCOO(
+            blocks=torch.as_tensor(self.blocks).to(device=device,
+                                                   dtype=dtype),
+            row_ids=torch.as_tensor(self.row_ids).to(device),
+            col_ids=torch.as_tensor(self.col_ids).to(device),
+            bm=self.bm, bk=self.bk,
+            n_rows=self.n_rows, n_cols=self.n_cols,
+            n_row_blocks=self.n_row_blocks, n_col_blocks=self.n_col_blocks,
+            s_total=self.s_total,
+            row_ptr=torch.as_tensor(row_ptr).to(device))
+
+    def nbytes(self) -> int:
+        return self.blocks.nbytes
+
+
+def degree_sort_permutation(adj: CSR) -> np.ndarray:
+    """Relabel nodes by descending degree.
+
+    Returns ``perm`` with ``perm[new] = old``. Degree-sorted labeling makes
+    128-wide column blocks degree-homogeneous, so block-granular top-k
+    approximates per-column top-k well.
+    """
+    deg = adj.row_nnz()
+    # stable sort for determinism
+    return np.argsort(-deg, kind="stable").astype(np.int64)
+
+
+def csr_to_bcoo_host(
+    csr: CSR,
+    bm: int = 128,
+    bk: int = 128,
+) -> tuple[HostBlockCOO, BlockMeta]:
+    """Convert host CSR to host block-COO + planner metadata (no device)."""
+    n_rows_p = _ceil_to(max(csr.n_rows, 1), bm)
+    n_cols_p = _ceil_to(max(csr.n_cols, 1), bk)
+    n_rb, n_cb = n_rows_p // bm, n_cols_p // bk
+
+    rows = np.repeat(np.arange(csr.n_rows, dtype=np.int64), csr.row_nnz())
+    cols = csr.col.astype(np.int64)
+    rb, cb = rows // bm, cols // bk
+    key = rb * n_cb + cb
+    uniq, inverse = np.unique(key, return_inverse=True)
+    s_total = int(uniq.shape[0])
+
+    blocks = np.zeros((s_total + 1, bm, bk), dtype=np.float32)
+    np.add.at(blocks, (inverse, rows % bm, cols % bk), csr.val)
+
+    u_rb = (uniq // n_cb).astype(np.int32)
+    u_cb = (uniq % n_cb).astype(np.int32)
+    # np.unique returns sorted keys => already sorted by (row_block, col_block)
+
+    col_block_tiles = np.zeros(n_cb, dtype=np.int64)
+    np.add.at(col_block_tiles, u_cb, 1)
+
+    col_norm = csr.column_norms()
+    col_nnz = csr.column_nnz()
+    cb_of_col = np.arange(csr.n_cols) // bk
+    col_block_norm = np.zeros(n_cb, dtype=np.float64)
+    np.add.at(col_block_norm, cb_of_col, col_norm.astype(np.float64))
+
+    host = HostBlockCOO(
+        blocks=blocks, row_ids=u_rb, col_ids=u_cb,
+        bm=bm, bk=bk,
+        n_rows=n_rows_p, n_cols=n_cols_p,
+        n_row_blocks=n_rb, n_col_blocks=n_cb,
+        s_total=s_total,
+        row_ptr=host_row_ptr(u_rb, n_rb),
+    )
+    meta = BlockMeta(
+        row_ids=u_rb, col_ids=u_cb,
+        col_block_tiles=col_block_tiles,
+        col_block_norm=col_block_norm.astype(np.float32),
+        col_nnz=col_nnz, col_norm=col_norm,
+    )
+    return host, meta

@@ -62,3 +62,5 @@ def random_csr(n: int, density: float, seed: int = 0,
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long end-to-end subprocess runs")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
