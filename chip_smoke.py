@@ -7,25 +7,43 @@ Phases, in order; any failure ends the run with a non-zero exit and
 without the final ``{"ok": true, ...}`` line:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel of the serving path from ``src/repro_torch/csrc``
+2. build every CUDA kernel of the port from ``src/repro_torch/csrc``
    with ``nvcc`` (one ``nvcc`` per source, all started together);
-3. hold ``bcoo_spmm`` against its plain PyTorch version on the card over
-   (bm, bk) ∈ {8, 32, 64, 128}², d ∈ {41, 256, 602}, f32 and bf16, every
-   epilogue, empty row segments, sentinel padding and ``row_ptr=None``,
-   and the serving forward at full width on a small graph against the
-   same forward on the CPU (the kernels' plain versions);
-4. drive the serving path (``repro_torch.launch.serve_gnn``) at the full
-   width of the repository's GCN (3 layers, hidden 256, block 128) on
+3. GCN serving (``bcoo_spmm``): hold the kernel against its plain PyTorch
+   version on the card over (bm, bk) ∈ {8, 32, 64, 128}², d ∈ {41, 256,
+   602}, f32 and bf16, every epilogue, empty row segments, sentinel
+   padding and ``row_ptr=None``, and the serving forward at full width on
+   a small graph against the same forward on the CPU (the kernels' plain
+   versions);
+4. drive the GCN serving path (``repro_torch.launch.serve_gnn``) at the
+   full width of the repository's GCN (3 layers, hidden 256, block 128) on
    synthetic Reddit at ``--scale`` (0.1 by default) with the launch counts
    set to 0 just before and read just after; assert finite logits, query
    answers equal to the cached logits rows, and kernel launches equal to
    layers × partitions; compare the kernel with its plain version on the
    heaviest partition of every layer;
-5. time the kernel, its plain version and ``torch.sparse.mm`` on a BSR
+5. time ``bcoo_spmm``, its plain version and ``torch.sparse.mm`` on a BSR
    tensor of the same operand (a yardstick the port never calls) at the
    serving path's shapes, work out the card's bound for the same work, and
    time the stages of one full forward;
-6. print the kernel line, the card line and, last, the result line.
+6. LM serving (``flash_attention``): sweep the kernel against its plain
+   version over b ∈ {1, 2}, (nq, nkv) ∈ {(16, 8), (14, 2), (4, 4), (8, 1)},
+   hd ∈ {64, 128}, f32 and bf16, tq = tk ∈ {1, 7, 64, 257, 1024} and
+   tq < tk with q_offset = tk − tq, window ∈ {None, 16, 100}, causal and
+   not; then prefill + 8 greedy decode steps of the f32 smoke qwen3-1.7b on
+   the card against the same run on the CPU;
+7. drive the LM serving path (``repro_torch.launch.serve``) at the full
+   width of qwen3-1.7b (28 layers, d_model 2048, bf16, seeded random
+   weights) with batch 4, a 4,096-token prompt and 32 generated tokens,
+   launch counts set to 0 just before and read just after; assert 28
+   kernel launches in the prefill and none in decode, finite logits, a
+   (4, 32) token block, and the kernel against its plain version on the
+   first layer's own q/k/v;
+8. time the flash kernel, its plain version and
+   ``scaled_dot_product_attention`` (a yardstick the port never calls) at
+   the main path's shape and at one 32,768-token row, with the card's
+   bound; time a warm prefill and decode;
+9. print the kernel line, the card line and, last, the result line.
 
 Without a CUDA device it exits with code 2 and prints no result. It
 imports nothing of JAX and nothing of the ``repro`` package.
@@ -33,6 +51,8 @@ imports nothing of JAX and nothing of the ``repro`` package.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -44,7 +64,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-KERNEL_SOURCES = ["bcoo_spmm"]          # csrc/<name>.cu on the serving path
+KERNEL_SOURCES = ["bcoo_spmm", "flash_attention"]   # csrc/<name>.cu
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at the full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,     # FP32 outside the tensor cores:
@@ -57,6 +77,22 @@ TILES = [(8, 8), (32, 32), (64, 64), (128, 128)]
 WIDTHS = [41, 256, 602]
 EPILOGUES = [(b, r, u) for b in (False, True) for r in (False, True)
              for u in (False, True)]
+# Flash attention, scaled to each output row, since a row's size falls as
+# 1/sqrt(keys it sees): element-wise |out - ref| <= atol_row + 2e-2·|ref|
+# with atol_row = min(FLASH_ATOL, FLASH_ROW·rms(ref row)), FLASH_ATOL being
+# tests/test_kernels.py's flash tolerances; and for each row
+# ||out - ref|| <= FLASH_ROW_L2·||ref||. In bf16 the kernel rounds P to
+# bf16 before P·V and both sides round the output once (a few 1e-3 of a
+# row's norm); in f32 the two sum in other orders.
+FLASH_ATOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+FLASH_ROW = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+FLASH_ROW_L2 = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+FLASH_RTOL = 2e-2
+FLASH_HEADS = [(16, 8), (14, 2), (4, 4), (8, 1)]
+FLASH_LENGTHS = [(t, t) for t in (1, 7, 64, 257, 1024)] + [
+    (1, 257), (7, 1024), (64, 257), (257, 1024)]      # (tq, tk)
+LM_ARGV = ["--arch", "qwen3-1.7b", "--batch", "4", "--prompt-len", "4096",
+           "--gen", "32", "--device", "cuda"]
 
 
 def say(msg: str) -> None:
@@ -355,6 +391,218 @@ def forward_stages(server, gcn) -> dict:
     return stages
 
 
+# ------------------------------------------------------------ LM phases
+
+def flash_close(out, ref, dtype) -> tuple[float, float]:
+    """Flash kernel against its plain version, in f32, by the row-scaled
+    rule above; returns the max absolute error and the max row-relative
+    L2 error."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    rms = ref.square().mean(-1, keepdim=True).sqrt()
+    atol = (FLASH_ROW[dtype] * rms).clamp(max=FLASH_ATOL[dtype])
+    bad = err > atol + FLASH_RTOL * ref.abs()
+    rel = (err.norm(dim=-1) / ref.norm(dim=-1).clamp(min=1e-30)).max()
+    if bad.any() or rel > FLASH_ROW_L2[dtype]:
+        raise AssertionError(
+            f"flash kernel != plain version: {int(bad.sum())} of "
+            f"{bad.numel()} elements out of tolerance, max abs err "
+            f"{float(err.max()):.3e}, max row-relative L2 err "
+            f"{float(rel):.3e} (limit {FLASH_ROW_L2[dtype]:.0e})")
+    return float(err.max()), float(rel)
+
+
+def randn(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def flash_sweep(ops, fmod, flash_attention_ref, dev) -> dict:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+    n = 0
+    for b in (1, 2):
+        for nq, nkv in FLASH_HEADS:
+            for hd in (64, 128):
+                for dtype in (torch.float32, torch.bfloat16):
+                    for tq, tk in FLASH_LENGTHS:
+                        q = randn(gen, (b, tq, nq, hd), dtype, dev)
+                        k = randn(gen, (b, tk, nkv, hd), dtype, dev)
+                        v = randn(gen, (b, tk, nkv, hd), dtype, dev)
+                        for window in (None, 16, 100):
+                            for causal in (True, False):
+                                kw = dict(q_offset=tk - tq, causal=causal,
+                                          window=window)
+                                before = fmod.launches
+                                out = ops.flash_attention(q, k, v, **kw)
+                                torch.cuda.synchronize()
+                                if fmod.launches != before + 1:
+                                    raise AssertionError(
+                                        "kernel launch not counted")
+                                if out.dtype != dtype or \
+                                        out.shape != q.shape:
+                                    raise AssertionError(
+                                        f"got {out.dtype} {out.shape}")
+                                errs = flash_close(
+                                    out, flash_attention_ref(q, k, v, **kw),
+                                    dtype)
+                                worst[dtype] = [max(a, e) for a, e in
+                                                zip(worst[dtype], errs)]
+                                n += 1
+    f32, bf16 = worst[torch.float32], worst[torch.bfloat16]
+    say(f"[flash sweep] {n} cases agree; max abs err f32 {f32[0]:.3e}, "
+        f"bf16 {bf16[0]:.3e}; max row-relative L2 err f32 {f32[1]:.3e}, "
+        f"bf16 {bf16[1]:.3e}")
+    return {"cases": n, "max_abs_err_f32": f32[0], "max_abs_err_bf16": bf16[0],
+            "max_row_rel_err_f32": f32[1], "max_row_rel_err_bf16": bf16[1]}
+
+
+def lm_small_reference(serve, smoke_config, make_batch, init_params,
+                       dev) -> float:
+    """Prefill + 8 greedy decode steps of the f32 smoke qwen3-1.7b (2
+    layers, d_model 64, hd 16) on the card against the same run on the CPU
+    (plain versions), one parameter set on both. Logits within
+    1e-4·max|logit| (the two sum the same f32 products in other orders)
+    and identical tokens."""
+    cfg = dataclasses.replace(smoke_config("qwen3-1.7b"), dtype="float32")
+    net = init_params(cfg, seed=0, device="cpu")
+    runs = []
+    for d, params in (("cpu", net), (dev, copy.deepcopy(net).to(dev))):
+        prompt = make_batch(cfg, "prefill_32k", 4, 64, seed=0, device=d)
+        toks, _, rec = serve.greedy_generate(cfg, params, prompt, 74, 9)
+        runs.append((toks, rec))
+    (ctoks, crec), (gtoks, grec) = runs
+    if grec["launches"]["prefill"]["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"smoke prefill launched {grec['launches']}")
+    if not torch.equal(ctoks, gtoks):
+        raise AssertionError(f"tokens differ:\n{ctoks}\n{gtoks}")
+    err, scale = 0.0, 0.0
+    for phase in ("prefill", "last"):
+        ref = crec["logits"][phase]
+        got = grec["logits"][phase].cpu()
+        scale = max(scale, float(ref.abs().max()))
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()))
+        err = max(err, float((got - ref).abs().max()))
+    say(f"[lm reference] smoke qwen3-1.7b f32, 8 decode steps: card = CPU, "
+        f"tokens identical, max abs logit err {err:.3e} (max |logit| "
+        f"{scale:.3e})")
+    return err
+
+
+def lm_main_path(serve, ops):
+    args = serve.build_parser().parse_args(LM_ARGV)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    cfg, rec = out["cfg"], out
+    say(f"[lm serve] {cfg.name}: {json.dumps(out['report'])}, run "
+        f"{wall:.2f} s, launches {counts}, by phase {rec['launches']}")
+    if rec["launches"]["prefill"]["flash_attention"] != cfg.n_layers or \
+            rec["launches"]["decode"]["flash_attention"] != 0 or \
+            counts["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"flash_attention launches {rec['launches']}, "
+                             f"expected {cfg.n_layers} per prefill and 0 in "
+                             f"decode")
+    for phase, lg in rec["logits"].items():
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"{phase} logits not finite")
+    if tuple(out["tokens"].shape) != (args.batch, args.gen):
+        raise AssertionError(f"tokens {tuple(out['tokens'].shape)}")
+    return out, counts["flash_attention"], wall
+
+
+def first_layer_qkv(out, apply_norm, project_qkv):
+    """Layer 0's q, k, v of the served prompt, recomputed from the same
+    parameters and tokens."""
+    cfg, net = out["cfg"], out["params"]
+    tokens = out["prompt"]["tokens"]
+    with torch.inference_mode():
+        h = net.embed[tokens.long()]
+        hn = apply_norm(net.layers[0].ln1, h, cfg.norm_eps)
+        pos = torch.arange(tokens.shape[1], dtype=torch.int32,
+                           device=tokens.device)
+        return project_qkv(net.layers[0].attn, cfg, hn, pos)
+
+
+def flash_row(q, k, v, fmod, flash_attention_ref, q_chunk, reps) -> dict:
+    """Kernel vs plain version, then the times of kernel, plain version
+    and SDPA (causal, GQA) on these inputs, and the card's bound."""
+    F = torch.nn.functional
+    with torch.inference_mode():
+        got = fmod.flash_attention(q, k, v, causal=True)
+        ref = flash_attention_ref(q, k, v, causal=True, q_chunk=q_chunk)
+        err, rel = flash_close(got, ref, q.dtype)
+        buf = torch.empty_like(q)
+        ms = cuda_ms(lambda: fmod.launch(q, k, v, buf, q_offset=0,
+                                         causal=True, window=None), reps)
+        plain_ms = cuda_ms(lambda: flash_attention_ref(
+            q, k, v, causal=True, q_chunk=q_chunk), reps=2, warmup=1)
+        del got
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        lib_err = float((lib.transpose(1, 2).float() - ref.float())
+                        .abs().max())
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps)
+    b, t, nq, hd = q.shape
+    nkv = k.shape[2]
+    pairs = t * (t + 1) // 2                  # unmasked (q, k) pairs
+    flops = 4 * b * nq * hd * pairs
+    es = q.element_size()
+    nbytes = (2 * b * t * nq * hd + 2 * b * t * nkv * hd) * es
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    row = dict(b=b, t=t, nq=nq, nkv=nkv, hd=hd, dtype=str(q.dtype),
+               max_abs_err=err, max_row_rel_err=rel,
+               sdpa_max_abs_err=lib_err, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, flops=flops,
+               bytes=nbytes, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               tflops=flops / ms / 1e9)
+    say(f"[flash {b}x{t}] err={err:.3e} row-rel={rel:.3e} kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+        f"{row['tflops']:.2f} TFLOP/s")
+    return row
+
+
+def lm_timings(out, serve, fmod, flash_attention_ref, apply_norm,
+               project_qkv) -> tuple[list[dict], dict]:
+    q, k, v = first_layer_qkv(out, apply_norm, project_qkv)
+    rows = [flash_row(q, k, v, fmod, flash_attention_ref, None, reps=20)]
+    del q, k, v
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    t = 32768
+    q = randn(gen, (1, t, 16, 128), torch.bfloat16, "cuda")
+    k = randn(gen, (1, t, 8, 128), torch.bfloat16, "cuda")
+    v = randn(gen, (1, t, 8, 128), torch.bfloat16, "cuda")
+    rows.append(flash_row(q, k, v, fmod, flash_attention_ref, 1024, reps=3))
+    del q, k, v
+    torch.cuda.empty_cache()
+    # a warm prefill + decode with the main path's parameters and prompt
+    args = serve.build_parser().parse_args(LM_ARGV)
+    _, stats, _ = serve.greedy_generate(
+        out["cfg"], out["params"], out["prompt"],
+        args.prompt_len + args.gen + 1, args.gen)
+    warm = {"prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+            "tok_per_s": stats["tok_per_s"],
+            "attention_share_of_prefill":
+                out["cfg"].n_layers * rows[0]["ms"] / 1e3
+                / stats["prefill_s"]}
+    say(f"[lm warm] prefill {stats['prefill_s']:.4f} s, decode "
+        f"{stats['decode_s']:.4f} s ({stats['tok_per_s']:.1f} tok/s), "
+        f"attention kernel share of prefill "
+        f"{warm['attention_share_of_prefill']:.3f}")
+    return rows, warm
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=0.1,
@@ -374,6 +622,13 @@ def main(argv=None) -> int:
     from repro_torch.kernels.ref import bcoo_spmm_ref
     from repro_torch.launch import serve_gnn
     from repro_torch.models.gnn import gcn
+    from repro_torch.configs import make_batch, smoke_config
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.launch import serve
+    from repro_torch.models.lm.attention import _project_qkv
+    from repro_torch.models.lm.backbone import init_params
+    from repro_torch.models.lm.layers import apply_norm
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -385,6 +640,15 @@ def main(argv=None) -> int:
     report, server, launches, run_s = main_path(serve_gnn, ops, args.scale)
     rows = layer_checks(server, ops, kmod, bcoo_spmm_ref, gcn)
     stages = forward_stages(server, gcn)
+    del server
+    torch.cuda.empty_cache()
+    flash_res = flash_sweep(ops, fmod, flash_attention_ref, dev)
+    lm_ref_err = lm_small_reference(serve, smoke_config, make_batch,
+                                    init_params, dev)
+    lm_out, flash_launches, lm_run_s = lm_main_path(serve, ops)
+    flash_rows, lm_warm = lm_timings(lm_out, serve, fmod,
+                                     flash_attention_ref, apply_norm,
+                                     _project_qkv)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if bad:
@@ -399,7 +663,16 @@ def main(argv=None) -> int:
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": hidden["ms"], "plain_ms": hidden["plain_ms"],
         "bound_ms": hidden["bound_ms"], "bound_by": hidden["bound_by"],
-        "library_ms": hidden["library_ms"]}]
+        "library_ms": hidden["library_ms"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:31",
+        "launches": flash_launches,
+        "max_abs_err": flash_rows[0]["max_abs_err"],
+        "ms": flash_rows[0]["ms"], "plain_ms": flash_rows[0]["plain_ms"],
+        "bound_ms": flash_rows[0]["bound_ms"],
+        "bound_by": flash_rows[0]["bound_by"],
+        "library_ms": flash_rows[0]["library_ms"]}]
     say(json.dumps({"slice": {
         "build_kernels_s": build_s, "serve_run_s": run_s,
         "cache_build_s": report["cache_build_s"],
@@ -408,6 +681,11 @@ def main(argv=None) -> int:
         "sweep": sweep_res, "small_reference_max_abs_err": ref_err,
         "stages_ms": stages}}))
     say(json.dumps({"bcoo_spmm_shapes": rows}))
+    say(json.dumps({"lm_slice": {
+        "report": lm_out["report"], "run_s": lm_run_s,
+        "launches": lm_out["launches"], "warm": lm_warm,
+        "flash_sweep": flash_res, "small_reference_max_abs_err": lm_ref_err,
+        "flash_shapes": flash_rows}}))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -2,8 +2,10 @@
 
 The package mirrors ``repro``'s module paths. Host-side graph and tiling
 code is numpy (carried over, never imported from ``repro``); device code is
-PyTorch, and the block-sparse SpMM runs through a CUDA kernel written for
-Hopper (``kernels/bcoo_spmm.py`` + ``csrc/bcoo_spmm.cu``).
+PyTorch. The block-sparse SpMM of GCN serving and the prefill attention of
+LM serving run through CUDA kernels written for Hopper
+(``csrc/bcoo_spmm.cu``, ``csrc/flash_attention.cu``, wrapped in
+``kernels/``).
 
 Entry points take an explicit ``device`` and default to ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels. Asking

@@ -1,0 +1,68 @@
+"""The assigned input shapes and concrete batches for them.
+
+  train_4k     seq 4,096   global_batch 256   (training)
+  prefill_32k  seq 32,768  global_batch 32    (inference → prefill_step)
+  decode_32k   seq 32,768  global_batch 128   (decode → decode_step,
+                                               1 token, 32k KV cache)
+  long_500k    seq 524,288 global_batch 1     (long-context decode; only for
+                                               sub-quadratic archs)
+
+``make_batch`` draws from numpy's ``default_rng(seed)`` in the order
+``repro.configs.shapes.make_batch`` does, so its tokens are bit-identical
+to the reference's for one seed.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.models.lm.config import LMConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def make_batch(cfg: LMConfig, shape: str, batch: int, seq: int,
+               seed: int = 0, device: str | torch.device = "cpu") -> dict:
+    """A concrete batch of ``batch`` rows of ``seq`` positions on
+    ``device``: int32 ``tokens`` (and ``targets`` for training), or
+    ``embeds`` in the config's dtype for embedding-input archs."""
+    rng = np.random.default_rng(seed)
+    sp = SHAPES[shape]
+    dt = getattr(torch, cfg.dtype)
+
+    def ints(shape_):
+        return torch.from_numpy(
+            rng.integers(0, cfg.vocab, shape_).astype(np.int32)).to(device)
+
+    def normal(shape_):
+        return torch.from_numpy(rng.standard_normal(shape_)).to(device, dt)
+
+    out: dict = {}
+    if sp.kind in ("train", "prefill"):
+        if cfg.embeds_input:
+            out["embeds"] = normal((batch, seq, cfg.d_model))
+        else:
+            out["tokens"] = ints((batch, seq))
+        if cfg.cross_seq:
+            out["cross_states"] = normal((batch, cfg.cross_seq, cfg.d_model))
+        if sp.kind == "train":
+            out["targets"] = ints((batch, seq))
+    else:
+        out["tokens"] = ints((batch, 1))
+    return out

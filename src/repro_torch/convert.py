@@ -48,3 +48,71 @@ def gnn_params_from_numpy(model: str, tree: dict, device="cpu"):
                 bn.weight.copy_(_tensor(p["g"]))
                 bn.bias.copy_(_tensor(p["b"]))
     return net
+
+
+def _unstack(tree: dict, cfg) -> list[dict]:
+    """The reference's per-layer trees in ``cfg.layer_plan()`` order: the
+    prefix, then for each repeat the pattern's layers sliced out of the
+    stacked ``blocks``, then the suffix."""
+    def take(x, r):
+        if isinstance(x, dict):
+            return {k: take(v, r) for k, v in x.items()}
+        return np.asarray(x)[r]
+
+    blocks = tree.get("blocks") or ()
+    layers = list(tree.get("prefix", []))
+    for r in range(cfg.repeats):
+        layers += [take(blocks[i], r) for i in range(len(cfg.pattern))]
+    return layers + list(tree.get("suffix", []))
+
+
+def _copy_tree(module: torch.nn.Module, tree: dict, path: str) -> int:
+    """Copy every leaf of ``tree`` into the same-named parameter or
+    submodule of ``module``; returns the number of parameters filled."""
+    n = 0
+    for key, val in tree.items():
+        target = getattr(module, key, None)
+        where = f"{path}.{key}" if path else key
+        if isinstance(val, dict):
+            if not isinstance(target, torch.nn.Module):
+                raise ValueError(f"{where}: no such submodule in the port")
+            n += _copy_tree(target, val, where)
+            continue
+        if not isinstance(target, torch.nn.Parameter):
+            raise ValueError(f"{where}: no such parameter in the port")
+        x = _tensor(val)
+        if tuple(x.shape) != tuple(target.shape):
+            raise ValueError(f"{where}: shape {tuple(x.shape)}, the port "
+                             f"has {tuple(target.shape)}")
+        target.copy_(x)
+        n += 1
+    return n
+
+
+def lm_params_from_numpy(cfg, tree: dict, device="cpu"):
+    """The port's ``LM`` module holding the reference's LM parameters.
+
+    ``tree`` is ``repro.models.lm.backbone.init_params``'s output as numpy
+    (bf16 leaves as ``ml_dtypes`` bf16 or as f32). The stacked ``blocks``
+    are unstacked into one module per layer; ``x @ w`` orientation is kept
+    (the port's ``Linear.w`` is ``(d_in, d_out)`` too), and each leaf takes
+    the dtype of the port's parameter (the config's dtype, f32 for norms).
+    Raises ``ValueError`` if a leaf has no counterpart or a parameter is
+    left unfilled.
+    """
+    from repro_torch.models.lm.backbone import LM
+    with torch.no_grad():
+        net = LM(cfg, torch.device(device))
+        top = {k: v for k, v in tree.items()
+               if k not in ("prefix", "blocks", "suffix")}
+        n = _copy_tree(net, top, "")
+        layers = _unstack(tree, cfg)
+        if len(layers) != len(net.layers):
+            raise ValueError(f"the tree has {len(layers)} layers, the "
+                             f"config {len(net.layers)}")
+        for i, (blk, sub) in enumerate(zip(net.layers, layers)):
+            n += _copy_tree(blk, sub, f"layers.{i}")
+    total = sum(1 for _ in net.parameters())
+    if n != total:
+        raise ValueError(f"filled {n} of the port's {total} parameters")
+    return net

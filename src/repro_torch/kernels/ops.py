@@ -5,7 +5,8 @@ does (the reference's heuristic default when none is given, the ``gcd``
 fallback when a given ``bd`` does not divide ``d``) and calls the kernel
 wrapper, which launches the CUDA kernel for a CUDA tensor and runs the
 plain version for a CPU tensor. There is no autotuner yet: ``bd`` comes
-from the heuristic or the caller.
+from the heuristic or the caller. ``flash_attention`` calls its wrapper the
+same way (kernel on a CUDA tensor, plain version on a CPU tensor).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import logging
 import math
 
 from repro_torch.kernels import bcoo_spmm as _bcoo
+from repro_torch.kernels import flash_attention as _flash
 
 logger = logging.getLogger(__name__)
 
@@ -55,10 +57,17 @@ def bcoo_spmm(blocks, sel, row_ids, col_ids, h, *, n_row_blocks, bm, bk,
         bias=bias, residual=residual, relu=relu)
 
 
+def flash_attention(q, k, v, *, q_offset: int = 0, causal: bool = True,
+                    window: int | None = None):
+    return _flash.flash_attention(q, k, v, q_offset=q_offset, causal=causal,
+                                  window=window)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {"bcoo_spmm": _bcoo.launches}
+    return {"bcoo_spmm": _bcoo.launches, "flash_attention": _flash.launches}
 
 
 def reset_launch_counts() -> None:
     _bcoo.reset_launches()
+    _flash.reset_launches()

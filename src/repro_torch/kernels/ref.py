@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-They compute what the kernels compute, on any device, and are what a
+They compute what the kernels compute (``bcoo_spmm_ref``,
+``flash_attention_ref``), on any device, and are what a
 kernel wrapper runs for a tensor that lies on the CPU. The tests hold them
 against ``repro.kernels.ref``; ``chip_smoke.py`` holds the kernels against
 them on the card.
@@ -61,3 +62,53 @@ def bcoo_spmm_ref(
     if bias is None and residual is None and not relu:
         return acc.to(h.dtype)
     return epilogue(acc, bias, residual, relu, h.dtype)
+
+
+NEG_INF = -1e30   # the reference's mask score (not -inf)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,    # (b, tq, nq, hd)
+    k: torch.Tensor,    # (b, tk, nkv, hd)
+    v: torch.Tensor,    # (b, tk, nkv, hd)
+    *,
+    q_offset: int = 0,
+    causal: bool = True,
+    window: int | None = None,
+    q_chunk: int | None = None,
+) -> torch.Tensor:
+    """Dense-softmax attention with the flash kernel's masks.
+
+    Query ``i`` sits at position ``q_offset + i``, key ``j`` at ``j``.
+    Causal keeps ``kpos <= qpos``; a window keeps ``kpos > qpos - window``.
+    Masked scores are ``-1e30``, so a row whose every key is masked
+    averages all ``tk`` values, as the reference does. Query head ``h``
+    reads kv head ``h // (nq // nkv)``. Math in f32, result in q's dtype.
+    ``q_chunk`` bounds the ``(b, nq, q_chunk, tk)`` score tensor held at
+    once; it does not change the result.
+    """
+    b, tq, nq, hd = q.shape
+    tk, nkv = k.shape[1], k.shape[2]
+    if nq % nkv:
+        raise ValueError(f"nq={nq} must be a multiple of nkv={nkv}")
+    g = nq // nkv
+    k32, v32 = k.float(), v.float()
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    outs = []
+    step = q_chunk or max(tq, 1)
+    for i0 in range(0, tq, step):
+        qc = q[:, i0:i0 + step].float() * hd ** -0.5
+        c = qc.shape[1]
+        s = torch.einsum("bqkgd,bskd->bkgqs",
+                         qc.reshape(b, c, nkv, g, hd), k32)
+        qpos = q_offset + i0 + torch.arange(c, device=q.device)[:, None]
+        mask = torch.ones((c, tk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p, v32)
+        outs.append(o.reshape(b, c, nq, hd).to(q.dtype))
+    return torch.cat(outs, 1) if outs else q.new_empty(q.shape)

@@ -1,1 +1,2 @@
-"""Models of the port (GNNs under ``models.gnn``)."""
+"""Models of the port: GNNs under ``models.gnn``, the LM stack under
+``models.lm``."""

@@ -1,6 +1,7 @@
-"""The CUDA kernel of the port on the card: ``bcoo_spmm`` against its plain
-PyTorch version, the wrapper's refusals, and the streaming forward on
-``cuda`` against the same forward on the CPU.
+"""The CUDA kernels of the port on the card: ``bcoo_spmm`` and
+``flash_attention`` against their plain PyTorch versions, the wrappers'
+refusals, and the streaming GCN forward and the LM prefill + decode on
+``cuda`` against the same runs on the CPU.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor ``repro``, so it runs on a machine with only
@@ -13,18 +14,29 @@ Tolerances: f32 at rtol 1e-4 and atol 1e-4·max|ref| (the kernel and the
 plain version sum the same f32 products in different orders); bf16
 compared in f32 at rtol 2e-2 and atol 1e-3·max|ref| (one f32 sum rounded
 once to 8 significant bits on each side, so the order can flip the last
-bit).
+bit). Flash attention, scaled to each output row (a row's size falls as
+1/sqrt(keys it sees)): element-wise atol min(a, r·rms(ref row)) and rtol
+2e-2, with a = 2e-4 (f32) or 5e-2 (bf16), the tolerances of
+``tests/test_kernels.py``, and r = 1e-3 or 5e-2; and each row's L2 error
+within 1e-4 (f32) or 1e-2 (bf16) of its norm. The kernel rounds P to bf16
+before P·V in bf16; the plain version does not.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.graphs.synthetic import sbm_graph
 from repro_torch.infer import StreamConfig, StreamingInference
+from repro_torch.configs import make_batch, smoke_config
 from repro_torch.kernels import bcoo_spmm as kmod
+from repro_torch.kernels import flash_attention as fmod
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import bcoo_spmm_ref
+from repro_torch.kernels.ref import bcoo_spmm_ref, flash_attention_ref
+from repro_torch.launch import serve
 from repro_torch.models.gnn import gcn
+from repro_torch.models.lm.backbone import init_params
 
 pytestmark = pytest.mark.cuda
 
@@ -150,3 +162,97 @@ def test_stream_forward_on_cuda_matches_cpu(cuda, batchnorm):
     ref = cpu.forward()
     np.testing.assert_allclose(logits, ref, rtol=0,
                                atol=1e-4 * float(np.abs(ref).max()))
+
+
+# (b, tq, tk, nq, nkv, hd, causal, window, q_offset): one token, odd
+# lengths, GQA 14/2 and 8/1, windows wider and narrower than a tile,
+# q_offset = tk - tq, rows that see no key (q_offset past the window, or
+# negative under causal), non-causal, and the smoke configs' hd 16.
+# Lengths up to 300 span several kv tiles, so a tile skipped or counted
+# twice shows.
+FLASH_CASES = [
+    (1, 1, 1, 16, 8, 128, True, None, 0),
+    (2, 7, 7, 14, 2, 64, True, 16, 0),
+    (1, 257, 257, 4, 4, 128, False, None, 0),
+    (2, 64, 64, 8, 1, 64, True, 100, 0),
+    (1, 33, 300, 16, 8, 128, True, None, 267),
+    (1, 12, 20, 4, 2, 64, True, 4, 40),
+    (1, 65, 65, 4, 2, 128, False, 6, 0),
+    (2, 130, 130, 16, 8, 64, True, None, -3),
+    (1, 40, 40, 4, 2, 16, True, 16, 0),
+    (2, 9, 9, 4, 4, 64, False, None, 0),
+]
+# (atol cap, atol per unit of row rms, row L2 error per unit of row norm)
+FLASH_TOL = {"f32": (2e-4, 1e-3, 1e-4), "bf16": (5e-2, 5e-2, 1e-2)}
+
+
+def _flash_close(out, ref, dtype):
+    out, ref = out.float().cpu(), ref.float().cpu()
+    cap, row, row_l2 = FLASH_TOL[dtype]
+    err = (out - ref).abs()
+    atol = (row * ref.square().mean(-1, keepdim=True).sqrt()).clamp(max=cap)
+    assert not (err > atol + 2e-2 * ref.abs()).any(), float(err.max())
+    rel = err.norm(dim=-1) / ref.norm(dim=-1).clamp(min=1e-30)
+    assert float(rel.max()) <= row_l2, float(rel.max())
+
+
+def _qkv(seed, b, tq, tk, nq, nkv, hd, dtype, dev):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        dev, DTYPES[dtype]) for s in ((b, tq, nq, hd), (b, tk, nkv, hd),
+                                      (b, tk, nkv, hd))]
+
+
+@pytest.mark.parametrize("b,tq,tk,nq,nkv,hd,causal,window,q_offset",
+                         FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_kernel_matches_plain_version(cuda, b, tq, tk, nq, nkv, hd,
+                                            causal, window, q_offset, dtype):
+    q, k, v = _qkv(tq + tk + hd, b, tq, tk, nq, nkv, hd, dtype, cuda)
+    kw = dict(q_offset=q_offset, causal=causal, window=window)
+    before = fmod.launches
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fmod.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    _flash_close(out, flash_attention_ref(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("case", ["head_dim", "device_mix",
+                                  "non_contiguous"])
+def test_flash_wrapper_refuses_what_the_kernel_cannot_take(cuda, case):
+    q, k, v = _qkv(1, 1, 8, 8, 4, 2, 64, "bf16", cuda)
+    if case == "head_dim":
+        q, k, v = _qkv(1, 1, 8, 8, 4, 2, 96, "bf16", cuda)
+    elif case == "device_mix":
+        k = k.cpu()
+    elif case == "non_contiguous":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    before = fmod.launches
+    with pytest.raises(ValueError):
+        fmod.flash_attention(q, k, v)
+    assert fmod.launches == before
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "qwen2-0.5b"])
+def test_lm_prefill_decode_on_cuda_matches_cpu(cuda, arch):
+    """f32 smoke model: the same logits and greedy tokens on the card as
+    on the CPU (plain versions), with one kernel launch per layer in the
+    prefill and none in decode. Tolerance 1e-4·max|logit|."""
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    runs = []
+    for dev in ("cpu", cuda):
+        net = init_params(cfg, seed=0, device="cpu").to(dev)
+        prompt = make_batch(cfg, "prefill_32k", 2, 40, seed=1, device=dev)
+        ops.reset_launch_counts()
+        toks, _, rec = serve.greedy_generate(cfg, net, prompt, 48, 6)
+        runs.append((toks, rec))
+    (ctoks, crec), (gtoks, grec) = runs
+    assert grec["launches"]["prefill"]["flash_attention"] == cfg.n_layers
+    assert grec["launches"]["decode"]["flash_attention"] == 0
+    assert torch.equal(ctoks, gtoks)
+    for phase in ("prefill", "last"):
+        ref = crec["logits"][phase]
+        torch.testing.assert_close(
+            grec["logits"][phase].cpu(), ref, rtol=0,
+            atol=1e-4 * float(ref.abs().max()))
