@@ -43,7 +43,27 @@ without the final ``{"ok": true, ...}`` line:
    ``scaled_dot_product_attention`` (a yardstick the port never calls) at
    the main path's shape and at one 32,768-token row, with the card's
    bound; time a warm prefill and decode;
-9. print the kernel line, the card line and, last, the result line.
+9. LM training (``gather_matmul``, the sampled weight gradient of
+   ``rsc_matmul``): sweep the kernel against its plain version over
+   n/bk ∈ {1, 3, 64}, bk ∈ {32, 64, 128}, (m, q) ∈ {(41, 96), (96, 41),
+   (130, 264), (2048, 6144)}, k_sel ∈ {1, half, all}, f32 and bf16; then
+   3 training steps of the f32 smoke qwen3-1.7b with RSC (bk 32, keep
+   0.5, 2 microbatches) on the card against the same steps on the CPU:
+   equal selected blocks, losses within 1e-5 relative and each
+   parameter's change within ``TRAIN_DP_REL`` of the CPU run's change;
+10. drive the LM training path (``repro_torch.launch.train lm``) at the
+    full width of qwen3-1.7b with batch 4 × 4,096 tokens in the
+    microbatches ``configs.shapes.microbatches`` gives ``train_4k`` (2),
+    RSC keep 0.5, 3 steps, launch counts set to 0 just
+    before and read just after; assert 3 × 28 × 2 ``gather_matmul``
+    launches per step and no ``flash_attention`` launch, finite losses,
+    and the kernel against its plain version on one of the path's own
+    (x, g, idx) triples per shape;
+11. time ``gather_matmul``, its plain version and a gather +
+    ``torch.matmul`` (a yardstick the port never calls) at the path's
+    gate/up and down shapes, with the card's bound; report the warm step
+    time, tokens/s and peak device memory;
+12. print the kernel line, the card line and, last, the result line.
 
 Without a CUDA device it exits with code 2 and prints no result. It
 imports nothing of JAX and nothing of the ``repro`` package.
@@ -64,7 +84,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-KERNEL_SOURCES = ["bcoo_spmm", "flash_attention"]   # csrc/<name>.cu
+KERNEL_SOURCES = ["bcoo_spmm", "gather_matmul",
+                  "flash_attention"]                 # csrc/<name>.cu
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at the full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,     # FP32 outside the tensor cores:
@@ -93,6 +114,27 @@ FLASH_LENGTHS = [(t, t) for t in (1, 7, 64, 257, 1024)] + [
     (1, 257), (7, 1024), (64, 257), (257, 1024)]      # (tq, tk)
 LM_ARGV = ["--arch", "qwen3-1.7b", "--batch", "4", "--prompt-len", "4096",
            "--gen", "32", "--device", "cuda"]
+# gather_matmul against its plain version, in f32, scaled to the data: for
+# each element |out - ref| <= rtol·|ref| + row·rms(ref row), and
+# ||out - ref||_F <= norm·||ref||_F. bf16: both sides sum exact products in
+# f32 (in other orders) and round once to 8 bits, so an element may differ
+# by one unit of its last place (< 2^-7·|ref|); f32: the two orders differ
+# by ~sqrt(terms)·2^-24 of a row's size. A selected block left out moves
+# the result by ~1/sqrt(k_sel) of its norm (all of it when k_sel = 1).
+GATHER_TOL = {torch.float32: (1e-4, 1e-4, 1e-4),
+              torch.bfloat16: (1e-2, 1e-3, 2e-3)}      # (rtol, row, norm)
+GATHER_WIDTHS = [(41, 96), (96, 41), (130, 264), (2048, 6144)]   # (m, q)
+# The smoke training on the card against the CPU: each parameter's change
+# over the run within TRAIN_DP_REL of the CPU run's change, in L2 norm. A
+# sampled dW that drops one of its two selected blocks moves it by ~0.7.
+TRAIN_DP_REL = 1e-3
+
+
+def train_argv(microbatches: int) -> list[str]:
+    """The full-width training run: batch 4 of 4,096 tokens."""
+    return ["lm", "--arch", "qwen3-1.7b", "--batch", "4", "--seq", "4096",
+            "--microbatches", str(microbatches), "--rsc", "--rsc-keep", "0.5",
+            "--steps", "3", "--device", "cuda"]
 
 
 def say(msg: str) -> None:
@@ -603,6 +645,243 @@ def lm_timings(out, serve, fmod, flash_attention_ref, apply_norm,
     return rows, warm
 
 
+# ------------------------------------------------------- LM training phases
+
+def gather_close(out, ref, dtype) -> tuple[float, float]:
+    """``gather_matmul`` against its plain version, in f32, by the
+    data-scaled rule above; returns the max absolute error and the
+    norm-relative error."""
+    out, ref = out.float(), ref.float()
+    rtol, row, norm = GATHER_TOL[dtype]
+    err = (out - ref).abs()
+    rms = ref.square().mean(-1, keepdim=True).sqrt()
+    bad = err > rtol * ref.abs() + row * rms
+    rel = float((out - ref).norm() / ref.norm().clamp(min=1e-30))
+    if bad.any() or rel > norm:
+        raise AssertionError(
+            f"gather_matmul != plain version: {int(bad.sum())} of "
+            f"{bad.numel()} elements out of tolerance, max abs err "
+            f"{float(err.max()):.3e}, norm-relative err {rel:.3e} (limit "
+            f"{norm:.0e})")
+    return float(err.max()), rel
+
+
+def gather_sweep(ops, gmod, gather_matmul_ref, dev) -> dict:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    rng = np.random.default_rng(2)
+    worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+    n = 0
+    for n_blocks in (1, 3, 64):
+        for bk in (32, 64, 128):
+            for m, q in GATHER_WIDTHS:
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = randn(gen, (n_blocks * bk, m), dtype, dev)
+                    g = randn(gen, (n_blocks * bk, q), dtype, dev)
+                    for k_sel in sorted({1, max(1, n_blocks // 2),
+                                         n_blocks}):
+                        idx = torch.from_numpy(np.sort(rng.choice(
+                            n_blocks, k_sel, replace=False)).astype(
+                                np.int32)).to(dev)
+                        before = gmod.launches
+                        out = ops.gather_matmul(x, g, idx, bk=bk)
+                        torch.cuda.synchronize()
+                        if gmod.launches != before + 1:
+                            raise AssertionError("kernel launch not counted")
+                        if out.dtype != dtype or out.shape != (m, q):
+                            raise AssertionError(
+                                f"got {out.dtype} {tuple(out.shape)}")
+                        errs = gather_close(
+                            out, gather_matmul_ref(x, g, idx, bk=bk), dtype)
+                        worst[dtype] = [max(a, e) for a, e in
+                                        zip(worst[dtype], errs)]
+                        n += 1
+                    del x, g
+    f32, bf16 = worst[torch.float32], worst[torch.bfloat16]
+    say(f"[gather sweep] {n} cases agree; max abs err f32 {f32[0]:.3e}, "
+        f"bf16 {bf16[0]:.3e}; max norm-relative err f32 {f32[1]:.3e}, "
+        f"bf16 {bf16[1]:.3e}")
+    return {"cases": n, "max_abs_err_f32": f32[0], "max_abs_err_bf16": bf16[0],
+            "max_norm_rel_err_f32": f32[1], "max_norm_rel_err_bf16": bf16[1]}
+
+
+class GatherTap:
+    """Stands in for ``gather_matmul_in_range`` (what ``rsc_matmul``'s
+    backward calls) while a training run is driven. Every call passes
+    through unchanged (the kernel wrapper still counts its own launches);
+    the tap keeps each call's selected block ids and the first
+    (x, g, idx, bk) of each operand shape."""
+
+    def __init__(self, gmod):
+        self.gmod, self.idx, self.first = gmod, [], {}
+
+    def __enter__(self):
+        self.inner = self.gmod.gather_matmul_in_range
+        self.gmod.gather_matmul_in_range = self
+        return self
+
+    def __exit__(self, *exc):
+        self.gmod.gather_matmul_in_range = self.inner
+
+    def __call__(self, x, g, idx, *, bk, **kw):
+        self.idx.append(idx)
+        self.first.setdefault((tuple(x.shape), tuple(g.shape)),
+                              (x.detach(), g.detach(), idx, bk))
+        return self.inner(x, g, idx, bk=bk, **kw)
+
+
+def lm_train_small_reference(ops, gmod, smoke_config, make_batch,
+                             init_params, make_train_step, Adam, dev) -> dict:
+    """3 steps of the f32 smoke qwen3-1.7b (2 layers, d_model 64) with RSC
+    (bk 32, keep 0.5, 2 microbatches of 2 × 64 tokens: 4 blocks, 2 kept)
+    on the card against the same steps on the CPU, from one parameter
+    set: equal selected blocks, losses within 1e-5 relative, each
+    parameter's change within TRAIN_DP_REL of the CPU run's change."""
+    cfg = dataclasses.replace(smoke_config("qwen3-1.7b"), dtype="float32")
+    rsc = {"keep_frac": 0.5, "bk": 32, "backend": "kernel"}
+    lr, steps = 1e-3, 3
+    cpu_net = init_params(cfg, seed=0, device="cpu")
+    start = {k: p.detach().clone() for k, p in cpu_net.named_parameters()}
+    card_net = copy.deepcopy(cpu_net).to(dev)
+    runs = []
+    for d, net in (("cpu", cpu_net), (dev, card_net)):
+        opt = Adam(lr=lr, clip_norm=1.0)
+        state = opt.init(dict(net.named_parameters()))
+        step = make_train_step(cfg, opt, 2, rsc=rsc)
+        losses = []
+        ops.reset_launch_counts()
+        with GatherTap(gmod) as tap:
+            for i in range(steps):
+                batch = make_batch(cfg, "train_4k", 4, 64, seed=i, device=d)
+                net, state, loss = step(net, state, batch)
+                losses.append(float(loss))
+        runs.append((losses, [t.cpu().tolist() for t in tap.idx],
+                     ops.launch_counts()["gather_matmul"]))
+    (closs, cidx, claunch), (gloss, gidx, glaunch) = runs
+    want = 3 * cfg.n_layers * 2 * steps
+    # each parameter's change on the card against its change on the CPU
+    rel = {}
+    for (name, a), (_, b) in zip(cpu_net.named_parameters(),
+                                 card_net.named_parameters()):
+        moved = a.detach() - start[name]
+        rel[name] = float((b.detach().cpu() - a.detach()).norm()
+                          / moved.norm().clamp(min=1e-30))
+    worst = max(rel, key=rel.get)
+    say(f"[train reference] smoke qwen3-1.7b f32 RSC, {steps} steps: "
+        f"launches CPU {claunch}, card {glaunch} of {want}; losses {gloss} "
+        f"(CPU {closs}); largest parameter-change error {rel[worst]:.3e} "
+        f"({worst}, limit {TRAIN_DP_REL:.0e})")
+    if claunch != 0 or glaunch != want or len(gidx) != want:
+        raise AssertionError(f"gather_matmul launches: CPU {claunch}, card "
+                             f"{glaunch} of {want} calls")
+    if cidx != gidx:
+        raise AssertionError(f"selected blocks differ:\n{cidx}\n{gidx}")
+    np.testing.assert_allclose(gloss, closs, rtol=1e-5)
+    if rel[worst] > TRAIN_DP_REL:
+        raise AssertionError(f"{worst}'s change differs from the CPU's by "
+                             f"{rel[worst]:.3e} of its norm")
+    say("[train reference] card = CPU: selected blocks identical")
+    return {"losses_card": gloss, "losses_cpu": closs, "launches": glaunch,
+            "max_param_change_err": rel[worst]}
+
+
+def lm_train_main_path(train, ops, gmod, gather_matmul_ref, argv):
+    """The full-width training run, with the launch counts set to 0 just
+    before and read just after; the kernel against its plain version on
+    the first (x, g, idx) of each shape the run gave it."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with GatherTap(gmod) as tap:
+        out = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    args = train.build_parser().parse_args(argv)
+    cfg = out["cfg"]
+    want = 3 * cfg.n_layers * args.microbatches * args.steps
+    say(f"[lm train] {cfg.name}: losses {out['losses']}, step s "
+        f"{[round(s, 4) for s in out['step_s']]}, run {wall:.2f} s, peak "
+        f"{peak / 2 ** 30:.2f} GiB, launches {counts}")
+    if counts["gather_matmul"] != want or counts["flash_attention"] != 0 \
+            or counts["bcoo_spmm"] != 0:
+        raise AssertionError(f"launches {counts}, expected {want} "
+                             f"gather_matmul (3 per layer per microbatch "
+                             f"per step) and nothing else")
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"losses not finite: {out['losses']}")
+    checks = {}
+    for (xs, gs), (x, g, idx, bk) in tap.first.items():
+        got = gmod.gather_matmul(x, g, idx, bk=bk)
+        checks[f"{xs[1]}x{gs[1]}"] = gather_close(
+            got, gather_matmul_ref(x, g, idx, bk=bk), x.dtype)
+    say(f"[lm train] kernel = plain version on the path's own operands: "
+        f"{checks}")
+    return out, args, tap, counts["gather_matmul"], wall, peak, checks
+
+
+def gather_row(x, g, idx, bk, gmod, gather_matmul_ref) -> dict:
+    """Times of the kernel, its plain version and a gather +
+    ``torch.matmul`` on these operands, and the card's bound."""
+    (n, m), q = x.shape, g.shape[1]
+    k_sel = idx.numel()
+    ref = gather_matmul_ref(x, g, idx, bk=bk)
+    buf = torch.empty((m, q), dtype=x.dtype, device=x.device)
+
+    def library():
+        sel = idx.long()
+        return torch.matmul(x.view(-1, bk, m)[sel].reshape(-1, m).t(),
+                            g.view(-1, bk, q)[sel].reshape(-1, q))
+
+    lib_err = float((library().float() - ref.float()).abs().max())
+    ms = cuda_ms(lambda: gmod.launch(x, g, idx, buf, bk=bk), reps=20)
+    plain_ms = cuda_ms(lambda: gather_matmul_ref(x, g, idx, bk=bk), reps=5)
+    library_ms = cuda_ms(library, reps=20)
+    es = x.element_size()
+    flops = 2 * k_sel * bk * m * q
+    nbytes = (k_sel * bk * (m + q) + m * q) * es + k_sel * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[x.dtype] * 1e3
+    row = dict(m=m, q=q, n=n, bk=bk, k_sel=k_sel, dtype=str(x.dtype), ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library_max_abs_err=lib_err, flops=flops, bytes=nbytes,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               tflops=flops / ms / 1e9)
+    say(f"[gather {m}x{q}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"gather+matmul {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), {row['tflops']:.2f} TFLOP/s")
+    return row
+
+
+def lm_train_timings(out, args, tap, gmod, gather_matmul_ref,
+                     peak) -> tuple[list[dict], dict]:
+    """The kernel rows at the gate/up and the down shapes, then the warm
+    step (the mean of the steps after the first), tokens/s, peak memory
+    and the kernel's share of a warm step."""
+    cfg = out["cfg"]
+    rows = sorted((gather_row(x, g, idx, bk, gmod, gather_matmul_ref)
+                   for (x, g, idx, bk) in tap.first.values()),
+                  key=lambda r: r["m"] != cfg.d_model)   # gate/up first
+    gate_up, down = rows
+    warm_s = float(np.mean(out["step_s"][1:]))
+    kernel_s = cfg.n_layers * args.microbatches * (
+        2 * gate_up["ms"] + down["ms"]) / 1e3
+    warm = {"first_step_s": out["step_s"][0], "warm_step_s": warm_s,
+            "tokens_per_s": args.batch * args.seq / warm_s,
+            "peak_mem_gib": peak / 2 ** 30, "losses": out["losses"],
+            "gather_matmul_s_per_step": kernel_s,
+            "gather_matmul_share_of_step": kernel_s / warm_s}
+    say(f"[lm train warm] step {warm_s:.4f} s (first "
+        f"{out['step_s'][0]:.4f} s), {warm['tokens_per_s']:.1f} tokens/s, "
+        f"peak {warm['peak_mem_gib']:.2f} GiB, gather_matmul "
+        f"{kernel_s * 1e3:.2f} ms per step "
+        f"({warm['gather_matmul_share_of_step']:.4f} of it)")
+    return rows, warm
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=0.1,
@@ -623,12 +902,18 @@ def main(argv=None) -> int:
     from repro_torch.launch import serve_gnn
     from repro_torch.models.gnn import gcn
     from repro_torch.configs import make_batch, smoke_config
+    from repro_torch.configs.shapes import microbatches
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.launch import serve
     from repro_torch.models.lm.attention import _project_qkv
     from repro_torch.models.lm.backbone import init_params
     from repro_torch.models.lm.layers import apply_norm
+    from repro_torch.kernels import gather_matmul as gmod
+    from repro_torch.kernels.ref import gather_matmul_ref
+    from repro_torch.launch import train
+    from repro_torch.train.lm_steps import make_train_step
+    from repro_torch.train.optimizer import Adam
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -649,6 +934,19 @@ def main(argv=None) -> int:
     flash_rows, lm_warm = lm_timings(lm_out, serve, fmod,
                                      flash_attention_ref, apply_norm,
                                      _project_qkv)
+    lm_report, lm_launches = lm_out["report"], lm_out["launches"]
+    del lm_out
+    torch.cuda.empty_cache()
+    gather_res = gather_sweep(ops, gmod, gather_matmul_ref, dev)
+    train_ref = lm_train_small_reference(ops, gmod, smoke_config,
+                                         make_batch, init_params,
+                                         make_train_step, Adam, dev)
+    argv = train_argv(microbatches("qwen3-1.7b", "train_4k"))
+    (train_out, train_args, tap, gather_launches, train_run_s, peak,
+     path_checks) = lm_train_main_path(train, ops, gmod, gather_matmul_ref,
+                                       argv)
+    gather_rows, train_warm = lm_train_timings(
+        train_out, train_args, tap, gmod, gather_matmul_ref, peak)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if bad:
@@ -672,7 +970,16 @@ def main(argv=None) -> int:
         "ms": flash_rows[0]["ms"], "plain_ms": flash_rows[0]["plain_ms"],
         "bound_ms": flash_rows[0]["bound_ms"],
         "bound_by": flash_rows[0]["bound_by"],
-        "library_ms": flash_rows[0]["library_ms"]}]
+        "library_ms": flash_rows[0]["library_ms"]}, {
+        "name": "gather_matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/gather_matmul.cu",
+        "replaces": "src/repro/kernels/gather_matmul.py:28",
+        "launches": gather_launches,
+        "max_abs_err": max(c[0] for c in path_checks.values()),
+        "ms": gather_rows[0]["ms"], "plain_ms": gather_rows[0]["plain_ms"],
+        "bound_ms": gather_rows[0]["bound_ms"],
+        "bound_by": gather_rows[0]["bound_by"],
+        "library_ms": gather_rows[0]["library_ms"]}]
     say(json.dumps({"slice": {
         "build_kernels_s": build_s, "serve_run_s": run_s,
         "cache_build_s": report["cache_build_s"],
@@ -682,10 +989,16 @@ def main(argv=None) -> int:
         "stages_ms": stages}}))
     say(json.dumps({"bcoo_spmm_shapes": rows}))
     say(json.dumps({"lm_slice": {
-        "report": lm_out["report"], "run_s": lm_run_s,
-        "launches": lm_out["launches"], "warm": lm_warm,
+        "report": lm_report, "run_s": lm_run_s,
+        "launches": lm_launches, "warm": lm_warm,
         "flash_sweep": flash_res, "small_reference_max_abs_err": lm_ref_err,
         "flash_shapes": flash_rows}}))
+    say(json.dumps({"lm_train_slice": {
+        "report": train_out["report"], "argv": argv,
+        "run_s": train_run_s, "launches": gather_launches,
+        "warm": train_warm, "gather_sweep": gather_res,
+        "small_reference": train_ref, "path_checks": path_checks,
+        "gather_shapes": gather_rows}}))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -36,6 +36,25 @@ SHAPES = {
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
 
+# Per-(arch, shape) microbatch counts of the reference (sized so train_4k
+# activations fit its 16 GB chips under scan + remat).
+MICROBATCHES: dict[tuple[str, str], int] = {
+    ("qwen3-32b", "train_4k"): 16,
+    ("deepseek-v2-236b", "train_4k"): 16,
+    ("internlm2-20b", "train_4k"): 8,
+    ("llama-3.2-vision-11b", "train_4k"): 4,
+    ("recurrentgemma-9b", "train_4k"): 4,
+    ("qwen3-1.7b", "train_4k"): 2,
+    ("qwen2-0.5b", "train_4k"): 2,
+    ("deepseek-v2-lite-16b", "train_4k"): 4,
+    ("musicgen-medium", "train_4k"): 2,
+    ("xlstm-125m", "train_4k"): 2,
+}
+
+
+def microbatches(arch: str, shape: str) -> int:
+    return MICROBATCHES.get((arch, shape), 1)
+
 
 def make_batch(cfg: LMConfig, shape: str, batch: int, seq: int,
                seed: int = 0, device: str | torch.device = "cpu") -> dict:

@@ -1,4 +1,4 @@
-"""Carry parameters across from the JAX package's layout.
+"""Carry parameters across from (and back to) the JAX package's layout.
 
 The reference keeps GNN parameters as a tree of arrays,
 ``{"lin": [{"w": (d_in, d_out), "b": (d_out,)}, ...],
@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models.gnn import MODELS
 
 
@@ -19,8 +20,9 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
-def gnn_params_from_numpy(model: str, tree: dict, device="cpu"):
-    """The port's ``nn.Module`` for ``model`` holding the tree's values."""
+def gnn_params_from_numpy(model: str, tree: dict, device="cuda"):
+    """The port's ``nn.Module`` for ``model`` holding the tree's values,
+    on ``device`` (``cuda`` by default, which raises without a card)."""
     if model != "gcn":
         raise NotImplementedError(f"{model!r} is not ported yet "
                                   "(ROADMAP.md Queue 1 item 2)")
@@ -33,7 +35,7 @@ def gnn_params_from_numpy(model: str, tree: dict, device="cpu"):
     dims = [int(np.shape(lins[0]["w"])[0])] + [int(np.shape(p["w"])[1])
                                                for p in lins]
     net = MODELS[model].GCN(dims, all(with_bn) and len(bns) > 1,
-                            device=device)
+                            device=resolve_device(device))
     with torch.no_grad():
         for lin, p in zip(net.lin, lins):
             w = _tensor(p["w"])
@@ -89,7 +91,7 @@ def _copy_tree(module: torch.nn.Module, tree: dict, path: str) -> int:
     return n
 
 
-def lm_params_from_numpy(cfg, tree: dict, device="cpu"):
+def lm_params_from_numpy(cfg, tree: dict, device="cuda"):
     """The port's ``LM`` module holding the reference's LM parameters.
 
     ``tree`` is ``repro.models.lm.backbone.init_params``'s output as numpy
@@ -102,7 +104,7 @@ def lm_params_from_numpy(cfg, tree: dict, device="cpu"):
     """
     from repro_torch.models.lm.backbone import LM
     with torch.no_grad():
-        net = LM(cfg, torch.device(device))
+        net = LM(cfg, resolve_device(device))
         top = {k: v for k, v in tree.items()
                if k not in ("prefix", "blocks", "suffix")}
         n = _copy_tree(net, top, "")
@@ -116,3 +118,37 @@ def lm_params_from_numpy(cfg, tree: dict, device="cpu"):
     if n != total:
         raise ValueError(f"filled {n} of the port's {total} parameters")
     return net
+
+
+def _module_tree(module: torch.nn.Module) -> dict:
+    """``{name: f32 numpy array or subtree}`` of a module's own parameters
+    and submodules (absent ones, such as a missing bias, are left out)."""
+    tree = {k: p.detach().float().cpu().numpy()
+            for k, p in module.named_parameters(recurse=False)}
+    tree.update({k: _module_tree(m) for k, m in module.named_children()})
+    return tree
+
+
+def lm_params_to_numpy(net, cfg) -> dict:
+    """The inverse of ``lm_params_from_numpy``: the reference's parameter
+    tree (f32 numpy leaves) from the port's ``LM``, with the pattern's
+    layers re-stacked over the repeats into ``blocks``, so trained
+    parameters can be compared leaf by leaf with the reference's tree."""
+    layers = [_module_tree(blk) for blk in net.layers]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"the module has {len(layers)} layers, the config "
+                         f"{cfg.n_layers}")
+    n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    tree = {k: v for k, v in _module_tree(net).items() if k != "layers"}
+    tree["prefix"] = layers[:n_pre]
+    tree["blocks"] = tuple(
+        stack([layers[n_pre + r * n_pat + i] for r in range(cfg.repeats)])
+        for i in range(n_pat)) if cfg.repeats else ()
+    tree["suffix"] = layers[n_pre + cfg.repeats * n_pat:]
+    return tree

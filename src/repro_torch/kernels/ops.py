@@ -5,8 +5,9 @@ does (the reference's heuristic default when none is given, the ``gcd``
 fallback when a given ``bd`` does not divide ``d``) and calls the kernel
 wrapper, which launches the CUDA kernel for a CUDA tensor and runs the
 plain version for a CPU tensor. There is no autotuner yet: ``bd`` comes
-from the heuristic or the caller. ``flash_attention`` calls its wrapper the
-same way (kernel on a CUDA tensor, plain version on a CPU tensor).
+from the heuristic or the caller. ``gather_matmul`` and ``flash_attention``
+call their wrappers the same way (kernel on a CUDA tensor, plain version
+on a CPU tensor).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import math
 
 from repro_torch.kernels import bcoo_spmm as _bcoo
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import gather_matmul as _gather
 
 logger = logging.getLogger(__name__)
 
@@ -57,6 +59,10 @@ def bcoo_spmm(blocks, sel, row_ids, col_ids, h, *, n_row_blocks, bm, bk,
         bias=bias, residual=residual, relu=relu)
 
 
+def gather_matmul(x, g, idx, *, bk: int):
+    return _gather.gather_matmul(x, g, idx, bk=bk)
+
+
 def flash_attention(q, k, v, *, q_offset: int = 0, causal: bool = True,
                     window: int | None = None):
     return _flash.flash_attention(q, k, v, q_offset=q_offset, causal=causal,
@@ -65,9 +71,11 @@ def flash_attention(q, k, v, *, q_offset: int = 0, causal: bool = True,
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {"bcoo_spmm": _bcoo.launches, "flash_attention": _flash.launches}
+    return {"bcoo_spmm": _bcoo.launches, "gather_matmul": _gather.launches,
+            "flash_attention": _flash.launches}
 
 
 def reset_launch_counts() -> None:
     _bcoo.reset_launches()
+    _gather.reset_launches()
     _flash.reset_launches()

@@ -1,10 +1,10 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 They compute what the kernels compute (``bcoo_spmm_ref``,
-``flash_attention_ref``), on any device, and are what a
-kernel wrapper runs for a tensor that lies on the CPU. The tests hold them
-against ``repro.kernels.ref``; ``chip_smoke.py`` holds the kernels against
-them on the card.
+``gather_matmul_ref``, ``flash_attention_ref``), on any device, and are
+what a kernel wrapper runs for a tensor that lies on the CPU. The tests
+hold them against ``repro.kernels.ref``; ``chip_smoke.py`` holds the
+kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -62,6 +62,23 @@ def bcoo_spmm_ref(
     if bias is None and residual is None and not relu:
         return acc.to(h.dtype)
     return epilogue(acc, bias, residual, relu, h.dtype)
+
+
+def gather_matmul_ref(
+    x: torch.Tensor,     # (n, m)
+    g: torch.Tensor,     # (n, q)
+    idx: torch.Tensor,   # (k_sel,) selected bk-row blocks
+    *,
+    bk: int,
+) -> torch.Tensor:
+    """``Σ_t X[idx[t]·bk : +bk]ᵀ @ G[idx[t]·bk : +bk]``: the XᵀG contraction
+    over the selected ``bk``-row token blocks, summed in f32 and cast to
+    x's dtype."""
+    n, m = x.shape
+    sel = idx.long()
+    xs = x.reshape(n // bk, bk, m)[sel]
+    gs = g.reshape(n // bk, bk, -1)[sel]
+    return torch.einsum("kbm,kbq->mq", xs.float(), gs.float()).to(x.dtype)
 
 
 NEG_INF = -1e30   # the reference's mask score (not -inf)

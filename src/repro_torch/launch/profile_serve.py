@@ -52,6 +52,8 @@ def kernel_table(prof, wall_s: float, top: int = 8) -> dict:
 def kernel_kind(name: str) -> str:
     if "flash_fwd" in name:
         return "flash_attention"
+    if "gather_mm" in name:
+        return "gather_matmul"
     if any(w in name.lower() for w in ("gemm", "gemv", "nvjet", "cutlass")):
         return "matmul"
     if "copy" in name:

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.device import resolve_device
 from repro_torch.models.gnn import common as C
 
 
@@ -56,8 +57,10 @@ class GCN(nn.Module):
 
 
 def init(d_in: int, hidden: int, n_classes: int, n_layers: int,
-         batchnorm: bool, *, seed: int = 0, device="cpu") -> GCN:
-    """A seeded GCN: ``n_layers`` layers, ``hidden`` wide, on ``device``."""
+         batchnorm: bool, *, seed: int = 0, device="cuda") -> GCN:
+    """A seeded GCN: ``n_layers`` layers, ``hidden`` wide, on ``device``
+    (``cuda`` by default, which raises without a card)."""
+    device = resolve_device(device)
     dims = [d_in] + [hidden] * (n_layers - 1) + [n_classes]
     gen = torch.Generator().manual_seed(seed)
     return GCN(dims, batchnorm, generator=gen, device=device)

@@ -1,10 +1,12 @@
 """Self-attention of the LM stack: GQA, sliding window, KV caches.
 
-The port of ``repro.models.lm.attention`` for serving (prefill and
-decode). Prefill attention goes through ``kernels.ops.flash_attention``:
-on a CUDA tensor the hand-written kernel (the reference's TPU branch), on
-a CPU tensor its plain version. Decode is plain tensor code, as it is jnp
-in the reference.
+The port of ``repro.models.lm.attention``. Prefill attention goes
+through ``kernels.ops.flash_attention``: on a CUDA tensor the hand-written
+kernel (the reference's TPU branch), on a CPU tensor its plain version.
+Training attention (``flash_attention`` below, kv-chunked online softmax
+with each chunk step rematerialised) and decode are plain tensor code, as
+both are jnp in the reference; training differentiates through them with
+autograd.
 
 Caches (one dict per layer):
   full  : {"k","v": (b, S, n_kv, hd)} written at absolute positions.
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
@@ -24,7 +27,6 @@ from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Linear, Norm, apply_norm, \
     apply_rope, linear
 
-TRAINING = "ROADMAP.md Queue 1 item 9b (LM training)"
 LM_REST = "ROADMAP.md Queue 1 item 9c (LM stack: the rest)"
 
 
@@ -49,6 +51,73 @@ class Attention(nn.Module):
 def attn_init(cfg: LMConfig, device, gen=None) -> Attention:
     """Self-attention parameters (cross-attention is not ported)."""
     return Attention(cfg, device, gen)
+
+
+def _chunk_step(m, l, acc, qg, kch, vch, pch, q_positions, window):
+    """One kv chunk of the online softmax: fold ``chunk`` keys into the
+    running max ``m``, sum ``l`` and accumulator ``acc`` (all f32)."""
+    s = torch.einsum("btkgh,bckh->btkgc", qg, kch.float())
+    mask = (pch >= 0)[None, None, None, None, :]
+    if q_positions is not None:
+        ok = pch[None, :] <= q_positions[:, None]            # (tq, chunk)
+        if window is not None:
+            ok &= pch[None, :] > q_positions[:, None] - window
+        mask = mask & ok[None, :, None, None, :]
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=s.device))
+    m_new = torch.maximum(m, s.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l = l * alpha + p.sum(-1)
+    pv = torch.einsum("btkgc,bckh->btkgh", p, vch.float())
+    acc = acc * alpha[..., None] + pv
+    return m_new, l, acc
+
+
+def flash_attention(
+    q: torch.Tensor,                 # (b, tq, nq, hd)
+    k: torch.Tensor,                 # (b, tk, nkv, hd)
+    v: torch.Tensor,                 # (b, tk, nkv, hv)
+    *,
+    q_positions: torch.Tensor | None,   # (tq,) absolute; None = no mask
+    kv_positions: torch.Tensor,         # (tk,) absolute (-1 ⇒ invalid)
+    window: int | None = None,
+    chunk: int = 1024,
+    remat_chunks: bool = True,
+) -> torch.Tensor:
+    """Training attention: the reference's kv-chunked online softmax in
+    f32 (scores scaled by ``hd**-0.5``, masked to ``-1e30``; kv padded to
+    a multiple of ``chunk`` with position -1), differentiable by autograd.
+    With ``remat_chunks`` each chunk step runs under
+    ``torch.utils.checkpoint``, so its ``(tq, chunk)`` scores are
+    recomputed in the backward instead of stored. Output in q's dtype."""
+    b, tq, nq, hd = q.shape
+    tk, nkv = k.shape[1], k.shape[2]
+    hv = v.shape[-1]
+    g = nq // nkv
+    qg = (q.float() * hd ** -0.5).reshape(b, tq, nkv, g, hd)
+
+    chunk = min(chunk, tk)
+    if tk % chunk:   # pad kv to a chunk multiple with masked (-1) positions
+        pad = chunk - tk % chunk
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = torch.nn.functional.pad(kv_positions, (0, pad),
+                                               value=-1)
+        tk += pad
+    m = torch.full((b, tq, nkv, g), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, tq, nkv, g), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, tq, nkv, g, hv), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, tk, chunk):
+        args = (m, l, acc, qg, k[:, c0:c0 + chunk], v[:, c0:c0 + chunk],
+                kv_positions[c0:c0 + chunk], q_positions, window)
+        if remat_chunks:
+            m, l, acc = checkpoint(_chunk_step, *args, use_reentrant=False)
+        else:
+            m, l, acc = _chunk_step(*args)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, tq, nq, hv).to(q.dtype)
 
 
 def decode_attention(
@@ -113,15 +182,16 @@ def self_attention(
     window: int | None = None,
     mode: str = "train",
 ):
-    """Returns (out, new_cache). Modes: prefill | decode (train raises)."""
-    if mode == "train":
-        raise NotImplementedError(
-            f"training attention is not ported to repro_torch yet: see "
-            f"{TRAINING}")
+    """Returns (out, new_cache). Modes: train | prefill | decode."""
     b, t, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
 
-    if mode == "prefill":
+    if mode == "train":
+        out = flash_attention(q, k, v, q_positions=positions,
+                              kv_positions=positions, window=window,
+                              chunk=cfg.attn_chunk)
+        new_cache = None
+    elif mode == "prefill":
         new_cache = {"k": k, "v": v} if window is None \
             else _ring(cfg, k, v, positions, window)
         out = ops.flash_attention(q, k, v, causal=True, window=window)

@@ -1,26 +1,32 @@
 """LM backbone: embed → layers → final norm → logits.
 
-The port of ``repro.models.lm.backbone`` for serving. The reference stacks
-the repeating super-block's params and scans over them; here the layers of
+The port of ``repro.models.lm.backbone``. The reference stacks the
+repeating super-block's params and scans over them; here the layers of
 ``cfg.layer_plan()`` (prefix, pattern × repeats, suffix) are one
 ``ModuleList``, run in a Python loop, and the cache is one dict per layer.
 
 Ported layer kinds: ``attn`` and ``local`` (the dense family: qwen2-0.5b,
-qwen3-1.7b, qwen3-32b, internlm2-20b). Every other kind, MLA,
-embedding inputs and training mode raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+qwen3-1.7b, qwen3-32b, internlm2-20b). Every other kind, MLA and
+embedding inputs raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 
-Modes: prefill (build the cache; ``last_only`` keeps the last position's
-logits) | decode (one token against the cache, which is updated in place).
+Modes: train (no cache; with ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint`` — the reference checkpoints each super-block,
+which gives the same values) | prefill (build the cache; ``last_only``
+keeps the last position's logits) | decode (one token against the cache,
+which is updated in place).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.lm.attention import LM_REST, TRAINING, attn_init, \
+from repro_torch.device import resolve_device
+from repro_torch.models.lm.attention import LM_REST, attn_init, \
     self_attention
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import MLP, Linear, Norm, apply_norm, \
@@ -76,7 +82,7 @@ class LM(nn.Module):
             embed = (torch.randn((cfg.vocab, d), generator=gen,
                                  dtype=torch.float32, device=device)
                      * (1.0 / math.sqrt(d))).to(dt)
-        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.embed = nn.Parameter(embed)
         self.final_norm = Norm(d, cfg.norm, device)
         self.unembed = None if cfg.tie_embeddings \
             else Linear(d, cfg.vocab, dt, device, gen=gen)
@@ -84,11 +90,12 @@ class LM(nn.Module):
                                     for kind in cfg.layer_plan())
 
 
-def init_params(cfg: LMConfig, seed: int = 0, device="cpu") -> LM:
+def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> LM:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``
-    on ``device``: the reference's distributions (embed ``N(0, 1/d)``,
-    weights ``N(0, 1/fan_in)``, norm gains 1, biases 0), not its numbers."""
-    device = torch.device(device)
+    on ``device`` (``cuda`` by default, which raises without a card): the
+    reference's distributions (embed ``N(0, 1/d)``, weights
+    ``N(0, 1/fan_in)``, norm gains 1, biases 0), not its numbers."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     with torch.no_grad():
@@ -113,9 +120,12 @@ def layer_cache(cfg: LMConfig, kind: str, batch: int, max_len: int,
                               f"repro_torch yet: see {LM_REST}")
 
 
-def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cpu") -> dict:
-    """Empty caches for ``max_len`` positions: ``{"layers": [one dict per
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               device="cuda") -> dict:
+    """Empty caches for ``max_len`` positions on ``device`` (``cuda`` by
+    default, which raises without a card): ``{"layers": [one dict per
     layer], "len": 0}``."""
+    device = resolve_device(device)
     return {"layers": [layer_cache(cfg, k, batch, max_len, device)
                        for k in cfg.layer_plan()],
             "len": 0}
@@ -139,6 +149,11 @@ def layer_apply(p: Block, cfg: LMConfig, kind: str, h, positions, *,
     return h, c
 
 
+def _train_layer(blk: Block, cfg: LMConfig, h, positions, rsc):
+    return layer_apply(blk, cfg, blk.kind, h, positions, mode="train",
+                       rsc=rsc)[0]
+
+
 def forward(
     params: LM, cfg: LMConfig, *,
     tokens: torch.Tensor | None = None,   # (b, t) int
@@ -149,15 +164,15 @@ def forward(
     rsc: dict | None = None,
     last_only: bool = False,
 ):
-    """Returns (logits f32 (b, t or 1, vocab), new_cache)."""
-    if mode == "train":
-        raise NotImplementedError(f"training mode is not ported to "
-                                  f"repro_torch yet: see {TRAINING}")
+    """Returns (logits f32 (b, t or 1, vocab), new_cache); new_cache is
+    None in train mode."""
     if embeds is not None or cross_states is not None:
         raise NotImplementedError(f"embedding and cross-attention inputs are "
                                   f"not ported to repro_torch yet: see "
                                   f"{LM_REST}")
-    h = params.embed[tokens.long()]
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    h = F.embedding(tokens.long(), params.embed)
     b, t, _ = h.shape
     cache_len = cache["len"] if cache is not None else None
     if mode == "decode":
@@ -165,13 +180,22 @@ def forward(
                                  device=h.device)
     else:
         positions = torch.arange(t, dtype=torch.int32, device=h.device)
-    new_cache = {"layers": [],
-                 "len": t if cache_len is None else cache_len + t}
-    for i, blk in enumerate(params.layers):
-        c_in = cache["layers"][i] if cache is not None else None
-        h, c = layer_apply(blk, cfg, blk.kind, h, positions, cache=c_in,
-                           cache_len=cache_len, mode=mode, rsc=rsc)
-        new_cache["layers"].append(c)
+    if mode == "train":
+        new_cache = None
+        for blk in params.layers:
+            if cfg.remat:
+                h = checkpoint(_train_layer, blk, cfg, h, positions, rsc,
+                               use_reentrant=False)
+            else:
+                h = _train_layer(blk, cfg, h, positions, rsc)
+    else:
+        new_cache = {"layers": [],
+                     "len": t if cache_len is None else cache_len + t}
+        for i, blk in enumerate(params.layers):
+            c_in = cache["layers"][i] if cache is not None else None
+            h, c = layer_apply(blk, cfg, blk.kind, h, positions, cache=c_in,
+                               cache_len=cache_len, mode=mode, rsc=rsc)
+            new_cache["layers"].append(c)
 
     h = apply_norm(params.final_norm, h, cfg.norm_eps)
     if last_only:

@@ -4,6 +4,9 @@ The port of ``repro.models.lm.layers``. Parameters keep the reference's
 ``x @ w`` orientation: ``Linear.w`` is ``(d_in, d_out)``, so a tree from
 the reference copies in without a transpose. Norm gains stay f32 and norms
 compute in f32, cast back to the input's dtype, as the reference does.
+Parameters are trainable; serving runs under ``torch.inference_mode``.
+With ``rsc``, the MLP's products go through ``core.rsc_matmul`` (exact
+forward and dx, top-k-sampled dW), the bias added outside it.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-_TRAINING = "ROADMAP.md Queue 1 item 9b (LM training: rsc_matmul)"
+from repro_torch.core.rsc_matmul import rsc_matmul
 
 
 def he(shape, dtype, device, gen: torch.Generator | None) -> torch.Tensor:
@@ -32,10 +35,9 @@ class Linear(nn.Module):
     def __init__(self, d_in: int, d_out: int, dtype, device, *,
                  bias: bool = False, gen: torch.Generator | None = None):
         super().__init__()
-        self.w = nn.Parameter(he((d_in, d_out), dtype, device, gen),
-                              requires_grad=False)
-        self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device),
-                              requires_grad=False) if bias else None
+        self.w = nn.Parameter(he((d_in, d_out), dtype, device, gen))
+        self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device)) \
+            if bias else None
 
 
 def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
@@ -51,10 +53,9 @@ class Norm(nn.Module):
     def __init__(self, d: int, kind: str = "rmsnorm", device=None):
         super().__init__()
         self.g = nn.Parameter(torch.ones(d, dtype=torch.float32,
-                                         device=device), requires_grad=False)
+                                         device=device))
         self.b = nn.Parameter(torch.zeros(d, dtype=torch.float32,
-                                          device=device),
-                              requires_grad=False) \
+                                          device=device)) \
             if kind == "layernorm" else None
 
 
@@ -109,15 +110,26 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, x: torch.Tensor, kind: str, rsc=None) -> torch.Tensor:
-    """The MLP forward. ``rsc`` (the sampled-backward matmul of training)
-    is not ported yet and raises."""
-    if rsc is not None:
-        raise NotImplementedError(
-            f"rsc_matmul is not ported to repro_torch yet: see {_TRAINING}")
+    """The MLP forward. ``rsc`` (``{"keep_frac", "bk" (128), "backend"
+    ("kernel")}``) routes its products through ``rsc_matmul``."""
+    mm = _mm(rsc)
     if kind == "swiglu":
-        h = F.silu(linear(p.gate, x)) * linear(p.up, x)
+        h = F.silu(mm(x, p.gate)) * mm(x, p.up)
     elif kind == "geglu":
-        h = F.gelu(linear(p.gate, x), approximate="tanh") * linear(p.up, x)
+        h = F.gelu(mm(x, p.gate), approximate="tanh") * mm(x, p.up)
     else:
-        h = F.gelu(linear(p.up, x), approximate="tanh")
-    return linear(p.down, h)
+        h = F.gelu(mm(x, p.up), approximate="tanh")
+    return mm(h, p.down)
+
+
+def _mm(rsc):
+    if rsc is None:
+        return lambda x, p: linear(p, x)
+
+    def mm(x, p: Linear):
+        y = rsc_matmul(x, p.w, rsc["keep_frac"], rsc.get("bk", 128),
+                       rsc.get("backend", "kernel"))
+        if p.b is not None:
+            y = y + p.b
+        return y
+    return mm

@@ -1,1 +1,2 @@
-"""Step builders of the port (LM prefill and decode so far)."""
+"""Steps and the optimizer of the port (LM train, prefill and decode so
+far)."""

@@ -1,7 +1,8 @@
-"""The CUDA kernels of the port on the card: ``bcoo_spmm`` and
-``flash_attention`` against their plain PyTorch versions, the wrappers'
-refusals, and the streaming GCN forward and the LM prefill + decode on
-``cuda`` against the same runs on the CPU.
+"""The CUDA kernels of the port on the card: ``bcoo_spmm``,
+``gather_matmul`` and ``flash_attention`` against their plain PyTorch
+versions, the wrappers' refusals, and the streaming GCN forward, the LM
+prefill + decode, ``rsc_matmul`` and LM training steps on ``cuda``
+against the same runs on the CPU.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor ``repro``, so it runs on a machine with only
@@ -19,7 +20,15 @@ bit). Flash attention, scaled to each output row (a row's size falls as
 2e-2, with a = 2e-4 (f32) or 5e-2 (bf16), the tolerances of
 ``tests/test_kernels.py``, and r = 1e-3 or 5e-2; and each row's L2 error
 within 1e-4 (f32) or 1e-2 (bf16) of its norm. The kernel rounds P to bf16
-before P·V in bf16; the plain version does not.
+before P·V in bf16; the plain version does not. ``gather_matmul``,
+scaled to the data: element-wise rtol r and atol a·rms(ref row), and the
+Frobenius error within n of the norm, with (r, a, n) = (1e-4, 1e-4, 1e-4)
+in f32 and (1e-2, 1e-3, 2e-3) in bf16 (both sides sum exact products in
+f32 and round once, so a bf16 element may differ by one unit of its last
+place). Training on the card against the CPU: equal selected blocks,
+losses within 1e-5 relative and each parameter's change within
+``TRAIN_DP_REL`` of the CPU run's change in L2 norm (``chip_smoke.py``'s
+limit).
 """
 import dataclasses
 
@@ -31,12 +40,17 @@ from repro_torch.graphs.synthetic import sbm_graph
 from repro_torch.infer import StreamConfig, StreamingInference
 from repro_torch.configs import make_batch, smoke_config
 from repro_torch.kernels import bcoo_spmm as kmod
+from repro_torch.core import rsc_matmul as rsc
 from repro_torch.kernels import flash_attention as fmod
+from repro_torch.kernels import gather_matmul as gmod
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import bcoo_spmm_ref, flash_attention_ref
+from repro_torch.kernels.ref import bcoo_spmm_ref, flash_attention_ref, \
+    gather_matmul_ref
 from repro_torch.launch import serve
 from repro_torch.models.gnn import gcn
 from repro_torch.models.lm.backbone import init_params
+from repro_torch.train.lm_steps import make_train_step
+from repro_torch.train.optimizer import Adam
 
 pytestmark = pytest.mark.cuda
 
@@ -150,7 +164,7 @@ def test_stream_forward_on_cuda_matches_cpu(cuda, batchnorm):
     g = sbm_graph(n_nodes=600, n_clusters=5, avg_degree=10, feat_dim=24,
                   seed=2)
     cfg = dict(block=32, n_partitions=3, memory_budget_mb=None)
-    net = gcn.init(24, 48, 5, 3, batchnorm, seed=1)
+    net = gcn.init(24, 48, 5, 3, batchnorm, seed=1, device="cpu")
     cpu = StreamingInference(g, "gcn", net, StreamConfig(device="cpu",
                                                          **cfg))
     dev = StreamingInference(g, "gcn", gcn.init(24, 48, 5, 3, batchnorm,
@@ -256,3 +270,137 @@ def test_lm_prefill_decode_on_cuda_matches_cpu(cuda, arch):
         torch.testing.assert_close(
             grec["logits"][phase].cpu(), ref, rtol=0,
             atol=1e-4 * float(ref.abs().max()))
+
+
+# (n_blocks, bk, m, q, k_sel): one block, ragged widths (41, 96, 130),
+# every bk, k_sel of 1, half and all, and the training shape's 2048 x 6144.
+GATHER_CASES = [
+    (1, 32, 41, 96, 1), (3, 64, 96, 41, 2), (3, 128, 130, 264, 3),
+    (8, 32, 64, 128, 4), (64, 128, 2048, 6144, 32), (5, 32, 7, 9, 5)]
+GATHER_TOL = {"f32": (1e-4, 1e-4, 1e-4), "bf16": (1e-2, 1e-3, 2e-3)}
+TRAIN_DP_REL = 1e-3
+
+
+def _gather_close(out, ref, dtype):
+    out, ref = out.float().cpu(), ref.float().cpu()
+    rtol, row, norm = GATHER_TOL[dtype]
+    err = (out - ref).abs()
+    rms = ref.square().mean(-1, keepdim=True).sqrt()
+    assert not (err > rtol * ref.abs() + row * rms).any(), float(err.max())
+    assert float((out - ref).norm() / ref.norm()) <= norm
+
+
+def _gather_operands(seed, n_blocks, bk, m, q, k_sel, dtype, dev):
+    rng = np.random.default_rng(seed)
+    x, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        dev, DTYPES[dtype]) for s in ((n_blocks * bk, m), (n_blocks * bk, q)))
+    idx = np.sort(rng.choice(n_blocks, k_sel, replace=False))
+    return x, g, torch.from_numpy(idx.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("n_blocks,bk,m,q,k_sel", GATHER_CASES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_gather_kernel_matches_plain_version(cuda, n_blocks, bk, m, q, k_sel,
+                                             dtype):
+    x, g, idx = _gather_operands(m + q, n_blocks, bk, m, q, k_sel, dtype,
+                                 cuda)
+    before = gmod.launches
+    out = ops.gather_matmul(x, g, idx, bk=bk)
+    torch.cuda.synchronize()
+    assert gmod.launches == before + 1
+    assert out.dtype == x.dtype and out.shape == (m, q)
+    _gather_close(out, gather_matmul_ref(x, g, idx, bk=bk), dtype)
+
+
+@pytest.mark.parametrize("case", ["past_end", "negative", "bk", "device_mix",
+                                  "non_contiguous", "empty"])
+def test_gather_wrapper_refuses_what_the_kernel_cannot_take(cuda, case):
+    x, g, idx = _gather_operands(0, 4, 32, 16, 24, 2, "bf16", cuda)
+    kw = dict(bk=32)
+    if case == "past_end":
+        idx[-1] = 4
+    elif case == "negative":
+        idx[0] = -1
+    elif case == "bk":
+        kw["bk"] = 16
+    elif case == "device_mix":
+        idx = idx.cpu()
+    elif case == "non_contiguous":
+        g = torch.cat([g, g], dim=1)[:, ::2]
+    elif case == "empty":
+        idx = idx[:0]
+    before = gmod.launches
+    with pytest.raises(ValueError):
+        gmod.gather_matmul(x, g, idx, **kw)
+    assert gmod.launches == before
+
+
+def test_rsc_matmul_on_cuda_matches_cpu(cuda):
+    """Forward, dx and the sampled dW through the kernel against the CPU
+    (plain version), f32, with the same blocks selected."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 256, 48)).astype(np.float32)
+    w = rng.standard_normal((48, 40)).astype(np.float32)
+    ct = rng.standard_normal((2, 256, 40)).astype(np.float32)
+    res = []
+    for dev in ("cpu", cuda):
+        tx, tw = (torch.from_numpy(a).to(dev).requires_grad_()
+                  for a in (x, w))
+        y = rsc.rsc_matmul(tx, tw, 0.5, 32)
+        dx, dw = torch.autograd.grad(y, (tx, tw),
+                                     torch.from_numpy(ct).to(dev))
+        idx = rsc.select_blocks(tx.detach().reshape(-1, 48),
+                                torch.from_numpy(ct).to(dev).reshape(-1, 40),
+                                8, 32)
+        res.append([t.detach().cpu() for t in (y, dx, dw, idx)])
+    (cy, cdx, cdw, cidx), (gy, gdx, gdw, gidx) = res
+    assert torch.equal(cidx, gidx)
+    for got, ref in ((gy, cy), (gdx, cdx), (gdw, cdw)):
+        torch.testing.assert_close(got, ref, rtol=1e-4,
+                                   atol=1e-4 * float(ref.abs().max()))
+
+
+def test_rsc_ref_backend_refuses_cuda_tensors(cuda):
+    """Backend ``"ref"`` is CPU-only: on the card the sampled dW runs the
+    kernel or the call raises, with no launch."""
+    x = torch.randn(2, 64, 48, device=cuda, requires_grad=True)
+    w = torch.randn(48, 40, device=cuda, requires_grad=True)
+    before = gmod.launches
+    with pytest.raises(ValueError):
+        rsc.rsc_matmul(x, w, 0.5, 32, backend="ref")
+    with pytest.raises(ValueError):
+        rsc.sampled_xt_g(x.detach().reshape(-1, 48),
+                         torch.randn(128, 40, device=cuda), 2, 32,
+                         backend="ref")
+    assert gmod.launches == before
+
+
+def test_lm_train_steps_on_cuda_match_cpu(cuda):
+    """Three RSC training steps of the f32 smoke qwen3-1.7b (bk 32, 2
+    microbatches) on the card and on the CPU from one parameter set, with
+    3 kernel launches per layer per microbatch on the card."""
+    cfg = dataclasses.replace(smoke_config("qwen3-1.7b"), dtype="float32")
+    lr, steps = 1e-3, 3
+    nets = {"cpu": init_params(cfg, seed=0, device="cpu")}
+    nets["cuda"] = init_params(cfg, seed=0, device="cpu").to(cuda)
+    start = {k: p.detach().clone() for k, p in nets["cpu"].named_parameters()}
+    losses = {}
+    for name, net in nets.items():
+        opt = Adam(lr=lr, clip_norm=1.0)
+        state = opt.init(dict(net.named_parameters()))
+        step = make_train_step(cfg, opt, 2, rsc={"keep_frac": 0.5, "bk": 32})
+        ops.reset_launch_counts()
+        losses[name] = []
+        for i in range(steps):
+            batch = make_batch(cfg, "train_4k", 4, 64, seed=i,
+                               device=net.embed.device)
+            net, state, loss = step(net, state, batch)
+            losses[name].append(float(loss))
+        want = 0 if name == "cpu" else 3 * cfg.n_layers * 2 * steps
+        assert ops.launch_counts()["gather_matmul"] == want
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    for (k, a), (_, b) in zip(nets["cpu"].named_parameters(),
+                              nets["cuda"].named_parameters()):
+        moved = a.detach() - start[k]
+        err = (b.detach().cpu() - a.detach()).norm()
+        assert float(err) <= TRAIN_DP_REL * float(moved.norm()), k

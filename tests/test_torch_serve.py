@@ -108,7 +108,7 @@ def test_node_server_queries_match_reference(graphs, batchnorm, n_parts):
 
 def test_query_rejects_out_of_range_ids(graphs):
     g, _ = graphs
-    srv = NodeServer(g, "gcn", gcn.init(16, 8, 5, 2, True),
+    srv = NodeServer(g, "gcn", gcn.init(16, 8, 5, 2, True, device="cpu"),
                      StreamConfig(block=32, device="cpu"))
     with pytest.raises(IndexError):
         srv.query([g.n])
@@ -139,9 +139,8 @@ def test_convert_transposes_exactly_once():
 def test_seeded_init_is_deterministic_and_local():
     torch.manual_seed(123)
     state = torch.random.get_rng_state()
-    a, b = gcn.init(16, 32, 5, 3, True, seed=4), gcn.init(16, 32, 5, 3, True,
-                                                          seed=4)
-    c = gcn.init(16, 32, 5, 3, True, seed=5)
+    a, b, c = (gcn.init(16, 32, 5, 3, True, seed=s, device="cpu")
+               for s in (4, 4, 5))
     assert torch.equal(torch.random.get_rng_state(), state)
     for x, y, z in zip(a.parameters(), b.parameters(), c.parameters()):
         assert torch.equal(x, y)
@@ -154,7 +153,7 @@ def test_seeded_init_is_deterministic_and_local():
 
 def test_stream_rejects_params_on_another_device(graphs):
     g, _ = graphs
-    net = gcn.init(16, 8, 5, 2, True).to("meta")
+    net = gcn.init(16, 8, 5, 2, True, device="cpu").to("meta")
     with pytest.raises(ValueError, match="params are on"):
         StreamingInference(g, "gcn", net, StreamConfig(block=32,
                                                        device="cpu"))

@@ -297,7 +297,8 @@ def test_plain_version_counts_no_launch():
     ops.bcoo_spmm(*(torch.from_numpy(x) for x in
                     (blocks, sel, rows, cols, h)),
                   n_row_blocks=n_rb, bm=8, bk=8)
-    assert ops.launch_counts() == {"bcoo_spmm": 0, "flash_attention": 0}
+    assert ops.launch_counts() == {"bcoo_spmm": 0, "gather_matmul": 0,
+                                   "flash_attention": 0}
 
 
 def test_build_paths_and_missing_nvcc(monkeypatch, tmp_path):
