@@ -8,7 +8,11 @@ without the final ``{"ok": true, ...}`` line:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the port from ``src/repro_torch/csrc``
-   with ``nvcc`` (one ``nvcc`` per source, all started together);
+   with ``nvcc`` (one ``nvcc`` per source, all started together); print
+   each kernel's registers, static shared memory and spills (``ptxas
+   -v``) and each library's count of ``HGMMA`` (wgmma) and ``UTMALDG``
+   (TMA load) instructions (``cuobjdump -sass``), and fail unless the
+   ``flash_attention`` and ``gather_matmul`` libraries hold both;
 3. GCN serving (``bcoo_spmm``): hold the kernel against its plain PyTorch
    version on the card over (bm, bk) ∈ {8, 32, 64, 128}², d ∈ {41, 256,
    602}, f32 and bf16, every epilogue, empty row segments, sentinel
@@ -27,26 +31,30 @@ without the final ``{"ok": true, ...}`` line:
    serving path's shapes, work out the card's bound for the same work, and
    time the stages of one full forward;
 6. LM serving (``flash_attention``): sweep the kernel against its plain
-   version over b ∈ {1, 2}, (nq, nkv) ∈ {(16, 8), (14, 2), (4, 4), (8, 1)},
-   hd ∈ {64, 128}, f32 and bf16, tq = tk ∈ {1, 7, 64, 257, 1024} and
-   tq < tk with q_offset = tk − tq, window ∈ {None, 16, 100}, causal and
-   not; then prefill + 8 greedy decode steps of the f32 smoke qwen3-1.7b on
-   the card against the same run on the CPU;
+   version over b ∈ {1, 2}, (nq, nkv) ∈ {(16, 8), (14, 2), (4, 4), (8, 1)}
+   (GQA ratios 2, 7, 1, 8), hd ∈ {64, 128}, f32 (variant ``fma``) and
+   bf16 (``wgmma``), tq = tk ∈ {1, 7, 64, 129, 257, 1024} and tq < tk
+   with q_offset = tk − tq, window ∈ {None, 16, 100}, causal and not,
+   checking that each launch is counted under its variant; then prefill +
+   8 greedy decode steps of the f32 smoke qwen3-1.7b on the card against
+   the same run on the CPU;
 7. drive the LM serving path (``repro_torch.launch.serve``) at the full
    width of qwen3-1.7b (28 layers, d_model 2048, bf16, seeded random
    weights) with batch 4, a 4,096-token prompt and 32 generated tokens,
    launch counts set to 0 just before and read just after; assert 28
-   kernel launches in the prefill and none in decode, finite logits, a
-   (4, 32) token block, and the kernel against its plain version on the
-   first layer's own q/k/v;
+   kernel launches in the prefill, all of them ``wgmma``, and none in
+   decode, finite logits, a (4, 32) token block, and the kernel against
+   its plain version on the first layer's own q/k/v;
 8. time the flash kernel, its plain version and
    ``scaled_dot_product_attention`` (a yardstick the port never calls) at
-   the main path's shape and at one 32,768-token row, with the card's
-   bound; time a warm prefill and decode;
+   the main path's shape, at one 32,768-token row and at qwen2-0.5b's
+   widths (4 × 4,096, 14 / 2 heads, hd 64), with the card's bound; time a
+   warm prefill and decode;
 9. LM training (``gather_matmul``, the sampled weight gradient of
    ``rsc_matmul``): sweep the kernel against its plain version over
    n/bk ∈ {1, 3, 64}, bk ∈ {32, 64, 128}, (m, q) ∈ {(41, 96), (96, 41),
-   (130, 264), (2048, 6144)}, k_sel ∈ {1, half, all}, f32 and bf16; then
+   (130, 264) (variant ``mma``), (200, 264), (2048, 6144), (6144, 2048)
+   (``wgmma``)}, k_sel ∈ {1, half, all}, f32 (``fma``) and bf16; then
    3 training steps of the f32 smoke qwen3-1.7b with RSC (bk 32, keep
    0.5, 2 microbatches) on the card against the same steps on the CPU:
    equal selected blocks, losses within 1e-5 relative and each
@@ -56,14 +64,17 @@ without the final ``{"ok": true, ...}`` line:
     microbatches ``configs.shapes.microbatches`` gives ``train_4k`` (2),
     RSC keep 0.5, 3 steps, launch counts set to 0 just
     before and read just after; assert 3 × 28 × 2 ``gather_matmul``
-    launches per step and no ``flash_attention`` launch, finite losses,
+    launches per step, all of them ``wgmma``, and no ``flash_attention``
+    launch, finite losses,
     and the kernel against its plain version on one of the path's own
     (x, g, idx) triples per shape;
 11. time ``gather_matmul``, its plain version and a gather +
     ``torch.matmul`` (a yardstick the port never calls) at the path's
     gate/up and down shapes, with the card's bound; report the warm step
     time, tokens/s and peak device memory;
-12. print the kernel line, the card line and, last, the result line.
+12. print the build report, the kernel line (with the variant each
+    kernel ran on its main path), the card line and, last, the result
+    line.
 
 Without a CUDA device it exits with code 2 and prints no result. It
 imports nothing of JAX and nothing of the ``repro`` package.
@@ -74,6 +85,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -110,10 +122,14 @@ FLASH_ROW = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 FLASH_ROW_L2 = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 FLASH_RTOL = 2e-2
 FLASH_HEADS = [(16, 8), (14, 2), (4, 4), (8, 1)]
-FLASH_LENGTHS = [(t, t) for t in (1, 7, 64, 257, 1024)] + [
-    (1, 257), (7, 1024), (64, 257), (257, 1024)]      # (tq, tk)
+FLASH_LENGTHS = [(t, t) for t in (1, 7, 64, 129, 257, 1024)] + [
+    (1, 257), (7, 1024), (64, 257), (100, 385), (257, 1024)]   # (tq, tk)
 LM_ARGV = ["--arch", "qwen3-1.7b", "--batch", "4", "--prompt-len", "4096",
            "--gen", "32", "--device", "cuda"]
+# Flash timing rows (b, t, nq, nkv, hd, q_chunk of the plain version,
+# reps) on seeded inputs, after the main path's own shape: one 32,768-token
+# row of qwen3-1.7b's heads, and qwen2-0.5b's widths at the prefill shape.
+FLASH_ROWS = [(1, 32768, 16, 8, 128, 1024, 3), (4, 4096, 14, 2, 64, None, 20)]
 # gather_matmul against its plain version, in f32, scaled to the data: for
 # each element |out - ref| <= rtol·|ref| + row·rms(ref row), and
 # ||out - ref||_F <= norm·||ref||_F. bf16: both sides sum exact products in
@@ -123,7 +139,8 @@ LM_ARGV = ["--arch", "qwen3-1.7b", "--batch", "4", "--prompt-len", "4096",
 # the result by ~1/sqrt(k_sel) of its norm (all of it when k_sel = 1).
 GATHER_TOL = {torch.float32: (1e-4, 1e-4, 1e-4),
               torch.bfloat16: (1e-2, 1e-3, 2e-3)}      # (rtol, row, norm)
-GATHER_WIDTHS = [(41, 96), (96, 41), (130, 264), (2048, 6144)]   # (m, q)
+GATHER_WIDTHS = [(41, 96), (96, 41), (130, 264), (200, 264), (2048, 6144),
+                 (6144, 2048)]                                  # (m, q)
 # The smoke training on the card against the CPU: each parameter's change
 # over the run within TRAIN_DP_REL of the CPU run's change, in L2 norm. A
 # sampled dW that drops one of its two selected blocks moves it by ~0.7.
@@ -174,18 +191,59 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 # ------------------------------------------------------------------ phases
 
-def build_kernels(build) -> float:
+def kernel_label(mangled: str) -> str:
+    """``flash_fwd_wgmma<128>`` from the mangled name ``ptxas`` prints:
+    the last length-prefixed name of ``_ZN<len><name>...`` and its one
+    template argument."""
+    pos, name = 3 if mangled.startswith("_ZN") else 2, None
+    while (m := re.match(r"\d+", mangled[pos:])):
+        start = pos + m.end()
+        name, pos = mangled[start:start + int(m.group())], \
+            start + int(m.group())
+    arg = re.match(r"IL[ib](\d+)E", mangled[pos:])
+    return mangled if name is None else \
+        name + (f"<{arg.group(1)}>" if arg else "")
+
+
+def ptxas_summary(log: str) -> dict[str, str]:
+    """Registers, static shared memory and spills of each kernel, from the
+    ``-Xptxas -v`` log (dynamic shared memory is set at launch)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_label(m.group(1))
+            out[name] = ""
+        elif name and ("registers" in line or "spill" in line):
+            out[name] = (out[name] + "; " if out[name] else "") + \
+                line.split("ptxas info    :")[-1].strip()
+    return out
+
+
+def build_kernels(build) -> dict:
+    """Build every kernel (one ``nvcc`` each, all at once), print each
+    kernel's ``ptxas`` figures, any compiler warning and the count of
+    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in each
+    library; the two redesigned libraries must hold both."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
         built = list(ex.map(build.build, KERNEL_SOURCES))
     secs = time.perf_counter() - t0
+    report = {"seconds": secs, "ptxas": {}, "sass": {}}
     for name, (path, log) in zip(KERNEL_SOURCES, built):
-        say(f"[build] {name}: {path.name}")
+        sass = build.sass_counts(path)
+        report["ptxas"].update(ptxas_summary(log))
+        report["sass"][name] = sass
+        say(f"[build] {name}: {path.name}, SASS {sass}")
+        for kernel, info in ptxas_summary(log).items():
+            say(f"[build]   {kernel}: {info}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "warning" in line.lower():
                 say(f"[build]   {line.strip()}")
+        if name != "bcoo_spmm" and min(sass.values()) < 1:
+            raise AssertionError(f"{name} has no wgmma or TMA load: {sass}")
     say(f"[build] {len(KERNEL_SOURCES)} kernel(s) in {secs:.2f} s")
-    return secs
+    return report
 
 
 def sweep_case(rng, bm, bk, d, dtype, dev, n_rb=6, n_cb=7, n_tiles=14):
@@ -462,7 +520,7 @@ def flash_sweep(ops, fmod, flash_attention_ref, dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
-    n = 0
+    n, n_var = 0, {}
     for b in (1, 2):
         for nq, nkv in FLASH_HEADS:
             for hd in (64, 128):
@@ -475,12 +533,14 @@ def flash_sweep(ops, fmod, flash_attention_ref, dev) -> dict:
                             for causal in (True, False):
                                 kw = dict(q_offset=tk - tq, causal=causal,
                                           window=window)
-                                before = fmod.launches
+                                var = fmod.variant(dtype, hd)
+                                before = fmod.launches_by_variant[var]
                                 out = ops.flash_attention(q, k, v, **kw)
                                 torch.cuda.synchronize()
-                                if fmod.launches != before + 1:
+                                if fmod.launches_by_variant[var] != \
+                                        before + 1:
                                     raise AssertionError(
-                                        "kernel launch not counted")
+                                        f"{var} launch not counted")
                                 if out.dtype != dtype or \
                                         out.shape != q.shape:
                                     raise AssertionError(
@@ -491,11 +551,13 @@ def flash_sweep(ops, fmod, flash_attention_ref, dev) -> dict:
                                 worst[dtype] = [max(a, e) for a, e in
                                                 zip(worst[dtype], errs)]
                                 n += 1
+                                n_var[var] = n_var.get(var, 0) + 1
     f32, bf16 = worst[torch.float32], worst[torch.bfloat16]
-    say(f"[flash sweep] {n} cases agree; max abs err f32 {f32[0]:.3e}, "
-        f"bf16 {bf16[0]:.3e}; max row-relative L2 err f32 {f32[1]:.3e}, "
-        f"bf16 {bf16[1]:.3e}")
-    return {"cases": n, "max_abs_err_f32": f32[0], "max_abs_err_bf16": bf16[0],
+    say(f"[flash sweep] {n} cases agree ({n_var}); max abs err f32 "
+        f"{f32[0]:.3e}, bf16 {bf16[0]:.3e}; max row-relative L2 err f32 "
+        f"{f32[1]:.3e}, bf16 {bf16[1]:.3e}")
+    return {"cases": n, "cases_by_variant": n_var,
+            "max_abs_err_f32": f32[0], "max_abs_err_bf16": bf16[0],
             "max_row_rel_err_f32": f32[1], "max_row_rel_err_bf16": bf16[1]}
 
 
@@ -540,15 +602,20 @@ def lm_main_path(serve, ops):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    by_var = ops.launch_counts_by_variant()["flash_attention"]
     cfg, rec = out["cfg"], out
     say(f"[lm serve] {cfg.name}: {json.dumps(out['report'])}, run "
-        f"{wall:.2f} s, launches {counts}, by phase {rec['launches']}")
+        f"{wall:.2f} s, launches {counts}, by phase {rec['launches']}, by "
+        f"variant {by_var}")
     if rec["launches"]["prefill"]["flash_attention"] != cfg.n_layers or \
             rec["launches"]["decode"]["flash_attention"] != 0 or \
             counts["flash_attention"] != cfg.n_layers:
         raise AssertionError(f"flash_attention launches {rec['launches']}, "
                              f"expected {cfg.n_layers} per prefill and 0 in "
                              f"decode")
+    if by_var["wgmma"] != cfg.n_layers:
+        raise AssertionError(f"flash_attention variants {by_var}: every "
+                             f"prefill launch should be wgmma")
     for phase, lg in rec["logits"].items():
         if not torch.isfinite(lg).all():
             raise AssertionError(f"{phase} logits not finite")
@@ -600,13 +667,14 @@ def flash_row(q, k, v, fmod, flash_attention_ref, q_chunk, reps) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
     row = dict(b=b, t=t, nq=nq, nkv=nkv, hd=hd, dtype=str(q.dtype),
+               variant=fmod.variant(q.dtype, hd),
                max_abs_err=err, max_row_rel_err=rel,
                sdpa_max_abs_err=lib_err, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, flops=flops,
                bytes=nbytes, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                tflops=flops / ms / 1e9)
-    say(f"[flash {b}x{t}] err={err:.3e} row-rel={rel:.3e} kernel {ms:.4f} "
+    say(f"[flash {b}x{t} nq {nq} nkv {nkv} hd {hd}] err={err:.3e} row-rel={rel:.3e} kernel {ms:.4f} "
         f"ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
         f"{row['tflops']:.2f} TFLOP/s")
@@ -621,13 +689,14 @@ def lm_timings(out, serve, fmod, flash_attention_ref, apply_norm,
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    t = 32768
-    q = randn(gen, (1, t, 16, 128), torch.bfloat16, "cuda")
-    k = randn(gen, (1, t, 8, 128), torch.bfloat16, "cuda")
-    v = randn(gen, (1, t, 8, 128), torch.bfloat16, "cuda")
-    rows.append(flash_row(q, k, v, fmod, flash_attention_ref, 1024, reps=3))
-    del q, k, v
-    torch.cuda.empty_cache()
+    for b, t, nq, nkv, hd, q_chunk, reps in FLASH_ROWS:
+        q = randn(gen, (b, t, nq, hd), torch.bfloat16, "cuda")
+        k = randn(gen, (b, t, nkv, hd), torch.bfloat16, "cuda")
+        v = randn(gen, (b, t, nkv, hd), torch.bfloat16, "cuda")
+        rows.append(flash_row(q, k, v, fmod, flash_attention_ref, q_chunk,
+                              reps=reps))
+        del q, k, v
+        torch.cuda.empty_cache()
     # a warm prefill + decode with the main path's parameters and prompt
     args = serve.build_parser().parse_args(LM_ARGV)
     _, stats, _ = serve.greedy_generate(
@@ -671,7 +740,7 @@ def gather_sweep(ops, gmod, gather_matmul_ref, dev) -> dict:
     gen.manual_seed(2)
     rng = np.random.default_rng(2)
     worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
-    n = 0
+    n, n_var = 0, {}
     for n_blocks in (1, 3, 64):
         for bk in (32, 64, 128):
             for m, q in GATHER_WIDTHS:
@@ -683,11 +752,12 @@ def gather_sweep(ops, gmod, gather_matmul_ref, dev) -> dict:
                         idx = torch.from_numpy(np.sort(rng.choice(
                             n_blocks, k_sel, replace=False)).astype(
                                 np.int32)).to(dev)
-                        before = gmod.launches
+                        var = gmod.variant(dtype, m, q)
+                        before = gmod.launches_by_variant[var]
                         out = ops.gather_matmul(x, g, idx, bk=bk)
                         torch.cuda.synchronize()
-                        if gmod.launches != before + 1:
-                            raise AssertionError("kernel launch not counted")
+                        if gmod.launches_by_variant[var] != before + 1:
+                            raise AssertionError(f"{var} launch not counted")
                         if out.dtype != dtype or out.shape != (m, q):
                             raise AssertionError(
                                 f"got {out.dtype} {tuple(out.shape)}")
@@ -696,12 +766,14 @@ def gather_sweep(ops, gmod, gather_matmul_ref, dev) -> dict:
                         worst[dtype] = [max(a, e) for a, e in
                                         zip(worst[dtype], errs)]
                         n += 1
+                        n_var[var] = n_var.get(var, 0) + 1
                     del x, g
     f32, bf16 = worst[torch.float32], worst[torch.bfloat16]
-    say(f"[gather sweep] {n} cases agree; max abs err f32 {f32[0]:.3e}, "
-        f"bf16 {bf16[0]:.3e}; max norm-relative err f32 {f32[1]:.3e}, "
-        f"bf16 {bf16[1]:.3e}")
-    return {"cases": n, "max_abs_err_f32": f32[0], "max_abs_err_bf16": bf16[0],
+    say(f"[gather sweep] {n} cases agree ({n_var}); max abs err f32 "
+        f"{f32[0]:.3e}, bf16 {bf16[0]:.3e}; max norm-relative err f32 "
+        f"{f32[1]:.3e}, bf16 {bf16[1]:.3e}")
+    return {"cases": n, "cases_by_variant": n_var,
+            "max_abs_err_f32": f32[0], "max_abs_err_bf16": bf16[0],
             "max_norm_rel_err_f32": f32[1], "max_norm_rel_err_bf16": bf16[1]}
 
 
@@ -798,18 +870,23 @@ def lm_train_main_path(train, ops, gmod, gather_matmul_ref, argv):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    by_var = ops.launch_counts_by_variant()["gather_matmul"]
     peak = torch.cuda.max_memory_allocated()
     args = train.build_parser().parse_args(argv)
     cfg = out["cfg"]
     want = 3 * cfg.n_layers * args.microbatches * args.steps
     say(f"[lm train] {cfg.name}: losses {out['losses']}, step s "
         f"{[round(s, 4) for s in out['step_s']]}, run {wall:.2f} s, peak "
-        f"{peak / 2 ** 30:.2f} GiB, launches {counts}")
+        f"{peak / 2 ** 30:.2f} GiB, launches {counts}, gather_matmul by "
+        f"variant {by_var}")
     if counts["gather_matmul"] != want or counts["flash_attention"] != 0 \
             or counts["bcoo_spmm"] != 0:
         raise AssertionError(f"launches {counts}, expected {want} "
                              f"gather_matmul (3 per layer per microbatch "
                              f"per step) and nothing else")
+    if by_var["wgmma"] != want:
+        raise AssertionError(f"gather_matmul variants {by_var}: every "
+                             f"training launch should be wgmma")
     if not all(np.isfinite(out["losses"])):
         raise AssertionError(f"losses not finite: {out['losses']}")
     checks = {}
@@ -844,7 +921,8 @@ def gather_row(x, g, idx, bk, gmod, gather_matmul_ref) -> dict:
     nbytes = (k_sel * bk * (m + q) + m * q) * es + k_sel * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[x.dtype] * 1e3
-    row = dict(m=m, q=q, n=n, bk=bk, k_sel=k_sel, dtype=str(x.dtype), ms=ms,
+    row = dict(m=m, q=q, n=n, bk=bk, k_sel=k_sel, dtype=str(x.dtype),
+               variant=gmod.variant(x.dtype, m, q), ms=ms,
                plain_ms=plain_ms, library_ms=library_ms,
                library_max_abs_err=lib_err, flops=flops, bytes=nbytes,
                bound_ms=max(t_bytes, t_ops),
@@ -890,6 +968,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     say(f"[card] {smi}")
     sys.path.insert(0, str(ROOT / "src"))
@@ -918,7 +997,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_s = build_kernels(build)
+    build_rep = build_kernels(build)
     sweep_res = sweep(ops, kmod, bcoo_spmm_ref, plan_row_ptr, dev)
     ref_err = small_reference(sbm_graph, StreamingInference, StreamConfig,
                               gcn)
@@ -957,7 +1036,7 @@ def main(argv=None) -> int:
         "name": "bcoo_spmm", "route": "cuda",
         "source": "src/repro_torch/csrc/bcoo_spmm.cu",
         "replaces": "src/repro/kernels/bcoo_spmm.py:51",
-        "launches": launches,
+        "variant": "fma", "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": hidden["ms"], "plain_ms": hidden["plain_ms"],
         "bound_ms": hidden["bound_ms"], "bound_by": hidden["bound_by"],
@@ -965,7 +1044,7 @@ def main(argv=None) -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:31",
-        "launches": flash_launches,
+        "variant": flash_rows[0]["variant"], "launches": flash_launches,
         "max_abs_err": flash_rows[0]["max_abs_err"],
         "ms": flash_rows[0]["ms"], "plain_ms": flash_rows[0]["plain_ms"],
         "bound_ms": flash_rows[0]["bound_ms"],
@@ -974,14 +1053,14 @@ def main(argv=None) -> int:
         "name": "gather_matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/gather_matmul.cu",
         "replaces": "src/repro/kernels/gather_matmul.py:28",
-        "launches": gather_launches,
+        "variant": gather_rows[0]["variant"], "launches": gather_launches,
         "max_abs_err": max(c[0] for c in path_checks.values()),
         "ms": gather_rows[0]["ms"], "plain_ms": gather_rows[0]["plain_ms"],
         "bound_ms": gather_rows[0]["bound_ms"],
         "bound_by": gather_rows[0]["bound_by"],
         "library_ms": gather_rows[0]["library_ms"]}]
     say(json.dumps({"slice": {
-        "build_kernels_s": build_s, "serve_run_s": run_s,
+        "build_kernels_s": build_rep["seconds"], "serve_run_s": run_s,
         "cache_build_s": report["cache_build_s"],
         "queries_per_s": report["queries_per_s"],
         "n_nodes": report["n_nodes"], "n_partitions": report["n_partitions"],
@@ -999,6 +1078,8 @@ def main(argv=None) -> int:
         "warm": train_warm, "gather_sweep": gather_res,
         "small_reference": train_ref, "path_checks": path_checks,
         "gather_shapes": gather_rows}}))
+    say(json.dumps({"build": build_rep,
+                    "total_s": time.perf_counter() - t_start}))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -25,36 +25,54 @@
 //
 // Design. The TPU kernel walks a (b*nq, q tile, kv tile) grid in order and
 // keeps m, l and the accumulator in VMEM scratch across the kv steps. Here
-// one CTA owns one (batch*q-head, 64-row q tile) and loops over the kv tiles
-// of its kv head itself, holding m, l and the accumulator in registers, and
-// writes its output tile once. Causal tiles stop at the diagonal and window
-// tiles start at the first key in the window; if some row of the tile sees
-// no key at all, the CTA walks every key so that row averages all of them.
-// CTAs are issued last q tile first, so the longest causal walks start
-// first.
+// one CTA owns one (batch*q-head, q tile) and loops over the kv tiles of its
+// kv head itself, holding m, l and the accumulator in registers, and writes
+// its output tile once. Causal tiles stop at the diagonal and window tiles
+// start at the first key in the window; if some row of the tile sees no key
+// at all, the CTA walks every key so that row averages all of them. CTAs are
+// issued last q tile first, so the longest causal walks start first. The
+// scale is applied to the f32 scores after the product (hd^-0.5 is not a
+// power of two at hd 128). In bf16, P is rounded to bf16 before P.V (the row
+// sum l stays in f32): one more bf16 rounding than the reference, a few 1e-3
+// of each output row's norm (the tests allow 1e-2); S stays in registers,
+// since the C layout of Q.K^T is the A layout of P.V. Three variants, which
+// the wrapper picks from the dtype and hd alone:
 //
-// - bf16: 4 warps, each 16 query rows, on the tensor cores with
-//   mma.sync.m16n8k16 (bf16 in, f32 accumulate). The scale is applied to the
-//   f32 scores after the product (hd^-0.5 is not a power of two at hd 128).
-//   P is rounded to bf16 before P.V (the row sum l stays in f32): one more
-//   bf16 rounding than the reference, a few 1e-3 of each output row's
-//   norm (the tests allow 1e-2). S stays in registers: the C layout of Q.K^T is the A layout
-//   of P.V. V is stored transposed in shared memory for the B operand.
-// - f32: plain FP32 FMAs (TF32 stays off), 256 threads in a 16 x 16 grid,
-//   4 x 2 scores and 4 x hd/16 outputs per thread, P through shared memory.
+// - wgmma (bf16, hd 64 or 128, the models): 128-row q tiles, 384 threads.
+//   A producer warp loads the q tile once and then K and V tiles of 128 keys
+//   into a 2-stage ring with TMA (4-D tensor maps over (hd, heads, t, b), so
+//   rows past tq or tk of a batch row load as zeros; at hd 128 a row is two
+//   64-wide boxes, the 128-byte swizzle span), signalled through mbarriers,
+//   K and V on separate barriers so Q.K^T starts before V has landed. Two
+//   consumer warpgroups of 64 query rows each (setmaxnreg: 232 registers,
+//   the producer 40) run S = Q.K^T as an SS wgmma.m64n128k16 with both
+//   operands K-major, the masked online softmax on the f32 accumulator
+//   (tiles that every row sees in full skip the mask), and O += P.V as an
+//   RS wgmma with P from registers and V read MN-major through the
+//   transpose bit: no transposed copy of V. Within a warpgroup the
+//   softmax runs between the two products; the two warpgroups interleave
+//   on the tensor cores. Tiles are released to the producer once P.V has
+//   finished reading them.
+// - mma (bf16, hd 16, the reduced smoke configs): 64-row q tiles, 4 warps
+//   of 16 rows on mma.sync.m16n8k16, 64-key tiles loaded synchronously,
+//   V stored transposed in shared memory for the B operand.
+// - fma (f32): plain FP32 FMAs (TF32 stays off), 64-row q tiles, 256
+//   threads in a 16 x 16 grid, 4 x 2 scores and 4 x hd/16 outputs per
+//   thread, P through shared memory.
 //
-// This is the simple correct version: single-buffered loads, no
-// cp.async/TMA pipeline, no wgmma and no warp specialisation yet.
+// The mma and fma variants are single-buffered and synchronous.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float NEG_BIG = -1e30f;  // the reference's NEG_INF
-constexpr int BQ = 64;             // query rows per CTA (both kernels)
+constexpr int BQ = 64;             // query rows per CTA (mma and fma)
 
 struct Params {
   const void* q;
@@ -100,7 +118,7 @@ __device__ __forceinline__ float masked_score(const Params& P, float x, int p,
   return x * P.scale;
 }
 
-// ------------------------------------------------------ bf16, tensor cores
+// --------------------------------------------------- bf16, hd 16, mma.sync
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -290,6 +308,243 @@ __global__ void __launch_bounds__(THREADS16) flash_fwd_bf16(Params P) {
   }
 }
 
+// ----------------------------------------------- bf16, wgmma + TMA ring
+
+namespace wg {
+
+constexpr int BQ = 128;      // query rows per CTA: 2 consumer warpgroups
+constexpr int BKV = 128;     // keys per tile
+constexpr int STAGES = 2;    // K/V tiles in flight
+constexpr int THREADS = 384;  // 2 consumer warpgroups + the producer's
+constexpr int ROW = 128;     // bytes of one swizzled box row (64 bf16)
+
+template <int HD>
+struct Smem {
+  static constexpr int Q_BYTES = BQ * HD * 2;    // HD / 64 boxes of BQ rows
+  static constexpr int KV_BYTES = BKV * HD * 2;  // HD / 64 boxes of BKV rows
+  static constexpr int STAGE = 2 * KV_BYTES;     // K, then V
+  static constexpr int BARS = 1 + 3 * STAGES;    // Q; K full, V full, empty
+  static constexpr int SMEM = Q_BYTES + STAGES * STAGE + BARS * 8 + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, Params P) {
+  using L = Smem<HD>;
+  using bf16 = __nv_bfloat16;
+  constexpr int CH = HD / 64;  // boxes per row of q, k or v
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = hopper::align1024(smem_raw);
+  unsigned char* ring = Qs + L::Q_BYTES;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(ring + STAGES * L::STAGE);
+  uint64_t* kfull = qfull + 1;
+  uint64_t* vfull = kfull + STAGES;
+  uint64_t* empty = vfull + STAGES;
+
+  const int tid = static_cast<int>(threadIdx.x);
+  const int group = tid / 128;
+  const int q0 = (static_cast<int>(gridDim.x - 1 - blockIdx.x)) * BQ;
+  const int bh = static_cast<int>(blockIdx.y);
+  const int bi = bh / P.nq, h = bh % P.nq, kvh = h / (P.nq / P.nkv);
+  const int rows = min(BQ, P.tq - q0);
+  int t0, t1;
+  tile_range(P, q0, rows, BKV, t0, t1);
+
+  if (tid == 0) {
+    hopper::mbar_init(qfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&kfull[s], 1);
+      hopper::mbar_init(&vfull[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (group == 2) {  // producer
+    hopper::setmaxnreg_dec<40>();
+    if (tid == 256) {
+      hopper::prefetch_map(&qmap);
+      hopper::prefetch_map(&kmap);
+      hopper::prefetch_map(&vmap);
+      // coordinates (hd, head, t, batch); rows past tq or tk load as zeros
+      hopper::mbar_expect_tx(qfull, L::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        hopper::tma_load_4d(Qs + c * BQ * ROW, &qmap, qfull, 64 * c, h, q0,
+                            bi);
+      for (int t = t0; t <= t1; ++t) {
+        const int i = t - t0, s = i % STAGES;
+        if (i >= STAGES) hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        unsigned char* ks = ring + s * L::STAGE;
+        unsigned char* vs = ks + L::KV_BYTES;
+        hopper::mbar_expect_tx(&kfull[s], L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+          hopper::tma_load_4d(ks + c * BKV * ROW, &kmap, &kfull[s], 64 * c,
+                              kvh, t * BKV, bi);
+        hopper::mbar_expect_tx(&vfull[s], L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+          hopper::tma_load_4d(vs + c * BKV * ROW, &vmap, &vfull[s], 64 * c,
+                              kvh, t * BKV, bi);
+      }
+    }
+  } else {  // consumers: warpgroup `group` owns query rows 64 * group ...
+    hopper::setmaxnreg_inc<232>();
+    const int lane = tid % 32, warp = (tid % 128) / 32;
+    const int g = lane / 4, tg = lane % 4;
+    const int r0 = 64 * group + 16 * warp + g;  // rows r0 and r0 + 8
+    const int pos[2] = {P.q_offset + q0 + r0, P.q_offset + q0 + r0 + 8};
+    // A tile of keys [k0, k0 + BKV) that every valid row sees in full
+    // needs no mask: keys from the last row's first to the first row's last.
+    int lo_last, hi_first, unused;
+    key_range(P, P.q_offset + q0, unused, hi_first);
+    key_range(P, P.q_offset + q0 + rows - 1, lo_last, unused);
+
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    hopper::fence_regs(o);
+    float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
+    const unsigned char* qa = Qs + group * 64 * ROW;
+    hopper::mbar_wait(qfull, 0);
+
+    for (int t = t0; t <= t1; ++t) {
+      const int i = t - t0, s = i % STAGES;
+      const uint32_t parity = (i / STAGES) & 1;
+      const unsigned char* ks = ring + s * L::STAGE;
+      const unsigned char* vs = ks + L::KV_BYTES;
+
+      // S = Q K^T: both K-major (hd contiguous), 4 k16 steps per box
+      float sc[BKV / 2];
+      hopper::mbar_wait(&kfull[s], parity);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int box = kk / 4, col = (kk % 4) * 32;
+        hopper::wgmma_m64n128k16_ss<0, 0>(
+            sc, hopper::desc_k(qa + box * BQ * ROW + col),
+            hopper::desc_k(ks + box * BKV * ROW + col), kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+
+      const int k0 = t * BKV;
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+      if (k0 >= lo_last && k0 + BKV - 1 <= hi_first) {
+#pragma unroll
+        for (int e = 0; e < BKV / 2; ++e) {
+          sc[e] *= P.scale;
+          mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < BKV / 2; ++e) {
+          const int j = k0 + 8 * (e / 4) + 2 * tg + (e & 1);
+          sc[e] = masked_score(P, sc[e], pos[(e >> 1) & 1], j);
+          mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+        }
+      }
+      float alpha[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+        const float m_new = fmaxf(m[rr], mx[rr]);
+        alpha[rr] = __expf(m[rr] - m_new);
+        m[rr] = m_new;
+      }
+#pragma unroll
+      for (int e = 0; e < BKV / 2; ++e) {
+        sc[e] = __expf(sc[e] - m[(e >> 1) & 1]);
+        ls[(e >> 1) & 1] += sc[e];
+      }
+      // l is this thread's share of the row sum, added up after the walk
+      l[0] = l[0] * alpha[0] + ls[0];
+      l[1] = l[1] * alpha[1] + ls[1];
+#pragma unroll
+      for (int e = 0; e < HD / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+      // P in bf16: the accumulator's 16 columns of keys kc are the A
+      // fragment of the k16 step kc, two to a register
+      uint32_t p[BKV / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < BKV / 16; ++kc)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          p[kc][u] = pack_bf16(sc[8 * kc + 2 * u], sc[8 * kc + 2 * u + 1]);
+
+      // O += P V: V is MN-major (hd contiguous), 64-wide hd atoms one box
+      // (BKV rows) apart
+      hopper::mbar_wait(&vfull[s], parity);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BKV / 16; ++kc) {
+        const uint64_t db = hopper::desc_mn(vs + kc * 16 * ROW, BKV * ROW);
+        if constexpr (HD == 128)
+          hopper::wgmma_m64n128k16_rs<1>(o, p[kc], db, 1);
+        else
+          hopper::wgmma_m64n64k16_rs<1>(o, p[kc], db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+      l[rr] = fmaxf(l[rr], 1e-30f);
+    }
+    const size_t q_stride = (size_t)P.nq * HD;
+    bf16* ob = static_cast<bf16*>(P.out) +
+               ((size_t)bi * P.tq + q0) * q_stride + (size_t)h * HD;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = r0 + 8 * rr;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r * q_stride +
+                                           8 * j + 2 * tg) =
+            __floats2bfloat162_rn(o[4 * j + 2 * rr] / l[rr],
+                                  o[4 * j + 2 * rr + 1] / l[rr]);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch(const Params& P, int b, cudaStream_t st) {
+  // q as (hd, nq, tq, b) and k, v as (hd, nkv, tk, b), innermost first:
+  // boxes of 64 of hd x one head x BQ or BKV positions x one batch row.
+  CUtensorMap qmap, kmap, vmap;
+  const uint64_t qdims[4] = {HD, (uint64_t)P.nq, (uint64_t)P.tq,
+                             (uint64_t)b};
+  const uint64_t qstr[3] = {HD * 2, (uint64_t)P.nq * HD * 2,
+                            (uint64_t)P.tq * P.nq * HD * 2};
+  const uint64_t kvdims[4] = {HD, (uint64_t)P.nkv, (uint64_t)P.tk,
+                              (uint64_t)b};
+  const uint64_t kvstr[3] = {HD * 2, (uint64_t)P.nkv * HD * 2,
+                             (uint64_t)P.tk * P.nkv * HD * 2};
+  const uint32_t qbox[4] = {64, 1, BQ, 1}, kvbox[4] = {64, 1, BKV, 1};
+  cudaError_t err = hopper::encode_bf16(&qmap, P.q, 4, qdims, qstr, qbox);
+  if (err == cudaSuccess)
+    err = hopper::encode_bf16(&kmap, P.k, 4, kvdims, kvstr, kvbox);
+  if (err == cudaSuccess)
+    err = hopper::encode_bf16(&vmap, P.v, 4, kvdims, kvstr, kvbox);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((P.tq + BQ - 1) / BQ, b * P.nq);
+  return hopper::launch(flash_fwd_wgmma<HD>, grid, THREADS, Smem<HD>::SMEM,
+                        st, qmap, kmap, vmap, P);
+}
+
+}  // namespace wg
+
 // ------------------------------------------------------------ f32, FMAs
 
 constexpr int BK32 = 32;       // keys per tile
@@ -426,49 +681,43 @@ __global__ void __launch_bounds__(THREADS32) flash_fwd_f32(Params P) {
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, int threads, dim3 grid,
-                   const Params& p, cudaStream_t st) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<grid, threads, smem, st>>>(p);
-  return cudaGetLastError();
-}
-
-template <int HD>
-cudaError_t dispatch(int is_bf16, dim3 grid, const Params& p,
-                     cudaStream_t st) {
-  return is_bf16
-             ? launch(flash_fwd_bf16<HD>, smem_bf16<HD>(), THREADS16, grid, p,
-                      st)
-             : launch(flash_fwd_f32<HD>, smem_f32<HD>(), THREADS32, grid, p,
-                      st);
-}
+enum Variant { FMA = 0, MMA = 1, WGMMA = 2 };  // the wrapper's VARIANTS
 
 }  // namespace
 
-// Launches on `stream` and returns the CUDA error (0 on success). q, k, v
-// and out are contiguous device tensors in the layout above, 16-byte
-// aligned; scale is hd^-0.5 rounded to f32 by the caller, as the reference
-// rounds it. The caller has checked shapes, dtypes and that tq, tk >= 1,
-// nq % nkv == 0, b * nq <= 65535 and hd is 16, 64 or 128.
+// Launches `variant` on `stream` and returns the CUDA error (0 on success).
+// q, k, v and out are contiguous device tensors in the layout above,
+// 16-byte aligned; scale is hd^-0.5 rounded to f32 by the caller, as the
+// reference rounds it. The caller has checked shapes, dtypes, that the
+// variant takes them (fma: f32, hd 16, 64 or 128; mma: bf16, hd 16; wgmma:
+// bf16, hd 64 or 128) and that tq, tk >= 1, nq % nkv == 0 and
+// b * nq <= 65535.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int b, int tq,
                                       int tk, int nq, int nkv, int hd,
                                       int q_offset, int causal, int window,
-                                      float scale, int is_bf16, void* stream) {
+                                      float scale, int variant, void* stream) {
   Params p{q, k, v, out, tq, tk, nq, nkv, q_offset, causal, window, scale};
   const dim3 grid((tq + BQ - 1) / BQ, b * nq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  switch (hd) {
-    case 16: err = dispatch<16>(is_bf16, grid, p, st); break;
-    case 64: err = dispatch<64>(is_bf16, grid, p, st); break;
-    case 128: err = dispatch<128>(is_bf16, grid, p, st); break;
-    default: break;
+  if (variant == WGMMA) {
+    if (hd == 64) err = wg::launch<64>(p, b, st);
+    if (hd == 128) err = wg::launch<128>(p, b, st);
+  } else if (variant == MMA) {
+    if (hd == 16)
+      err = hopper::launch(flash_fwd_bf16<16>, grid, THREADS16,
+                           smem_bf16<16>(), st, p);
+  } else if (variant == FMA) {
+    if (hd == 16)
+      err = hopper::launch(flash_fwd_f32<16>, grid, THREADS32, smem_f32<16>(),
+                           st, p);
+    if (hd == 64)
+      err = hopper::launch(flash_fwd_f32<64>, grid, THREADS32, smem_f32<64>(),
+                           st, p);
+    if (hd == 128)
+      err = hopper::launch(flash_fwd_f32<128>, grid, THREADS32,
+                           smem_f32<128>(), st, p);
   }
   return static_cast<int>(err);
 }

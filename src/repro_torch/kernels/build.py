@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports a plain C launch function. It is compiled
 with ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at
 the repository root (listed in ``.gitignore``) the first time it is needed;
-the hash covers the source and the flags, so an edited source rebuilds and
-an unchanged one is loaded as it is. Nothing is built at import time.
+the hash covers the source, every shared header ``csrc/*.cuh`` and the
+flags, so an edited source or header rebuilds and an unchanged one is
+loaded as it is. Nothing is built at import time.
 """
 from __future__ import annotations
 
@@ -37,9 +38,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple[Path, str]:
@@ -69,6 +72,17 @@ def build(name: str) -> tuple[Path, str]:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out, proc.stdout + proc.stderr
+
+
+def sass_counts(path: Path, opcodes=("HGMMA", "UTMALDG")) -> dict[str, int]:
+    """How many instructions of each opcode the library's SASS holds
+    (``cuobjdump -sass``, found beside ``nvcc``): ``HGMMA`` is a wgmma,
+    ``UTMALDG`` a TMA tensor load."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                          text=True, check=True)
+    words = proc.stdout.split()
+    return {op: sum(w.startswith(op) for w in words) for op in opcodes}
 
 
 def load(name: str) -> ctypes.CDLL:

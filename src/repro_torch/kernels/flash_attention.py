@@ -7,13 +7,16 @@ wrapper.
 Query ``i`` sits at position ``q_offset + i``. The port of the Pallas TPU
 kernel ``repro.kernels.flash_attention.flash_attention_fwd``. The kernel is
 ``csrc/flash_attention.cu`` (design and bound in its header), built with
-``nvcc`` on first use and called through ``ctypes``.
+``nvcc`` on first use and called through ``ctypes``. It has three
+variants, chosen by ``variant(dtype, hd)`` from the dtype and the head
+dimension alone: ``"wgmma"`` (bf16, hd 64 or 128: TMA ring + wgmma),
+``"mma"`` (bf16, hd 16: mma.sync) and ``"fma"`` (f32).
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a tensor
 that lies on the CPU it runs the plain version,
 ``repro_torch.kernels.ref.flash_attention_ref``. Nothing falls back from
 one to the other. ``launches`` counts kernel launches (never plain-version
-calls).
+calls) and ``launches_by_variant`` splits them by variant.
 """
 from __future__ import annotations
 
@@ -27,14 +30,30 @@ from repro_torch.kernels.ref import flash_attention_ref
 HEAD_DIMS = (16, 64, 128)   # the models' 64 and 128, the smoke configs' 16
 _GRID_Y_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
+VARIANTS = ("fma", "mma", "wgmma")   # the kernel's codes 0, 1, 2
 
 launches = 0      # kernel launches since the last reset_launches()
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 _lib: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_variant.update(dict.fromkeys(VARIANTS, 0))
+
+
+def variant(dtype: torch.dtype, hd: int) -> str:
+    """The kernel variant that q of ``dtype`` and head dimension ``hd``
+    runs: ``"wgmma"`` for bf16 at hd 64 or 128, ``"mma"`` for bf16 at hd
+    16, ``"fma"`` for f32 at any hd in ``HEAD_DIMS``."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes hd in {HEAD_DIMS}, got {hd}")
+    if dtype == torch.float32:
+        return "fma"
+    if dtype == torch.bfloat16:
+        return "mma" if hd == 16 else "wgmma"
+    raise ValueError(f"no flash_attention kernel for {dtype}")
 
 
 def _library() -> ctypes.CDLL:
@@ -121,18 +140,21 @@ def flash_attention(
 def launch(q, k, v, out, *, q_offset, causal, window) -> None:
     """Launch the kernel into ``out`` on the current stream, without the
     wrapper's checks — for inputs a ``flash_attention`` call has accepted
-    (the timing loop of ``chip_smoke.py``). Counts the launch."""
+    (the timing loop of ``chip_smoke.py``). Counts the launch under its
+    variant."""
     global launches
     lib = _library()
     b, tq, nq, hd = q.shape
     tk, nkv = k.shape[1], k.shape[2]
+    var = variant(q.dtype, hd)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, tq, tk, nq, nkv, hd, q_offset, int(bool(causal)),
-            window or 0, hd ** -0.5, int(q.dtype == torch.bfloat16), stream)
+            window or 0, hd ** -0.5, VARIANTS.index(var), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention kernel ({var}) launch failed: "
+                           f"CUDA error {err}")
     launches += 1
+    launches_by_variant[var] += 1

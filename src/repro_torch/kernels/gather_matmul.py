@@ -7,13 +7,16 @@ summed in f32 and cast to x's dtype. The port of the Pallas TPU kernel
 ``repro.kernels.gather_matmul.gather_matmul`` (its XᵀG form, the only one
 ``rsc_matmul`` uses). The kernel is ``csrc/gather_matmul.cu`` (design and
 bound in its header), built with ``nvcc`` on first use and called through
-``ctypes``.
+``ctypes``. It has three variants, chosen by ``variant(dtype, m, q)`` from
+the dtype and the widths alone: ``"wgmma"`` (bf16, m and q multiples of 8:
+TMA ring + wgmma), ``"mma"`` (bf16, other widths: mma.sync) and ``"fma"``
+(f32).
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a tensor
 that lies on the CPU it runs the plain version,
 ``repro_torch.kernels.ref.gather_matmul_ref``. Nothing falls back from one
 to the other. ``launches`` counts kernel launches (never plain-version
-calls).
+calls) and ``launches_by_variant`` splits them by variant.
 """
 from __future__ import annotations
 
@@ -28,14 +31,28 @@ KC = 32            # the kernel stages 32 tokens at a time: bk % KC == 0
 _TILE = 128        # the bf16 kernel's output tile (the f32 one's is 64)
 _GRID_Y_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
+VARIANTS = ("fma", "mma", "wgmma")   # the kernel's codes 0, 1, 2
 
 launches = 0      # kernel launches since the last reset_launches()
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 _lib: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_variant.update(dict.fromkeys(VARIANTS, 0))
+
+
+def variant(dtype: torch.dtype, m: int, q: int) -> str:
+    """The kernel variant that x of ``dtype`` with output ``(m, q)`` runs:
+    ``"wgmma"`` for bf16 with m and q multiples of 8 (TMA needs 16-byte
+    row strides), ``"mma"`` for other bf16 widths, ``"fma"`` for f32."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype == torch.bfloat16:
+        return "wgmma" if m % 8 == 0 and q % 8 == 0 else "mma"
+    raise ValueError(f"no gather_matmul kernel for {dtype}")
 
 
 def _library() -> ctypes.CDLL:
@@ -138,16 +155,19 @@ def _dispatch(x, g, idx, bk) -> torch.Tensor:
 def launch(x, g, idx, out, *, bk) -> None:
     """Launch the kernel into ``out`` on the current stream, without the
     wrapper's checks — for inputs a ``gather_matmul`` call has accepted
-    (the timing loop of ``chip_smoke.py``). Counts the launch."""
+    (the timing loop of ``chip_smoke.py``). Counts the launch under its
+    variant."""
     global launches
     lib = _library()
     (n, m), q = x.shape, g.shape[1]
+    var = variant(x.dtype, m, q)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.gather_matmul_launch(
             x.data_ptr(), g.data_ptr(), idx.data_ptr(), out.data_ptr(), n, m,
-            q, idx.numel(), bk, int(x.dtype == torch.bfloat16), stream)
+            q, idx.numel(), bk, VARIANTS.index(var), stream)
     if err != 0:
-        raise RuntimeError(f"gather_matmul kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"gather_matmul kernel ({var}) launch failed: "
+                           f"CUDA error {err}")
     launches += 1
+    launches_by_variant[var] += 1

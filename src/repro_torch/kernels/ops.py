@@ -7,7 +7,8 @@ wrapper, which launches the CUDA kernel for a CUDA tensor and runs the
 plain version for a CPU tensor. There is no autotuner yet: ``bd`` comes
 from the heuristic or the caller. ``gather_matmul`` and ``flash_attention``
 call their wrappers the same way (kernel on a CUDA tensor, plain version
-on a CPU tensor).
+on a CPU tensor); each wrapper picks its kernel variant from the dtype and
+shape alone.
 """
 from __future__ import annotations
 
@@ -73,6 +74,12 @@ def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last reset."""
     return {"bcoo_spmm": _bcoo.launches, "gather_matmul": _gather.launches,
             "flash_attention": _flash.launches}
+
+
+def launch_counts_by_variant() -> dict[str, dict[str, int]]:
+    """Launches of the kernels that have variants, split by variant."""
+    return {"gather_matmul": dict(_gather.launches_by_variant),
+            "flash_attention": dict(_flash.launches_by_variant)}
 
 
 def reset_launch_counts() -> None:

@@ -1,6 +1,7 @@
 """The CUDA kernels of the port on the card: ``bcoo_spmm``,
 ``gather_matmul`` and ``flash_attention`` against their plain PyTorch
-versions, the wrappers' refusals, and the streaming GCN forward, the LM
+versions (the wgmma variants also at the edges of their tiles, each launch
+counted under its variant), the wrappers' refusals, and the streaming GCN forward, the LM
 prefill + decode, ``rsc_matmul`` and LM training steps on ``cuda``
 against the same runs on the CPU.
 
@@ -232,6 +233,36 @@ def test_flash_kernel_matches_plain_version(cuda, b, tq, tk, nq, nkv, hd,
     _flash_close(out, flash_attention_ref(q, k, v, **kw), dtype)
 
 
+# The wgmma variant's edges (bf16): tq and tk not multiples of its 128-row
+# tiles, tq < tk with q_offset > 0, windows, GQA ratios 1, 2, 7 and 8, hd
+# 64 and 128, rows that see no key (q_offset < 0 under causal; every key
+# left of a window) and one query.
+FLASH_WGMMA_CASES = [
+    (1, 129, 129, 4, 4, 128, True, None, 0),
+    (2, 100, 385, 16, 8, 64, True, None, 285),
+    (1, 300, 300, 14, 2, 128, True, 100, 0),
+    (2, 64, 257, 8, 1, 64, False, 16, 193),
+    (1, 257, 1000, 14, 2, 128, False, None, 0),
+    (1, 130, 200, 4, 2, 128, True, None, -5),
+    (1, 64, 64, 4, 4, 64, True, 8, 100),
+    (1, 1, 1, 8, 1, 128, True, None, 0)]
+
+
+@pytest.mark.parametrize("b,tq,tk,nq,nkv,hd,causal,window,q_offset",
+                         FLASH_WGMMA_CASES)
+def test_flash_wgmma_variant_edges(cuda, b, tq, tk, nq, nkv, hd, causal,
+                                   window, q_offset):
+    q, k, v = _qkv(tq * 3 + tk + hd, b, tq, tk, nq, nkv, hd, "bf16", cuda)
+    kw = dict(q_offset=q_offset, causal=causal, window=window)
+    assert fmod.variant(q.dtype, hd) == "wgmma"
+    before = dict(fmod.launches_by_variant)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fmod.launches_by_variant == {**before,
+                                        "wgmma": before["wgmma"] + 1}
+    _flash_close(out, flash_attention_ref(q, k, v, **kw), "bf16")
+
+
 @pytest.mark.parametrize("case", ["head_dim", "device_mix",
                                   "non_contiguous"])
 def test_flash_wrapper_refuses_what_the_kernel_cannot_take(cuda, case):
@@ -310,6 +341,27 @@ def test_gather_kernel_matches_plain_version(cuda, n_blocks, bk, m, q, k_sel,
     assert gmod.launches == before + 1
     assert out.dtype == x.dtype and out.shape == (m, q)
     _gather_close(out, gather_matmul_ref(x, g, idx, bk=bk), dtype)
+
+
+# The wgmma variant's edges (bf16, m and q multiples of 8): widths that are
+# not multiples of its 128 x 256 tiles, k_sel 1, bk 32, 64, 96 (32-token
+# stages) and 128, both training shapes.
+GATHER_WGMMA_CASES = [
+    (1, 32, 200, 264, 1), (3, 64, 200, 264, 2), (4, 128, 264, 200, 4),
+    (2, 96, 8, 520, 2), (3, 128, 2048, 6144, 1), (64, 128, 6144, 2048, 32)]
+
+
+@pytest.mark.parametrize("n_blocks,bk,m,q,k_sel", GATHER_WGMMA_CASES)
+def test_gather_wgmma_variant_edges(cuda, n_blocks, bk, m, q, k_sel):
+    x, g, idx = _gather_operands(m * 7 + q, n_blocks, bk, m, q, k_sel,
+                                 "bf16", cuda)
+    assert gmod.variant(x.dtype, m, q) == "wgmma"
+    before = dict(gmod.launches_by_variant)
+    out = ops.gather_matmul(x, g, idx, bk=bk)
+    torch.cuda.synchronize()
+    assert gmod.launches_by_variant == {**before,
+                                        "wgmma": before["wgmma"] + 1}
+    _gather_close(out, gather_matmul_ref(x, g, idx, bk=bk), "bf16")
 
 
 @pytest.mark.parametrize("case", ["past_end", "negative", "bk", "device_mix",
