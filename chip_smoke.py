@@ -10,26 +10,33 @@ without the final ``{"ok": true, ...}`` line:
 2. build every CUDA kernel of the port from ``src/repro_torch/csrc``
    with ``nvcc`` (one ``nvcc`` per source, all started together); print
    each kernel's registers, static shared memory and spills (``ptxas
-   -v``) and each library's count of ``HGMMA`` (wgmma) and ``UTMALDG``
-   (TMA load) instructions (``cuobjdump -sass``), and fail unless the
-   ``flash_attention`` and ``gather_matmul`` libraries hold both;
-3. GCN serving (``bcoo_spmm``): hold the kernel against its plain PyTorch
-   version on the card over (bm, bk) ∈ {8, 32, 64, 128}², d ∈ {41, 256,
-   602}, f32 and bf16, every epilogue, empty row segments, sentinel
-   padding and ``row_ptr=None``, and the serving forward at full width on
-   a small graph against the same forward on the CPU (the kernels' plain
+   -v``) and each library's count of tensor-core and asynchronous-load
+   instructions (``cuobjdump -sass``: ``HMMA`` and ``LDGSTS`` for
+   ``bcoo_spmm``, ``HGMMA`` and ``UTMALDG`` for the other two), and fail
+   unless every library holds both;
+3. GCN serving (``bcoo_spmm``): hold every variant against its plain
+   PyTorch version on the card over (bm, bk) ∈ {8, 32, 64, 128}², d ∈
+   {41, 256, 602}, f32 and bf16, every epilogue, empty row segments,
+   sentinel padding and ``row_ptr=None`` (the picked tensor-core variant,
+   and ``fma`` forced on the same inputs), then over split segments, a
+   1,500-entry run of sentinel padding and 1-4-tile segments, checking
+   that each launch is counted under its variant and that two launches
+   give the same bits; and the serving forward at full width on a small
+   graph against the same forward on the CPU (the kernels' plain
    versions);
 4. drive the GCN serving path (``repro_torch.launch.serve_gnn``) at the
    full width of the repository's GCN (3 layers, hidden 256, block 128) on
    synthetic Reddit at ``--scale`` (0.1 by default) with the launch counts
    set to 0 just before and read just after; assert finite logits, query
    answers equal to the cached logits rows, and kernel launches equal to
-   layers × partitions; compare the kernel with its plain version on the
-   heaviest partition of every layer;
+   layers × partitions, all of them ``tf32x3``; compare the kernel with
+   its plain version on the heaviest partition of every layer, and both
+   with the plain version in f64;
 5. time ``bcoo_spmm``, its plain version and ``torch.sparse.mm`` on a BSR
    tensor of the same operand (a yardstick the port never calls) at the
-   serving path's shapes, work out the card's bound for the same work, and
-   time the stages of one full forward;
+   serving path's shapes, work out the card's bounds for the same work
+   (FP32 pipes, and TF32 tensor cores for ``tf32x3``), and time the
+   stages of one full forward;
 6. LM serving (``flash_attention``): sweep the kernel against its plain
    version over b ∈ {1, 2}, (nq, nkv) ∈ {(16, 8), (14, 2), (4, 4), (8, 1)}
    (GQA ratios 2, 7, 1, 8), hd ∈ {64, 128}, f32 (variant ``fma``) and
@@ -102,11 +109,25 @@ KERNEL_SOURCES = ["bcoo_spmm", "gather_matmul",
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,     # FP32 outside the tensor cores:
               torch.bfloat16: 989e12}   # TF32 is off, so f32 runs here
+TF32_FLOPS = 495e12   # bcoo_spmm's tf32x3 runs 3 TF32 products per product
+# What each library's SASS must hold: tensor-core products (HGMMA: wgmma,
+# HMMA: mma.sync) and asynchronous loads (UTMALDG: TMA, LDGSTS: cp.async).
+SASS_OPS = {"bcoo_spmm": ("HMMA", "LDGSTS"),
+            "gather_matmul": ("HGMMA", "UTMALDG"),
+            "flash_attention": ("HGMMA", "UTMALDG")}
 # f32: the kernel and the plain version sum the same f32 products in a
 # different order. bf16: both round an f32 sum once to 8 significant bits,
 # so the order can flip the last bit (2^-7 relative).
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}
 TILES = [(8, 8), (32, 32), (64, 64), (128, 128)]
+# bcoo_spmm edge cases at bm = bk = 128, as (tiles of each row block,
+# sentinel entries padding the last): a row block of 320 tiles among few
+# row blocks (its segment is split into chunks); a last row of 1,500
+# sentinels, as a partition's padding piles up; and a sampled backward
+# plan's 1-4 tiles per row over 62 row blocks (one chunk).
+EDGE_CASES = {"split": ([320, 7, 0, 40], 0),
+              "padded": ([12, 9, 10], 1500),
+              "short": ([1, 2, 3, 4, 0, 1] * 10 + [2, 3], 0)}
 WIDTHS = [41, 256, 602]
 EPILOGUES = [(b, r, u) for b in (False, True) for r in (False, True)
              for u in (False, True)]
@@ -192,17 +213,35 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 # ------------------------------------------------------------------ phases
 
 def kernel_label(mangled: str) -> str:
-    """``flash_fwd_wgmma<128>`` from the mangled name ``ptxas`` prints:
-    the last length-prefixed name of ``_ZN<len><name>...`` and its one
-    template argument."""
+    """``flash_fwd_wgmma<128>`` or ``spmm_tc<float,64,1>`` from the mangled
+    name ``ptxas`` prints: the last length-prefixed name of
+    ``_ZN<len><name>...`` and its template arguments (types, and integer
+    or bool values)."""
     pos, name = 3 if mangled.startswith("_ZN") else 2, None
     while (m := re.match(r"\d+", mangled[pos:])):
         start = pos + m.end()
         name, pos = mangled[start:start + int(m.group())], \
             start + int(m.group())
-    arg = re.match(r"IL[ib](\d+)E", mangled[pos:])
-    return mangled if name is None else \
-        name + (f"<{arg.group(1)}>" if arg else "")
+    if name is None:
+        return mangled
+    args = []
+    if mangled[pos:pos + 1] == "I":
+        pos += 1
+        while pos < len(mangled) and mangled[pos] != "E":
+            if (m := re.match(r"L[a-z](\d+)E", mangled[pos:])):
+                args.append(m.group(1))
+            elif (m := re.match(r"\d+", mangled[pos:])):
+                end = pos + m.end() + int(m.group())
+                args.append(mangled[pos + m.end():end].removeprefix("__nv_"))
+                pos = end
+                continue
+            elif (m := re.match(r"[fdib]", mangled[pos:])):
+                args.append({"f": "float", "d": "double", "i": "int",
+                             "b": "bool"}[m.group()])
+            else:
+                break
+            pos += m.end()
+    return name + (f"<{','.join(args)}>" if args else "")
 
 
 def ptxas_summary(log: str) -> dict[str, str]:
@@ -222,16 +261,15 @@ def ptxas_summary(log: str) -> dict[str, str]:
 
 def build_kernels(build) -> dict:
     """Build every kernel (one ``nvcc`` each, all at once), print each
-    kernel's ``ptxas`` figures, any compiler warning and the count of
-    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in each
-    library; the two redesigned libraries must hold both."""
+    kernel's ``ptxas`` figures, any compiler warning and the count of the
+    ``SASS_OPS`` instructions in each library, which must hold both."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
         built = list(ex.map(build.build, KERNEL_SOURCES))
     secs = time.perf_counter() - t0
     report = {"seconds": secs, "ptxas": {}, "sass": {}}
     for name, (path, log) in zip(KERNEL_SOURCES, built):
-        sass = build.sass_counts(path)
+        sass = build.sass_counts(path, SASS_OPS[name])
         report["ptxas"].update(ptxas_summary(log))
         report["sass"][name] = sass
         say(f"[build] {name}: {path.name}, SASS {sass}")
@@ -240,8 +278,9 @@ def build_kernels(build) -> dict:
         for line in log.splitlines():
             if "warning" in line.lower():
                 say(f"[build]   {line.strip()}")
-        if name != "bcoo_spmm" and min(sass.values()) < 1:
-            raise AssertionError(f"{name} has no wgmma or TMA load: {sass}")
+        if min(sass.values()) < 1:
+            raise AssertionError(f"{name} lacks tensor-core products or "
+                                 f"asynchronous loads: {sass}")
     say(f"[build] {len(KERNEL_SOURCES)} kernel(s) in {secs:.2f} s")
     return report
 
@@ -279,36 +318,124 @@ def sweep_case(rng, bm, bk, d, dtype, dev, n_rb=6, n_cb=7, n_tiles=14):
         n_rb=n_rb)
 
 
+def segment_case(rng, segs, pad, bm, bk, d, dtype, dev):
+    """Row block i holds ``segs[i]`` tiles (distinct sorted column
+    blocks), and the last row ``pad`` sentinel entries after them."""
+    n_cb = max(segs) + 3
+    rows, cols = [], []
+    for r, n in enumerate(segs):
+        rows += [r] * n
+        cols += sorted(rng.choice(n_cb, n, replace=False).tolist())
+    s = len(rows)
+    sel = list(range(s)) + [s] * pad
+    rows, cols = rows + [len(segs) - 1] * pad, cols + [0] * pad
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    blocks = randn(gen, (s + 1, bm, bk), dtype, dev)
+    blocks[s] = 0
+
+    def i(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    return dict(
+        blocks=blocks, sel=i(sel), row_ids=i(rows), col_ids=i(cols),
+        h=randn(gen, (n_cb * bk, d), dtype, dev),
+        bias=randn(gen, (d,), dtype, dev),
+        residual=randn(gen, (len(segs) * bm, d), dtype, dev),
+        n_rb=len(segs))
+
+
+def spmm_check(ops, kmod, bcoo_spmm_ref, ids, kw, rptr, dtype, dev,
+               force=None) -> tuple[str, float]:
+    """One kernel call against the plain version, checking that it is
+    counted once, under its variant, and that a second call gives the same
+    bits. ``force="fma"`` launches the FMA variant (through ``launch``,
+    into a buffer) where a tensor-core one would be picked."""
+    blocks, sel, _, col_ids, h = ids
+    d = h.shape[1]
+    var = force or kmod.variant(dtype, kw["bm"], kw["bk"], d)
+    outs = []
+    for _ in range(2):
+        before = dict(kmod.launches_by_variant)
+        if force:
+            out = torch.empty((kw["n_row_blocks"] * kw["bm"], d),
+                              dtype=dtype, device=dev)
+            kmod.launch(blocks, sel, col_ids, rptr, h, kw["bias"],
+                        kw["residual"], out, bm=kw["bm"], bk=kw["bk"],
+                        bd=ops.resolve_bd(None, d), relu=kw["relu"],
+                        force=force)
+        else:
+            out = ops.bcoo_spmm(*ids, row_ptr=rptr, **kw)
+        torch.cuda.synchronize()
+        counted = {v: kmod.launches_by_variant[v] - before[v]
+                   for v in kmod.VARIANTS}
+        if counted != {v: int(v == var) for v in kmod.VARIANTS}:
+            raise AssertionError(f"{var} launch counted as {counted}")
+        outs.append(out)
+    if not torch.equal(*outs):
+        raise AssertionError(f"{var}: two launches on the same inputs differ")
+    ref = bcoo_spmm_ref(*ids, **kw)
+    if outs[0].dtype != dtype or outs[0].shape != ref.shape:
+        raise AssertionError(f"got {outs[0].dtype} {outs[0].shape}")
+    return var, assert_close(outs[0], ref, dtype)
+
+
 def sweep(ops, kmod, bcoo_spmm_ref, plan_row_ptr, dev) -> dict:
+    """Every variant over TILES × WIDTHS × dtypes × epilogues (the picked
+    tensor-core variant through ``ops.bcoo_spmm``, and ``fma`` forced on
+    the same inputs), then ``EDGE_CASES``: split segments, a long run of
+    sentinel padding and a sampled backward plan's short segments."""
     rng = np.random.default_rng(0)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    n = 0
+    n_var: dict[str, int] = {}
+
+    def note(dtype, var, err):
+        worst[dtype] = max(worst[dtype], err)
+        n_var[var] = n_var.get(var, 0) + 1
+
     for bm, bk in TILES:
         for d in WIDTHS:
             for dtype in (torch.float32, torch.bfloat16):
                 c = sweep_case(rng, bm, bk, d, dtype, dev)
                 rptr = plan_row_ptr(c["row_ids"], c["n_rb"])
                 runs = [(e, rptr) for e in EPILOGUES] + [(EPILOGUES[-1], None)]
+                ids = (c["blocks"], c["sel"], c["row_ids"], c["col_ids"],
+                       c["h"])
                 for (b, r, u), ptr in runs:
                     kw = dict(n_row_blocks=c["n_rb"], bm=bm, bk=bk, relu=u,
                               bias=c["bias"] if b else None,
                               residual=c["residual"] if r else None)
-                    ids = (c["blocks"], c["sel"], c["row_ids"], c["col_ids"],
-                           c["h"])
-                    before = kmod.launches
-                    out = ops.bcoo_spmm(*ids, row_ptr=ptr, **kw)
-                    torch.cuda.synchronize()
-                    if kmod.launches != before + 1:
-                        raise AssertionError("kernel launch not counted")
-                    ref = bcoo_spmm_ref(*ids, **kw)
-                    if out.dtype != dtype or out.shape != ref.shape:
-                        raise AssertionError(f"got {out.dtype} {out.shape}")
-                    err = assert_close(out, ref, dtype)
-                    worst[dtype] = max(worst[dtype], err)
-                    n += 1
-    say(f"[sweep] {n} cases agree; max abs err f32 "
-        f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}")
-    return {"cases": n, "max_abs_err_f32": worst[torch.float32],
+                    for force in (None, "fma"):
+                        note(dtype, *spmm_check(
+                            ops, kmod, bcoo_spmm_ref, ids, kw,
+                            rptr if force else ptr, dtype, dev, force))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    edges = {}
+    for name, (segs, pad) in EDGE_CASES.items():
+        for d in (41, 256):
+            for dtype in (torch.float32, torch.bfloat16):
+                c = segment_case(rng, segs, pad, 128, 128, d, dtype, dev)
+                rptr = plan_row_ptr(c["row_ids"], c["n_rb"])
+                n_chunks = kmod.chunks(c["n_rb"], c["sel"].shape[0], d,
+                                       ops.resolve_bd(None, d), n_sm)
+                if (n_chunks > 1) != (name != "short"):
+                    raise AssertionError(f"{name} at d={d}: {n_chunks} "
+                                         f"chunks")
+                edges[f"{name} d={d}"] = n_chunks
+                ids = (c["blocks"], c["sel"], c["row_ids"], c["col_ids"],
+                       c["h"])
+                for b, r, u in (EPILOGUES[0], EPILOGUES[-1]):
+                    kw = dict(n_row_blocks=c["n_rb"], bm=128, bk=128,
+                              relu=u, bias=c["bias"] if b else None,
+                              residual=c["residual"] if r else None)
+                    note(dtype, *spmm_check(ops, kmod, bcoo_spmm_ref, ids,
+                                            kw, rptr, dtype, dev))
+    n = sum(n_var.values())
+    say(f"[sweep] {n} cases agree ({n_var}), two launches bit-equal in "
+        f"each; chunks {edges}; max abs err f32 {worst[torch.float32]:.3e}, "
+        f"bf16 {worst[torch.bfloat16]:.3e}")
+    return {"cases": n, "cases_by_variant": n_var, "edge_chunks": edges,
+            "max_abs_err_f32": worst[torch.float32],
             "max_abs_err_bf16": worst[torch.bfloat16]}
 
 
@@ -348,14 +475,18 @@ def main_path(serve_gnn, ops, scale: float):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    by_var = ops.launch_counts_by_variant()["bcoo_spmm"]
     si = server.si
     want = args.layers * si.n_partitions
     say(f"[serve] {report['n_nodes']} nodes, {si.n_partitions} partitions, "
         f"{si.host.s_total} tiles, build {server.build_seconds:.2f} s, "
-        f"run {wall:.2f} s, launches {counts}")
+        f"run {wall:.2f} s, launches {counts}, bcoo_spmm by variant {by_var}")
     if counts["bcoo_spmm"] != want:
         raise AssertionError(f"bcoo_spmm launched {counts['bcoo_spmm']} "
                              f"times, expected layers x partitions = {want}")
+    if by_var["tf32x3"] != want:
+        raise AssertionError(f"bcoo_spmm variants {by_var}: every f32 "
+                             f"serving launch should be tf32x3")
     logits = si.logits
     if logits.shape != (si.host.n_rows, 41) or not np.isfinite(logits).all():
         raise AssertionError(f"logits {logits.shape} not finite/shaped")
@@ -365,7 +496,7 @@ def main_path(serve_gnn, ops, scale: float):
         got = server.query(ids)
         if not np.array_equal(got, logits[si.pos[ids]]):
             raise AssertionError("query answers differ from cached logits")
-    return report, server, counts["bcoo_spmm"], wall
+    return report, server, counts["bcoo_spmm"], by_var, wall
 
 
 def bsr_operand(blocks, plan, nb_pad, bm, n_cols):
@@ -381,7 +512,10 @@ def bsr_operand(blocks, plan, nb_pad, bm, n_cols):
 
 def layer_checks(server, ops, kmod, bcoo_spmm_ref, gcn) -> list[dict]:
     """Kernel vs plain version on the heaviest partition of every layer,
-    then timings of kernel, plain version and BSR ``sparse.mm`` there."""
+    both against the plain version in f64, then timings of kernel, plain
+    version and BSR ``sparse.mm`` there, and the card's bounds: on the
+    FP32 pipes (FLOP at 67 TFLOP/s) and, for ``tf32x3``, on the tensor
+    cores (3 × FLOP at 495 TFLOP/s), each against the bytes."""
     si, params = server.si, server.si.params
     bm, bk = si.host.bm, si.host.bk
     p = max(si.parts, key=lambda q: q.n_active)
@@ -396,6 +530,11 @@ def layer_checks(server, ops, kmod, bcoo_spmm_ref, gcn) -> list[dict]:
             out = ops.bcoo_spmm(*args, row_ptr=plan.row_ptr, **kw)
             ref = bcoo_spmm_ref(*args, **kw)
             err = assert_close(out, ref, torch.float32)
+            ref64 = bcoo_spmm_ref(blocks.double(), plan.sel, plan.row_ids,
+                                  plan.col_ids, slab.double(), **kw)
+            err64 = float((out.double() - ref64).abs().max())
+            plain_err64 = float((ref.double() - ref64).abs().max())
+            del ref64
             if l == si.n_layers - 1:
                 # the served logits of this partition are this output
                 torch.testing.assert_close(
@@ -421,20 +560,32 @@ def layer_checks(server, ops, kmod, bcoo_spmm_ref, gcn) -> list[dict]:
                   + nb_pad * bm * d * es              # output, written once
                   + (2 * plan.s_pad + nb_pad + 1) * 4)  # sel, col_ids, ptr
         flops = 2 * n_active * bm * bk * d
+        variant = kmod.variant(blocks.dtype, bm, bk, d)
+        n_sm = torch.cuda.get_device_properties(slab.device) \
+            .multi_processor_count
+        chunks = kmod.chunks(nb_pad, plan.s_pad, d, bd, n_sm) \
+            if variant != "fma" else 1
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[blocks.dtype] * 1e3
+        t_fp32 = flops / PEAK_FLOPS[blocks.dtype] * 1e3
+        t_ops = 3 * flops / TF32_FLOPS * 1e3 if variant == "tf32x3" \
+            else t_fp32
         row = dict(layer=l, d=d, bd=bd, bm=bm, bk=bk, nb_pad=nb_pad,
                    s_pad=plan.s_pad, n_active=n_active, n_gather=p.n_gather,
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bytes=nbytes, flops=flops,
-                   bound_ms=max(t_bytes, t_ops),
+                   variant=variant, chunks=chunks,
+                   max_abs_err=err, max_abs_err_vs_f64=err64,
+                   plain_max_abs_err_vs_f64=plain_err64, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
+                   flops=flops, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bound_fp32_ms=max(t_bytes, t_fp32),
                    tflops=flops / ms / 1e9)
         rows.append(row)
         say(f"[layer {l}] d={d} n_active={n_active} s_pad={plan.s_pad} "
-            f"err={err:.3e} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"bsr {library_ms:.3f} ms, bound {row['bound_ms']:.3f} ms "
-            f"({row['bound_by']}), {row['tflops']:.2f} TFLOP/s")
+            f"{variant} chunks={chunks} err={err:.3e} (vs f64 {err64:.3e}, "
+            f"plain f32 vs f64 {plain_err64:.3e}) kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bsr {library_ms:.3f} ms, bound "
+            f"{row['bound_ms']:.3f} ms ({row['bound_by']}; FP32 pipes "
+            f"{row['bound_fp32_ms']:.3f} ms), {row['tflops']:.2f} TFLOP/s")
         del blocks, plan, slab, out, ref, buf, bsr, lib_out
         torch.cuda.empty_cache()
     return rows
@@ -1001,7 +1152,8 @@ def main(argv=None) -> int:
     sweep_res = sweep(ops, kmod, bcoo_spmm_ref, plan_row_ptr, dev)
     ref_err = small_reference(sbm_graph, StreamingInference, StreamConfig,
                               gcn)
-    report, server, launches, run_s = main_path(serve_gnn, ops, args.scale)
+    report, server, launches, spmm_by_var, run_s = main_path(
+        serve_gnn, ops, args.scale)
     rows = layer_checks(server, ops, kmod, bcoo_spmm_ref, gcn)
     stages = forward_stages(server, gcn)
     del server
@@ -1036,7 +1188,7 @@ def main(argv=None) -> int:
         "name": "bcoo_spmm", "route": "cuda",
         "source": "src/repro_torch/csrc/bcoo_spmm.cu",
         "replaces": "src/repro/kernels/bcoo_spmm.py:51",
-        "variant": "fma", "launches": launches,
+        "variant": hidden["variant"], "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": hidden["ms"], "plain_ms": hidden["plain_ms"],
         "bound_ms": hidden["bound_ms"], "bound_by": hidden["bound_by"],
@@ -1064,6 +1216,7 @@ def main(argv=None) -> int:
         "cache_build_s": report["cache_build_s"],
         "queries_per_s": report["queries_per_s"],
         "n_nodes": report["n_nodes"], "n_partitions": report["n_partitions"],
+        "launches_by_variant": spmm_by_var,
         "sweep": sweep_res, "small_reference_max_abs_err": ref_err,
         "stages_ms": stages}}))
     say(json.dumps({"bcoo_spmm_shapes": rows}))

@@ -7,16 +7,28 @@ wrapper.
 
 The port of the Pallas TPU kernel ``repro.kernels.bcoo_spmm.bcoo_spmm``.
 The kernel is ``csrc/bcoo_spmm.cu`` (design and bound in its header),
-built with ``nvcc`` on first use and called through ``ctypes``.
+built with ``nvcc`` on first use and called through ``ctypes``. It has
+three variants, chosen by ``variant(dtype, bm, bk, d)`` from the dtype and
+the shape alone: ``"tf32x3"`` (f32, bk a multiple of 8: cp.async ring,
+3xTF32 ``mma.sync``), ``"mma"`` (bf16, bk a multiple of 8: the same ring,
+bf16 ``mma.sync``) and ``"fma"`` (FP32 FMAs, for bk not a multiple of 8).
+The tensor-core variants cut each row block's segment into
+``chunks(...)`` pieces (split-K, summed in a fixed order by a second
+kernel), so a partition of few, long row blocks fills the card. No sum
+depends on the CTAs' schedule: two launches on the same inputs give
+bit-equal outputs. The column tile ``bd`` changes the grid, and through
+it the chunk count, so other ``bd`` agree within the f32 tolerance.
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a tensor
 that lies on the CPU it runs the plain version,
 ``repro_torch.kernels.ref.bcoo_spmm_ref``. Nothing falls back from one to
-the other. ``launches`` counts kernel launches (never plain-version calls).
+the other. ``launches`` counts kernel calls (one per SpMM, never
+plain-version calls) and ``launches_by_variant`` splits them by variant.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,17 +37,71 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import bcoo_spmm_ref
 
 BM_MAX = 128      # the kernel's largest tile height
-TD = 64           # the kernel's CTA column width (csrc/bcoo_spmm.cu)
+TD = 64           # the fma variant's CTA column width
+KSTEP = 8         # the tensor-core variants take bk % KSTEP == 0
+MIN_CHUNK = 8     # a split leaves at least this many entries per chunk
+_GRID_X_MAX = 2 ** 31 - 1
 _GRID_YZ_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
+VARIANTS = ("fma", "tf32x3", "mma")   # the kernel's codes 0, 1, 2
 
-launches = 0      # kernel launches since the last reset_launches()
+launches = 0      # kernel calls since the last reset_launches()
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 _lib: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_variant.update(dict.fromkeys(VARIANTS, 0))
+
+
+def variant(dtype: torch.dtype, bm: int, bk: int, d: int) -> str:
+    """The kernel variant for tiles of ``(bm, bk)`` and ``d`` columns in
+    ``dtype``: ``"tf32x3"`` for f32 and ``"mma"`` for bf16 when bk is a
+    multiple of 8 (any d: ragged columns are masked), ``"fma"`` otherwise.
+    Raises ``ValueError`` for other dtypes and shapes no kernel takes."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"no bcoo_spmm kernel for {dtype}")
+    if not (1 <= bm <= BM_MAX and bk >= 1 and d >= 1):
+        raise ValueError(f"no bcoo_spmm kernel for bm={bm}, bk={bk}, d={d} "
+                         f"(bm <= {BM_MAX})")
+    if bk % KSTEP:
+        return "fma"
+    return "tf32x3" if dtype == torch.float32 else "mma"
+
+
+def _tile(bd: int) -> tuple[int, int]:
+    """The tensor-core variants' column tile for a dispatched ``bd`` and
+    how many such CTAs an SM holds (``Tile::CTAS`` in the kernel)."""
+    return (48, 2) if bd <= 48 else (64, 2) if bd <= 64 else (128, 1)
+
+
+def column_tiles(d: int, bd: int) -> int:
+    """Column tiles of a row block in the tensor-core variants: each
+    bd-wide tile cut into 48 (bd <= 48), 64 (bd <= 64) or 128 columns."""
+    return d // bd * -(-bd // _tile(bd)[0])
+
+
+def chunks(n_row_blocks: int, s_pad: int, d: int, bd: int,
+           n_sm: int) -> int:
+    """How many pieces the tensor-core variants cut each row block's
+    segment into, from static shapes: as many as keep the (row block,
+    chunk, column tile) CTAs within one wave of the card's slots (``n_sm``
+    times the CTAs an SM holds at this tile), with at least ``MIN_CHUNK``
+    entries per piece on average. 1 when the row blocks alone fill the
+    card or the segments are short (a sampled backward plan's 1–10
+    tiles)."""
+    if n_row_blocks < 1:
+        return 1
+    fill = n_sm * _tile(bd)[1] // (n_row_blocks * column_tiles(d, bd))
+    deep = s_pad // (n_row_blocks * MIN_CHUNK)
+    return max(1, min(fill, deep))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _library() -> ctypes.CDLL:
@@ -43,7 +109,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("bcoo_spmm")
         fn = lib.bcoo_spmm_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -85,8 +151,8 @@ def _check(blocks, sel, row_ids, col_ids, h, n_row_blocks, bm, bk, bd,
                          f"{h.dtype}")
 
 
-def _check_cuda(tensors: dict, device: torch.device, bm: int, bd: int,
-                d: int) -> None:
+def _check_cuda(tensors: dict, device: torch.device, n_row_blocks: int,
+                bm: int, bk: int, bd: int, d: int) -> None:
     for name, t in tensors.items():
         if t is None:
             continue
@@ -96,8 +162,19 @@ def _check_cuda(tensors: dict, device: torch.device, bm: int, bd: int,
             raise ValueError(f"{name} must be contiguous")
     if bm > BM_MAX:
         raise ValueError(f"the kernel takes bm <= {BM_MAX}, got {bm}")
-    if d // bd > _GRID_YZ_MAX or -(-bd // TD) > _GRID_YZ_MAX:
-        raise ValueError(f"d={d}, bd={bd} exceed the kernel's grid")
+    if variant(tensors["h"].dtype, bm, bk, d) == "fma":
+        if n_row_blocks > _GRID_X_MAX or d // bd > _GRID_YZ_MAX \
+                or -(-bd // TD) > _GRID_YZ_MAX:
+            raise ValueError(f"d={d}, bd={bd} exceed the kernel's grid")
+        return
+    # the chunks ride in the same grid dimension: at most the card's slots
+    # when there is more than one, so the row blocks' count bounds it
+    if n_row_blocks * column_tiles(d, bd) > _GRID_X_MAX:
+        raise ValueError(f"{n_row_blocks} row blocks of d={d}, bd={bd} "
+                         f"exceed the kernel's grid")
+    for name in ("blocks", "h"):
+        if tensors[name].data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _check_indices(sel, col_ids, row_ptr, n_tiles: int,
@@ -155,7 +232,8 @@ def bcoo_spmm(
         row_ptr = plan_row_ptr(row_ids, n_row_blocks)
     _check_cuda({"blocks": blocks, "sel": sel, "row_ids": row_ids,
                  "col_ids": col_ids, "h": h, "row_ptr": row_ptr,
-                 "bias": bias, "residual": residual}, h.device, bm, bd, d)
+                 "bias": bias, "residual": residual}, h.device,
+                n_row_blocks, bm, bk, bd, d)
     _check_indices(sel, col_ids, row_ptr, blocks.shape[0], h.shape[0] // bk)
     out = torch.empty((n_row_blocks * bm, d), dtype=h.dtype, device=h.device)
     if n_row_blocks > 0:
@@ -165,13 +243,24 @@ def bcoo_spmm(
 
 
 def launch(blocks, sel, col_ids, row_ptr, h, bias, residual, out, *, bm,
-           bk, bd, relu) -> None:
+           bk, bd, relu, force: str | None = None) -> None:
     """Launch the kernel into ``out`` on the current stream, without the
     wrapper's checks — for inputs a ``bcoo_spmm`` call has accepted (the
-    timing loop of ``chip_smoke.py``). Counts the launch."""
+    timing loop and the sweep of ``chip_smoke.py``). ``force="fma"`` runs
+    the FMA variant where a tensor-core one would be picked. Counts the
+    call once, under its variant."""
     global launches
     lib = _library()
     n_row_blocks, d = out.shape[0] // bm, out.shape[1]
+    var = variant(h.dtype, bm, bk, d)
+    if force not in (None, "fma", var):
+        raise ValueError(f"variant {force!r} does not take {h.dtype} tiles "
+                         f"of ({bm}, {bk})")
+    var = force or var
+    n = 1 if var == "fma" else chunks(
+        n_row_blocks, sel.shape[0], d, bd, _sm_count(h.device.index))
+    ws = torch.empty((n, out.shape[0], d), dtype=torch.float32,
+                     device=h.device) if n > 1 else None
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = lib.bcoo_spmm_launch(
@@ -179,10 +268,12 @@ def launch(blocks, sel, col_ids, row_ptr, h, bias, residual, out, *, bm,
             row_ptr.data_ptr(), h.data_ptr(),
             bias.data_ptr() if bias is not None else None,
             residual.data_ptr() if residual is not None else None,
-            out.data_ptr(), n_row_blocks, bm, bk, d, bd,
-            blocks.shape[0] - 1, int(bool(relu)),
-            int(h.dtype == torch.bfloat16), stream)
+            out.data_ptr(), ws.data_ptr() if ws is not None else None,
+            n_row_blocks, bm, bk, d, bd, blocks.shape[0] - 1,
+            int(bool(relu)), int(h.dtype == torch.bfloat16),
+            VARIANTS.index(var), n, stream)
     if err != 0:
-        raise RuntimeError(f"bcoo_spmm kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"bcoo_spmm kernel ({var}) launch failed: CUDA "
+                           f"error {err}")
     launches += 1
+    launches_by_variant[var] += 1

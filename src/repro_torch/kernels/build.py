@@ -74,10 +74,11 @@ def build(name: str) -> tuple[Path, str]:
     return out, proc.stdout + proc.stderr
 
 
-def sass_counts(path: Path, opcodes=("HGMMA", "UTMALDG")) -> dict[str, int]:
+def sass_counts(path: Path, opcodes: tuple[str, ...]) -> dict[str, int]:
     """How many instructions of each opcode the library's SASS holds
     (``cuobjdump -sass``, found beside ``nvcc``): ``HGMMA`` is a wgmma,
-    ``UTMALDG`` a TMA tensor load."""
+    ``HMMA`` an mma.sync, ``UTMALDG`` a TMA tensor load and ``LDGSTS`` a
+    cp.async copy."""
     tool = Path(nvcc()).with_name("cuobjdump")
     proc = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
                           text=True, check=True)

@@ -78,7 +78,8 @@ def launch_counts() -> dict[str, int]:
 
 def launch_counts_by_variant() -> dict[str, dict[str, int]]:
     """Launches of the kernels that have variants, split by variant."""
-    return {"gather_matmul": dict(_gather.launches_by_variant),
+    return {"bcoo_spmm": dict(_bcoo.launches_by_variant),
+            "gather_matmul": dict(_gather.launches_by_variant),
             "flash_attention": dict(_flash.launches_by_variant)}
 
 

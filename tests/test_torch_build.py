@@ -54,10 +54,13 @@ def test_unchanged_tree_keeps_library_path(csrc, tmp_path):
     assert re.fullmatch(r"libk-[0-9a-f]{16}\.so", first.name)
 
 
-@pytest.mark.parametrize("name", ["gather_matmul", "flash_attention"])
+@pytest.mark.parametrize("name", ["gather_matmul", "flash_attention",
+                                  "bcoo_spmm"])
 def test_redesigned_kernels_include_the_shared_header(name):
-    """The two wgmma kernels take their TMA, mbarrier and wgmma pieces
-    from ``csrc/hopper.cuh``, so its edits must rebuild them."""
+    """The redesigned kernels take their pieces from ``csrc/hopper.cuh``
+    (TMA, mbarriers and wgmma for the two wgmma kernels; the launch with
+    dynamic shared memory for ``bcoo_spmm``), so its edits must rebuild
+    them."""
     assert (build.CSRC / "hopper.cuh").is_file()
     assert '#include "hopper.cuh"' in (build.CSRC / f"{name}.cu").read_text()
     assert build.library_path(name).name.startswith(f"lib{name}-")
@@ -99,3 +102,28 @@ def test_ptxas_summary_names_each_kernel():
         "flash_fwd_f32<128>": "Used 80 registers, used 1 barriers",
         "gather_mm_bf16": "Used 98 registers, used 1 barriers, 20480 bytes "
                           "smem"}
+
+
+# The bcoo_spmm library's kernels: templates over a type and integer or
+# bool values (one name of each kind).
+PTXAS_BCOO = """\
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__c23ed0de_12_bcoo_spmm_cu_d69f30194simt8spmm_fmaI13__nv_bfloat16EEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Used 96 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__c23ed0de_12_bcoo_spmm_cu_d69f30192tc7spmm_tcIfLi128ELb1EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Used 208 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__c23ed0de_12_bcoo_spmm_cu_d69f30192tc7spmm_tcIfLi64ELb0EEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__c23ed0de_12_bcoo_spmm_cu_d69f30192tc13reduce_chunksIfEEvNS_4ArgsE' for 'sm_90a'
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+
+
+def test_ptxas_summary_names_template_arguments():
+    """Each instantiation keeps its own line: types by name, values as
+    numbers (a bool as 0 or 1)."""
+    summary = _chip_smoke().ptxas_summary(PTXAS_BCOO)
+    assert summary == {
+        "spmm_fma<bfloat16>": "Used 96 registers, used 1 barriers",
+        "spmm_tc<float,128,1>": "Used 208 registers, used 1 barriers",
+        "spmm_tc<float,64,0>": "Used 128 registers, used 1 barriers",
+        "reduce_chunks<float>": "Used 32 registers, used 0 barriers"}

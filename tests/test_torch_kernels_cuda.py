@@ -1,7 +1,8 @@
 """The CUDA kernels of the port on the card: ``bcoo_spmm``,
 ``gather_matmul`` and ``flash_attention`` against their plain PyTorch
-versions (the wgmma variants also at the edges of their tiles, each launch
-counted under its variant), the wrappers' refusals, and the streaming GCN forward, the LM
+versions (the wgmma variants and ``bcoo_spmm``'s tensor-core variants also
+at the edges of their tiles, each launch counted under its variant), the
+wrappers' refusals, and the streaming GCN forward, the LM
 prefill + decode, ``rsc_matmul`` and LM training steps on ``cuda``
 against the same runs on the CPU.
 
@@ -40,6 +41,7 @@ import torch
 from repro_torch.graphs.synthetic import sbm_graph
 from repro_torch.infer import StreamConfig, StreamingInference
 from repro_torch.configs import make_batch, smoke_config
+from repro_torch.core.plan import plan_row_ptr
 from repro_torch.kernels import bcoo_spmm as kmod
 from repro_torch.core import rsc_matmul as rsc
 from repro_torch.kernels import flash_attention as fmod
@@ -155,6 +157,100 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda, case):
         kmod.bcoo_spmm(c["blocks"], c["sel"], c["row_ids"], c["col_ids"],
                        c["h"], **kw)
     assert kmod.launches == before
+
+
+def _segments(seed, segs, pad, bm, bk, d, dtype, dev):
+    """Row block i holds ``segs[i]`` tiles, and the last row ``pad``
+    sentinel entries after them."""
+    rng = np.random.default_rng(seed)
+    n_cb = max(segs) + 3
+    rows, cols = [], []
+    for r, n in enumerate(segs):
+        rows += [r] * n
+        cols += sorted(rng.choice(n_cb, n, replace=False).tolist())
+    s = len(rows)
+    sel = list(range(s)) + [s] * pad
+    rows, cols = rows + [len(segs) - 1] * pad, cols + [0] * pad
+    blocks = rng.standard_normal((s + 1, bm, bk)).astype(np.float32)
+    blocks[s] = 0.0
+
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, DTYPES[dtype])
+
+    ids = [torch.tensor(x, dtype=torch.int32, device=dev)
+           for x in (sel, rows, cols)]
+    return dict(blocks=torch.from_numpy(blocks).to(dev, DTYPES[dtype]),
+                sel=ids[0], row_ids=ids[1], col_ids=ids[2],
+                h=f(n_cb * bk, d), bias=f(d), residual=f(len(segs) * bm, d),
+                n_rb=len(segs))
+
+
+# (tiles per row block, sentinel padding of the last row, bm, bk, d,
+# split): long segments over few row blocks (split into chunks), a
+# 1,500-entry run of padding, a sampled backward plan's 1-4-tile segments
+# (one chunk), 8 x 8 tiles (below one 16-row fragment), and ragged widths
+# 41 and 602.
+TC_EDGES = [([320, 7, 0, 40], 0, 128, 128, 256, True),
+            ([320, 7, 0, 40], 0, 128, 128, 41, True),
+            ([12, 9, 10], 1500, 128, 128, 256, True),
+            ([1, 2, 3, 4, 0, 1] * 10 + [2, 3], 0, 128, 128, 41, False),
+            ([40, 3, 0, 25], 40, 8, 8, 41, True),
+            ([40, 3, 0, 25], 40, 8, 8, 602, True),
+            ([200, 1, 60], 3, 64, 64, 602, True)]
+
+
+@pytest.mark.parametrize("segs,pad,bm,bk,d,split", TC_EDGES)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tensor_core_variant_edges(cuda, segs, pad, bm, bk, d, split,
+                                   dtype):
+    """The tensor-core variant at its edges: against the plain version,
+    counted once under its variant, two launches bit-equal, segments split
+    exactly when they are long, and a narrower column tile."""
+    c = _segments(len(segs) + d, segs, pad, bm, bk, d, dtype, cuda)
+    args = (c["blocks"], c["sel"], c["row_ids"], c["col_ids"], c["h"])
+    kw = dict(n_row_blocks=c["n_rb"], bm=bm, bk=bk, relu=True,
+              bias=c["bias"], residual=c["residual"])
+    var = kmod.variant(DTYPES[dtype], bm, bk, d)
+    assert var == {"f32": "tf32x3", "bf16": "mma"}[dtype]
+    before = kmod.launches_by_variant[var]
+    out = ops.bcoo_spmm(*args, **kw)
+    again = ops.bcoo_spmm(*args, **kw)
+    torch.cuda.synchronize()
+    assert kmod.launches_by_variant[var] == before + 2
+    assert torch.equal(out, again)
+    _close(out, bcoo_spmm_ref(*args, **kw), dtype)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = kmod.chunks(c["n_rb"], c["sel"].shape[0], d,
+                         ops.resolve_bd(None, d), n_sm)
+    assert (splits > 1) == split
+    # a narrower dispatched column tile: another grid, the same function
+    narrow = ops.bcoo_spmm(*args, bd=d // 2 if d % 2 == 0 else 1, **kw)
+    _close(narrow, bcoo_spmm_ref(*args, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fma_variant_forced(cuda, dtype):
+    """The FMA variant, kept for bk not a multiple of 8, on the inputs a
+    tensor-core variant takes, and on bk = 12 where it is picked."""
+    for bm, bk in ((32, 32), (16, 12)):
+        c = _operands(bm + bk, bm, bk, 41, dtype, cuda)
+        args = (c["blocks"], c["sel"], c["row_ids"], c["col_ids"], c["h"])
+        kw = dict(n_row_blocks=c["n_rb"], bm=bm, bk=bk, relu=True,
+                  bias=c["bias"], residual=c["residual"])
+        ref = bcoo_spmm_ref(*args, **kw)
+        out = torch.empty_like(ref)
+        before = kmod.launches_by_variant["fma"]
+        kmod.launch(c["blocks"], c["sel"], c["col_ids"],
+                    plan_row_ptr(c["row_ids"], c["n_rb"]), c["h"],
+                    c["bias"], c["residual"], out, bm=bm, bk=bk, bd=41,
+                    relu=True, force="fma")
+        torch.cuda.synchronize()
+        assert kmod.launches_by_variant["fma"] == before + 1
+        _close(out, ref, dtype)
+        if bk % 8:
+            assert kmod.variant(DTYPES[dtype], bm, bk, 41) == "fma"
+            _close(ops.bcoo_spmm(*args, **kw), ref, dtype)
 
 
 @pytest.mark.parametrize("batchnorm", [True, False])
