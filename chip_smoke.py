@@ -37,7 +37,35 @@ without the final ``{"ok": true, ...}`` line:
    serving path's shapes, work out the card's bounds for the same work
    (FP32 pipes, and TF32 tensor cores for ``tf32x3``), and time the
    stages of one full forward;
-6. LM serving (``flash_attention``): sweep the kernel against its plain
+6. GCN training with RSC (``bcoo_spmm`` in both directions): the small
+   GCN of ``tests/test_torch_gnn_train.py`` (700 nodes, 2 layers of 48,
+   block 32, RSC at budget 0.3, 30 epochs, dropout 0) on the card and on
+   the CPU from one parameter set, the CPU planner fed the card's ∇H
+   norms: plans identical at every step, losses within GNN_LOSS_RTOL and
+   each parameter's change within TRAIN_DP_REL;
+7. drive the GCN training path (``repro_torch.launch.train gnn``) at the
+   GCN's full width (3 layers, hidden 256, block 128, batchnorm) on
+   synthetic Reddit at ``--scale``, RSC at budget 0.1, 200 epochs, with
+   the launch counts set to 0 just before and read just after; assert 6
+   ``bcoo_spmm`` launches per step and 3 per evaluation, all ``tf32x3``,
+   ``flops_fraction`` within the budget and a finite, falling loss;
+   report the warm ``rsc`` and ``exact`` step medians (host clock to the
+   loss read back), the RSC median apart for windows in which the
+   allocator kept no column block of the output layer, the planner's
+   time per refresh and peak memory; save the ∇H norms, picks and Ãᵀ
+   metadata of two consecutive refreshes to ``chiprun_out/`` (the
+   fixture of ``tests/test_torch_planner.py``);
+8. re-run each launch of one warm RSC step (3 exact forward, 3 sampled
+   backward), the 3 sampled backward launches under the plans the
+   allocator picks next, and the 3 backward launches of one exact step on
+   their own inputs: kernel against its plain version and both against f64; d,
+   ``s_pad``, ``n_active``, the last row's sentinel padding, chunks;
+   kernel (also without the padding), plain version and BSR
+   ``sparse.mm`` times with the card's bound; profile 5 warm steps of
+   each mode (busy share, device time by kind) and time their forward,
+   backward and optimizer phases; then the same training run without RSC,
+   whose best test RSC's must come within 0.07 of;
+9. LM serving (``flash_attention``): sweep the kernel against its plain
    version over b ∈ {1, 2}, (nq, nkv) ∈ {(16, 8), (14, 2), (4, 4), (8, 1)}
    (GQA ratios 2, 7, 1, 8), hd ∈ {64, 128}, f32 (variant ``fma``) and
    bf16 (``wgmma``), tq = tk ∈ {1, 7, 64, 129, 257, 1024} and tq < tk
@@ -45,28 +73,28 @@ without the final ``{"ok": true, ...}`` line:
    checking that each launch is counted under its variant; then prefill +
    8 greedy decode steps of the f32 smoke qwen3-1.7b on the card against
    the same run on the CPU;
-7. drive the LM serving path (``repro_torch.launch.serve``) at the full
-   width of qwen3-1.7b (28 layers, d_model 2048, bf16, seeded random
-   weights) with batch 4, a 4,096-token prompt and 32 generated tokens,
-   launch counts set to 0 just before and read just after; assert 28
-   kernel launches in the prefill, all of them ``wgmma``, and none in
-   decode, finite logits, a (4, 32) token block, and the kernel against
-   its plain version on the first layer's own q/k/v;
-8. time the flash kernel, its plain version and
-   ``scaled_dot_product_attention`` (a yardstick the port never calls) at
-   the main path's shape, at one 32,768-token row and at qwen2-0.5b's
-   widths (4 × 4,096, 14 / 2 heads, hd 64), with the card's bound; time a
-   warm prefill and decode;
-9. LM training (``gather_matmul``, the sampled weight gradient of
-   ``rsc_matmul``): sweep the kernel against its plain version over
-   n/bk ∈ {1, 3, 64}, bk ∈ {32, 64, 128}, (m, q) ∈ {(41, 96), (96, 41),
-   (130, 264) (variant ``mma``), (200, 264), (2048, 6144), (6144, 2048)
-   (``wgmma``)}, k_sel ∈ {1, half, all}, f32 (``fma``) and bf16; then
-   3 training steps of the f32 smoke qwen3-1.7b with RSC (bk 32, keep
-   0.5, 2 microbatches) on the card against the same steps on the CPU:
-   equal selected blocks, losses within 1e-5 relative and each
-   parameter's change within ``TRAIN_DP_REL`` of the CPU run's change;
-10. drive the LM training path (``repro_torch.launch.train lm``) at the
+10. drive the LM serving path (``repro_torch.launch.serve``) at the full
+    width of qwen3-1.7b (28 layers, d_model 2048, bf16, seeded random
+    weights) with batch 4, a 4,096-token prompt and 32 generated tokens,
+    launch counts set to 0 just before and read just after; assert 28
+    kernel launches in the prefill, all of them ``wgmma``, and none in
+    decode, finite logits, a (4, 32) token block, and the kernel against
+    its plain version on the first layer's own q/k/v;
+11. time the flash kernel, its plain version and
+    ``scaled_dot_product_attention`` (a yardstick the port never calls) at
+    the main path's shape, at one 32,768-token row and at qwen2-0.5b's
+    widths (4 × 4,096, 14 / 2 heads, hd 64), with the card's bound; time a
+    warm prefill and decode;
+12. LM training (``gather_matmul``, the sampled weight gradient of
+    ``rsc_matmul``): sweep the kernel against its plain version over
+    n/bk ∈ {1, 3, 64}, bk ∈ {32, 64, 128}, (m, q) ∈ {(41, 96), (96, 41),
+    (130, 264) (variant ``mma``), (200, 264), (2048, 6144), (6144, 2048)
+    (``wgmma``)}, k_sel ∈ {1, half, all}, f32 (``fma``) and bf16; then
+    3 training steps of the f32 smoke qwen3-1.7b with RSC (bk 32, keep
+    0.5, 2 microbatches) on the card against the same steps on the CPU:
+    equal selected blocks, losses within 1e-5 relative and each
+    parameter's change within ``TRAIN_DP_REL`` of the CPU run's change;
+13. drive the LM training path (``repro_torch.launch.train lm``) at the
     full width of qwen3-1.7b with batch 4 × 4,096 tokens in the
     microbatches ``configs.shapes.microbatches`` gives ``train_4k`` (2),
     RSC keep 0.5, 3 steps, launch counts set to 0 just
@@ -75,13 +103,15 @@ without the final ``{"ok": true, ...}`` line:
     launch, finite losses,
     and the kernel against its plain version on one of the path's own
     (x, g, idx) triples per shape;
-11. time ``gather_matmul``, its plain version and a gather +
+14. time ``gather_matmul``, its plain version and a gather +
     ``torch.matmul`` (a yardstick the port never calls) at the path's
     gate/up and down shapes, with the card's bound; report the warm step
     time, tokens/s and peak device memory;
-12. print the build report, the kernel line (with the variant each
-    kernel ran on its main path), the card line and, last, the result
-    line.
+15. print each slice's JSON line (``slice``, ``bcoo_spmm_shapes``,
+    ``gnn_train_slice``, ``lm_slice``, ``lm_train_slice``), the build
+    report, the kernel line (with the variant each kernel ran on its main
+    path; ``bcoo_spmm``'s launches are the serving and the training
+    runs'), the card line and, last, the result line.
 
 Without a CUDA device it exits with code 2 and prints no result. It
 imports nothing of JAX and nothing of the ``repro`` package.
@@ -98,6 +128,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -166,6 +197,24 @@ GATHER_WIDTHS = [(41, 96), (96, 41), (130, 264), (200, 264), (2048, 6144),
 # over the run within TRAIN_DP_REL of the CPU run's change, in L2 norm. A
 # sampled dW that drops one of its two selected blocks moves it by ~0.7.
 TRAIN_DP_REL = 1e-3
+# The small GNN training run held on the card against the CPU: the graph
+# and model of tests/test_torch_gnn_train.py's trajectory (GCN 2 × 48,
+# block 32, so tf32x3; batchnorm; dropout 0; RSC at budget 0.3; 30 epochs).
+GNN_GRAPH = dict(n_nodes=700, n_clusters=7, avg_degree=12, feat_dim=32,
+                 seed=0)
+GNN_SMALL = dict(model="gcn", n_layers=2, hidden=48, block=32,
+                 batchnorm=True, dropout=0.0, rsc=True, budget=0.3, epochs=30)
+# Its losses, card against CPU: both sum f32 products in other orders (the
+# kernel's 3xTF32 products carry ~1e-6 of each sum), through 30 Adam steps
+# from the same parameters with the same plans; each parameter's change is
+# held to TRAIN_DP_REL as above. A tile left out of an SpMM moves the loss
+# by far more.
+GNN_LOSS_RTOL = 1e-4
+# Two consecutive refreshes of the full-width training run, saved for
+# tests/test_torch_planner.py (copied there as
+# tests/test_torch_planner_main_path.npz)
+REFRESH_FIXTURE_FIRST = 4
+REFRESH_FIXTURE = ROOT / "chiprun_out" / "test_torch_planner_main_path.npz"
 
 
 def train_argv(microbatches: int) -> list[str]:
@@ -640,6 +689,520 @@ def forward_stages(server, gcn) -> dict:
                                 if k != "device_share")
         + f", device share {stages['device_share']:.3f}")
     return stages
+
+
+# ------------------------------------------------------ GNN training phases
+
+def gnn_argv(scale: float, rsc: bool) -> list[str]:
+    """The full-width GCN training run: 3 layers of 256, block 128, RSC at
+    budget 0.1 (the reference CLI's defaults for the rest: 200 epochs,
+    lr 0.01, dropout 0.5, batchnorm, refresh every 10 steps, switch-back
+    after 80 %)."""
+    return ["gnn", "--dataset", "reddit", "--scale", str(scale),
+            "--layers", "3", "--hidden", "256", "--block", "128",
+            "--budget", "0.1", "--epochs", "200", "--device", "cuda"] \
+        + (["--rsc"] if rsc else [])
+
+
+class SpmmTap:
+    """Stands in for ``bcoo_spmm_in_range`` (what the training path's
+    SpMMs call) while it is armed: every call passes through unchanged
+    (the wrapper still counts its own launches), and each armed call's
+    arguments are kept."""
+
+    def __init__(self, kmod):
+        self.kmod, self.calls, self.armed = kmod, [], False
+
+    def __enter__(self):
+        self.inner = self.kmod.bcoo_spmm_in_range
+        self.kmod.bcoo_spmm_in_range = self
+        return self
+
+    def __exit__(self, *exc):
+        self.kmod.bcoo_spmm_in_range = self.inner
+
+    def __call__(self, *args, **kw):
+        if self.armed:
+            self.calls.append((args, kw))
+        return self.inner(*args, **kw)
+
+
+def capture_planner(planner, feed=None):
+    """Record each step's plans (as host arrays) and each RSC step's ∇H
+    norms (host copies); with ``feed``, the planner is given those norms
+    instead of its own run's, one per RSC step in order."""
+    plans, norms = [], []
+    plans_for, record = planner.plans_for, planner.record
+    fed = iter(feed) if feed is not None else None
+
+    def wrapped_plans_for(tag, step, schedule):
+        out = plans_for(tag, step, schedule)
+        plans.append({k: (tuple(t.cpu().numpy() for t in
+                                (p.sel, p.row_ids, p.col_ids, p.row_ptr)),
+                          p.n_active, p.s_pad) for k, p in out.items()})
+        return out
+
+    def wrapped_record(tag, n):
+        norms.append({k: v.detach().cpu() for k, v in n.items()})
+        record(tag, next(fed) if fed is not None else n)
+
+    planner.plans_for, planner.record = wrapped_plans_for, wrapped_record
+    return plans, norms
+
+
+class RefreshTap:
+    """Wraps ``PlanCache.refresh`` while it is entered: each refresh runs
+    unchanged, and the ∇H norms it was given (the host arrays it reads
+    anyway), the kept column blocks it picked and each op's ``n_active``
+    are kept."""
+
+    def __init__(self, cls):
+        self.cls, self.seen = cls, []
+
+    def __enter__(self):
+        inner, seen = self.cls.refresh, self.seen
+        self.inner = inner
+
+        def refresh(cache, norms):
+            alloc = inner(cache, norms)
+            seen.append((dict(norms), alloc.k.copy(),
+                         {k: e.plan.n_active for k, e in cache.ops.items()}))
+            return alloc
+
+        self.cls.refresh = refresh
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.refresh = self.inner
+
+
+def write_refresh_fixture(tap, cache, first: int, path: Path) -> None:
+    """Save what two consecutive refreshes of the main path (``first`` and
+    the next) were given and picked, with the planner's host mirror of Ãᵀ,
+    so ``tests/test_torch_planner.py`` can feed the same inputs to the
+    port's and the reference's ``PlanCache``."""
+    entries = list(cache.ops.values())
+    e = entries[0]
+    if any(x.meta is not e.meta or x.a_fro != e.a_fro for x in entries):
+        raise AssertionError("the ops do not share one Ãᵀ")
+    m = e.meta
+    arrays = dict(
+        row_ids=m.row_ids, col_ids=m.col_ids,
+        col_block_tiles=m.col_block_tiles, col_block_norm=m.col_block_norm,
+        col_nnz=m.col_nnz, col_norm=m.col_norm,
+        shape=np.array([e.at.bk, e.at.n_row_blocks, e.at.n_col_blocks,
+                        e.at.s_total]),
+        a_fro=np.float64(e.a_fro), names=np.array(list(cache.ops)),
+        dims=np.array([x.d for x in entries]),
+        budget=np.float64(cache.budget_frac),
+        step_frac=np.float64(cache.step_frac),
+        refresh=np.array([first, first + 1]))
+    for i in range(2):
+        norms, k, n_active = tap.seen[first + i]
+        arrays[f"k_{i}"] = k
+        arrays[f"n_active_{i}"] = np.array([n_active[n] for n in cache.ops])
+        for n in cache.ops:
+            arrays[f"norms_{i}_{n}"] = norms[n]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **arrays)
+
+
+def gnn_train_small_reference(GNNTrainer, TrainConfig, sbm_graph, gcn, ops,
+                              dev) -> dict:
+    """``GNN_SMALL`` on the card and on the CPU from one parameter set.
+    The CPU planner is fed the card's ∇H norms, so both runs sample the
+    same plans by construction (asserted at every step); then the losses
+    within GNN_LOSS_RTOL and each parameter's change within TRAIN_DP_REL
+    of the CPU run's change."""
+    g = sbm_graph(**GNN_GRAPH)
+    cpu_net = gcn.init(GNN_GRAPH["feat_dim"], GNN_SMALL["hidden"], 7,
+                       GNN_SMALL["n_layers"], True, seed=0, device="cpu")
+    start = {k: p.detach().clone() for k, p in cpu_net.named_parameters()}
+    card_net = copy.deepcopy(cpu_net).to(dev)
+    runs, feed = {}, None
+    for name, net in (("card", card_net), ("cpu", cpu_net)):
+        device = "cpu" if name == "cpu" else str(dev)
+        tr = GNNTrainer(TrainConfig(**GNN_SMALL, device=device), g,
+                        model=net)
+        plans, norms = capture_planner(tr.engine.planner, feed)
+        ops.reset_launch_counts()
+        res = tr.train(eval_every=10)
+        runs[name] = (res, plans, norms, ops.launch_counts()["bcoo_spmm"])
+        feed = norms
+    (gres, gplans, gnorms, glaunch), (cres, cplans, cnorms, claunch) = \
+        runs["card"], runs["cpu"]
+    steps = GNN_SMALL["epochs"]
+    want = 2 * GNN_SMALL["n_layers"] * steps \
+        + GNN_SMALL["n_layers"] * len(gres["history"]["val"])
+    if claunch != 0 or glaunch != want:
+        raise AssertionError(f"bcoo_spmm launches: CPU {claunch}, card "
+                             f"{glaunch}, expected 0 and {want}")
+    if gres["history"]["mode"] != cres["history"]["mode"]:
+        raise AssertionError("step modes differ between card and CPU")
+    if len(gplans) != len(cplans) or not all(
+            all(np.array_equal(x, y) for x, y in zip(a[k][0], b[k][0]))
+            and a[k][1:] == b[k][1:] for a, b in zip(gplans, cplans)
+            for k in a):
+        raise AssertionError("the card's and the CPU's plans differ")
+    gloss, closs = gres["history"]["loss"], cres["history"]["loss"]
+    loss_err = float(np.max(np.abs(np.subtract(gloss, closs))
+                            / np.abs(closs)))
+    norm_err = max(float((a[k] - b[k]).abs().max() / b[k].abs().max())
+                   for a, b in zip(gnorms, cnorms) for k in a)
+    rel = {}
+    for (name, a), (_, b) in zip(cpu_net.named_parameters(),
+                                 card_net.named_parameters()):
+        moved = a.detach() - start[name]
+        rel[name] = float((b.detach().cpu() - a.detach()).norm()
+                          / moved.norm().clamp(min=1e-30))
+    worst = max(rel, key=rel.get)
+    n_sampled = sum(p[k][1] < p[k][2] for p in gplans for k in p)
+    say(f"[gnn reference] GCN 2x48 block 32 RSC, {steps} steps: plans "
+        f"identical at all {len(gplans)} RSC steps ({n_sampled} sampled "
+        f"op plans), flops fraction {gres['flops_fraction']:.4f}; launches "
+        f"card {glaunch}, CPU {claunch}; largest loss error {loss_err:.3e} "
+        f"(limit {GNN_LOSS_RTOL:.0e}), ∇H norms {norm_err:.3e} of max, "
+        f"parameter change {rel[worst]:.3e} ({worst}, limit "
+        f"{TRAIN_DP_REL:.0e})")
+    np.testing.assert_allclose(gloss, closs, rtol=GNN_LOSS_RTOL)
+    if rel[worst] > TRAIN_DP_REL:
+        raise AssertionError(f"{worst}'s change differs from the CPU's by "
+                             f"{rel[worst]:.3e} of its norm")
+    return {"steps": steps, "launches": glaunch,
+            "flops_fraction": gres["flops_fraction"],
+            "max_loss_rel_err": loss_err, "max_norm_rel_err": norm_err,
+            "max_param_change_err": rel[worst],
+            "losses_card": gloss, "losses_cpu": closs}
+
+
+def gnn_train_main_path(train, ops, scale: float) -> tuple[dict, dict]:
+    """The full-width RSC training run through ``launch.train gnn``, with
+    the launch counts set to 0 just before and read just after: 6
+    ``bcoo_spmm`` launches per step (3 exact forward, 3 backward), 3 per
+    evaluation, all ``tf32x3``; flops fraction within the budget; finite,
+    falling loss."""
+    from repro_torch.core.cache import PlanCache
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = gnn_argv(scale, rsc=True)
+    ops.reset_launch_counts()
+    with RefreshTap(PlanCache) as refreshes:
+        t0 = time.perf_counter()
+        out = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    by_var = ops.launch_counts_by_variant()["bcoo_spmm"]
+    peak = torch.cuda.max_memory_allocated()
+    res, hist = out["result"], out["result"]["history"]
+    steps, evals = len(hist["loss"]), len(hist["val"])
+    layers = out["trainer"].cfg.n_layers
+    want = 2 * layers * steps + layers * evals
+    losses = np.asarray(hist["loss"])
+    modes = np.asarray(hist["mode"])
+    step_ms = np.asarray(hist["step_time"]) * 1e3
+    rsc_ms = step_ms[modes == "rsc"][3:]           # past the first steps
+    exact_ms = step_ms[modes == "exact"][1:]
+    stats = res["cache_stats"]
+    # RSC steps by window: one where the allocator kept no column block of
+    # the output layer (no parameter below its bias gets a gradient), or
+    # one where it kept some
+    ks = hist["k"]
+    rsc_at = np.flatnonzero(modes == "rsc")[-len(ks):]
+    empty = np.array([k[-1] == 0 for k in ks])
+    by_window = {w: float(np.median(step_ms[rsc_at[sel]]))
+                 for w, sel in (("output_layer_empty", empty),
+                                ("output_layer_kept", ~empty)) if sel.any()}
+    cache = out["trainer"].engine.planner.cache
+    write_refresh_fixture(refreshes, cache, REFRESH_FIXTURE_FIRST,
+                          REFRESH_FIXTURE)
+    say(f"[gnn train] {steps} steps ({int((modes == 'rsc').sum())} rsc), "
+        f"{evals} evaluations, setup {out['setup_s']:.2f} s, run "
+        f"{wall:.2f} s, launches {counts}, bcoo_spmm by variant {by_var}, "
+        f"flops fraction {res['flops_fraction']:.4f}, best test "
+        f"{res['best_test']:.4f}, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"peak {peak / 2 ** 30:.2f} GiB")
+    if counts["bcoo_spmm"] != want or counts["flash_attention"] \
+            or counts["gather_matmul"]:
+        raise AssertionError(f"launches {counts}, expected {want} bcoo_spmm "
+                             f"(6 per step, 3 per evaluation) and nothing "
+                             f"else")
+    if by_var["tf32x3"] != want:
+        raise AssertionError(f"bcoo_spmm variants {by_var}: every training "
+                             f"launch should be tf32x3")
+    if not res["flops_fraction"] <= 0.1 + 1e-9:
+        raise AssertionError(f"flops fraction {res['flops_fraction']} "
+                             f"above the budget 0.1")
+    if not np.isfinite(losses).all() or \
+            not losses[-10:].mean() < losses[:10].mean():
+        raise AssertionError(f"loss not finite or not falling: {losses}")
+    warm = {"rsc_step_ms_median": float(np.median(rsc_ms)),
+            "exact_step_ms_median": float(np.median(exact_ms)),
+            "first_step_ms": float(step_ms[0]),
+            "planner_s_per_refresh": stats.host_seconds
+            / max(stats.refreshes, 1),
+            "refreshes": stats.refreshes, "peak_mem_gib": peak / 2 ** 30,
+            "k_history": [k.tolist() for k in stats.k_history],
+            "rsc_step_ms_median_by_window": by_window,
+            "rsc_steps_by_window": {
+                "output_layer_empty": int(empty.sum()),
+                "output_layer_kept": int((~empty).sum())}}
+    say(f"[gnn train warm] step median rsc {warm['rsc_step_ms_median']:.3f}"
+        f" ms, exact {warm['exact_step_ms_median']:.3f} ms (first "
+        f"{warm['first_step_ms']:.1f} ms); planner "
+        f"{warm['planner_s_per_refresh'] * 1e3:.2f} ms per refresh "
+        f"({stats.refreshes} refreshes; kept column blocks per layer "
+        f"{warm['k_history']}); rsc step median by window "
+        f"{by_window} over {warm['rsc_steps_by_window']} steps; refreshes "
+        f"{REFRESH_FIXTURE_FIRST} and {REFRESH_FIXTURE_FIRST + 1} saved to "
+        f"{REFRESH_FIXTURE.relative_to(ROOT)}")
+    return out, {"argv": argv, "report": out["report"], "run_s": wall,
+                 "setup_s": out["setup_s"], "steps": steps,
+                 "evaluations": evals, "launches": counts["bcoo_spmm"],
+                 "launches_by_variant": by_var, "warm": warm,
+                 "loss_first": float(losses[0]),
+                 "loss_last": float(losses[-1])}
+
+
+def spmm_f64(blocks, sel, row_ids, col_ids, h, n_row_blocks, bm, bk,
+             bias, residual, relu, chunk=2048) -> torch.Tensor:
+    """The SpMM with its epilogue in f64 on the card, ``chunk`` entries at
+    a time (the yardstick for both the kernel and the plain version)."""
+    d = h.shape[1]
+    hb = h.double().reshape(-1, bk, d)
+    acc = torch.zeros((n_row_blocks, bm, d), dtype=torch.float64,
+                      device=h.device)
+    for lo in range(0, sel.shape[0], chunk):
+        part = torch.einsum("sij,sjd->sid",
+                            blocks[sel[lo:lo + chunk].long()].double(),
+                            hb[col_ids[lo:lo + chunk].long()])
+        acc.index_add_(0, row_ids[lo:lo + chunk].long(), part)
+    y = acc.reshape(n_row_blocks * bm, d)
+    if bias is not None:
+        y = y + bias.double()
+    if residual is not None:
+        y = y + residual.double()
+    return torch.relu(y) if relu else y
+
+
+def trimmed(sel, col_ids, row_ptr, sentinel: int):
+    """The id lists without the bucket's padding: the sentinel entries
+    after the last row block's last real tile (one kept if it has none)."""
+    s, rp = sel.cpu().numpy(), row_ptr.cpu().numpy().copy()
+    last = np.nonzero(s[rp[-2]:] != sentinel)[0]
+    end = int(rp[-2] + (last[-1] + 1 if last.size else 1))
+    rp[-1] = end
+    return sel[:end], col_ids[:end], torch.from_numpy(rp).to(sel.device), \
+        s.shape[0] - end
+
+
+def spmm_launch_row(call, label, ops, kmod, bcoo_spmm_ref, n_sm) -> dict:
+    """One training launch, re-run on its own inputs: the kernel against
+    its plain version (TOL) and both against f64; kernel, plain version
+    and BSR ``sparse.mm`` times; the chunk count; for a sampled plan the
+    kernel's time without the bucket's padding; the card's bound."""
+    args, kw = call
+    blocks, sel, row_ids, col_ids, h = args
+    nrb, bm, bk, bd = (kw[k] for k in ("n_row_blocks", "bm", "bk", "bd"))
+    row_ptr, bias, res, relu = (kw[k] for k in
+                                ("row_ptr", "bias", "residual", "relu"))
+    d, s_pad, sentinel = h.shape[1], sel.shape[0], blocks.shape[0] - 1
+    real = sel != sentinel
+    n_active = int(real.sum())
+    n_gather = int(torch.unique(col_ids[real]).numel()) * bk
+    ekw = dict(bias=bias, residual=res, relu=relu)
+    with torch.no_grad():
+        out = kmod.bcoo_spmm(*args, **kw)
+        ref = bcoo_spmm_ref(*args, n_row_blocks=nrb, bm=bm, bk=bk, **ekw)
+        err = assert_close(out, ref, torch.float32)
+        ref64 = spmm_f64(*args, nrb, bm, bk, bias, res, relu)
+        err64 = float((out.double() - ref64).abs().max())
+        plain_err64 = float((ref.double() - ref64).abs().max())
+        del ref64
+        buf = torch.empty_like(out)
+
+        def kernel(s=sel, c=col_ids, p=row_ptr):
+            kmod.launch(blocks, s, c, p, h, bias, res, buf, bm=bm, bk=bk,
+                        bd=bd, relu=relu)
+
+        ms = cuda_ms(kernel, reps=20)
+        plain_ms = cuda_ms(lambda: bcoo_spmm_ref(
+            *args, n_row_blocks=nrb, bm=bm, bk=bk, **ekw), reps=3, warmup=1)
+        ts, tc, tp, n_pad = trimmed(sel, col_ids, row_ptr, sentinel)
+        ms_no_pad = cuda_ms(lambda: kernel(ts, tc, tp), reps=20) \
+            if n_pad else ms
+        bsr = bsr_operand(blocks, SimpleNamespace(
+            sel=sel, row_ids=row_ids, col_ids=col_ids), nrb, bm, h.shape[0])
+        assert_close(torch.sparse.mm(bsr, h), bcoo_spmm_ref(
+            *args, n_row_blocks=nrb, bm=bm, bk=bk), torch.float32)
+        library_ms = cuda_ms(lambda: torch.sparse.mm(bsr, h), reps=3,
+                             warmup=1)
+        del out, ref, buf, bsr
+    es = blocks.element_size()
+    nbytes = (n_active * bm * bk * es + n_gather * d * es
+              + nrb * bm * d * es * (2 if res is not None else 1)
+              + (2 * s_pad + nrb + 1) * 4)
+    flops = 2 * n_active * bm * bk * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flops / TF32_FLOPS * 1e3
+    row = dict(launch=label, d=d, bd=bd, nb=nrb, s_pad=s_pad,
+               n_active=n_active, pad_entries=n_pad,
+               chunks=kmod.chunks(nrb, s_pad, d, bd, n_sm),
+               variant=kmod.variant(blocks.dtype, bm, bk, d),
+               max_abs_err=err, max_abs_err_vs_f64=err64,
+               plain_max_abs_err_vs_f64=plain_err64, ms=ms,
+               ms_without_padding=ms_no_pad, plain_ms=plain_ms,
+               library_ms=library_ms, bytes=nbytes, flops=flops,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               tflops=flops / ms / 1e9)
+    say(f"[gnn launch {label}] d={d} s_pad={s_pad} n_active={n_active} "
+        f"pad={n_pad} chunks={row['chunks']} {row['variant']} kernel "
+        f"{ms:.4f} ms (no padding {ms_no_pad:.4f}), plain {plain_ms:.3f} "
+        f"ms, bsr {library_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), err {err:.2e} (vs f64 {err64:.2e}, plain "
+        f"f32 vs f64 {plain_err64:.2e})")
+    return row
+
+
+def gnn_steps(eng, n: int, rsc: bool, gen) -> float:
+    """``n`` more steps of the trained engine under its current plans,
+    each ending in its loss read (as the training loop's do; an RSC step's
+    ∇H norms go to the planner); returns the last loss."""
+    plans = eng.planner.cache.plans() if rsc else None
+    for _ in range(n):
+        if rsc:
+            _, eng.opt_state, lv, norms = eng.rsc_step(
+                eng.model, eng.opt_state, eng.source.ops, plans, gen)
+            eng.planner.record(None, norms)
+        else:
+            _, eng.opt_state, lv = eng.exact_step(
+                eng.model, eng.opt_state, eng.source.ops, gen)
+        loss = float(lv)
+    return loss
+
+
+def gnn_step_phases(eng, rsc: bool, gen, reps: int = 5) -> dict:
+    """Mean device time of a step's forward (with the loss), backward and
+    optimizer update, from CUDA events around each phase."""
+    from repro_torch.train.optimizer import apply_updates
+    from repro_torch.train.steps import gnn_loss
+    ops_, model, cfg = eng.source.ops, eng.model, eng.cfg
+    plans = eng.planner.cache.plans() if rsc else None
+    names = eng.module.spmm_names(cfg.n_layers)
+    dims = eng.module.spmm_dims(cfg.n_layers, cfg.hidden, eng.n_classes)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    tot = np.zeros(3)
+    for i in range(reps + 1):
+        taps = {k: torch.zeros((ops_.features.shape[0], dims[k]),
+                               device=ops_.features.device,
+                               requires_grad=True)
+                for k in (names if rsc else ())}
+        params = dict(model.named_parameters())
+        ev[0].record()
+        logits = eng.module.apply(model, ops_, taps, plans,
+                                  dropout_rate=cfg.dropout, train=True,
+                                  generator=gen, backend=cfg.backend)
+        loss = gnn_loss(logits, ops_)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, [*params.values(),
+                                           *taps.values()])
+        ev[2].record()
+        upd, eng.opt_state = eng.opt.update(
+            dict(zip(params, grads[:len(params)])), eng.opt_state, params)
+        apply_updates(params, upd)
+        ev[3].record()
+        ev[3].synchronize()
+        if i:
+            tot += [ev[j].elapsed_time(ev[j + 1]) for j in range(3)]
+    return dict(zip(("forward_ms", "backward_ms", "optimizer_ms"),
+                    (tot / reps).tolist()))
+
+
+def gnn_train_timings(out, ops, kmod, bcoo_spmm_ref, kernel_table,
+                      dev) -> dict:
+    """On the trained engine: the six launches of one warm RSC step under
+    the run's last plans, the three backward launches of one RSC step
+    under the plans the allocator picks next (refreshed from the last
+    warm step's norms), and the three backward launches of one exact
+    step, each re-run on its own inputs (``spmm_launch_row``); a profiled
+    window of 5 warm RSC and of 5 exact steps (busy share, device time by
+    kind); the phases of a step."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = out["trainer"].engine
+    n = eng.cfg.n_layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12345)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def rows_of(calls, labels):
+        return [spmm_launch_row(c, lab, ops, kmod, bcoo_spmm_ref, n_sm)
+                for c, lab in zip(calls, labels)]
+
+    fwd = [f"fwd{l}" for l in range(n)]
+    bwd = [f"bwd{l}" for l in reversed(range(n))]
+    with SpmmTap(kmod) as tap:
+        def capture(rsc: bool) -> list:
+            gnn_steps(eng, 2, rsc, gen)                     # warm
+            tap.calls, tap.armed = [], True
+            gnn_steps(eng, 1, rsc, gen)
+            tap.armed = False
+            calls, tap.calls = tap.calls, []
+            if len(calls) != 2 * n:
+                raise AssertionError(f"a step made {len(calls)} SpMM "
+                                     f"calls, expected {2 * n}")
+            return calls
+
+        k_last = eng.planner.k_latest().tolist()
+        rows = rows_of(capture(True), fwd + [b + "_sampled" for b in bwd])
+        eng.planner.plans_for(None, 0, eng.schedule)        # refresh
+        k_next = eng.planner.k_latest().tolist()
+        next_rows = rows_of(capture(True)[n:],
+                            [b + "_sampled_next" for b in bwd])
+        exact_rows = rows_of(capture(False)[n:],
+                             [b + "_exact" for b in bwd])
+    torch.cuda.empty_cache()
+    busy, phases = {}, {}
+    for rsc in (True, False):
+        mode = "rsc" if rsc else "exact"
+        gnn_steps(eng, 2, rsc, gen)
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            gnn_steps(eng, 5, rsc, gen)
+            wall = time.perf_counter() - t0
+        busy[mode] = kernel_table(prof, wall, top=6)
+        busy[mode]["steps"] = 5
+        phases[mode] = gnn_step_phases(eng, rsc, gen)
+        say(f"[gnn busy {mode}] 5 warm steps: {wall * 1e3:.2f} ms wall, "
+            f"{busy[mode]['device_ms']:.2f} ms device, busy share "
+            f"{busy[mode]['busy_share']:.3f}, by kind "
+            f"{ {k: round(v, 3) for k, v in busy[mode]['by_kind_ms'].items()} }"
+            f"; phases per step {phases[mode]}")
+    return {"launch_rows": rows, "k_last": k_last,
+            "next_backward_rows": next_rows, "k_next": k_next,
+            "exact_backward_rows": exact_rows, "busy": busy,
+            "phases_ms": phases}
+
+
+def gnn_train_exact_run(train, ops, scale: float) -> dict:
+    """The same run without RSC, for the reference test's accuracy margin
+    (RSC's best test within 0.07 of it)."""
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    out = train.main(gnn_argv(scale, rsc=False))
+    res = out["result"]
+    counts = ops.launch_counts()["bcoo_spmm"]
+    steps, evals = len(res["history"]["loss"]), len(res["history"]["val"])
+    layers = out["trainer"].cfg.n_layers
+    if counts != 2 * layers * steps + layers * evals:
+        raise AssertionError(f"exact run: {counts} bcoo_spmm launches")
+    step_ms = np.asarray(res["history"]["step_time"][1:]) * 1e3
+    say(f"[gnn exact] best test {res['best_test']:.4f}, step median "
+        f"{np.median(step_ms):.3f} ms, run {out['report']['wall_s']} s")
+    return {"best_test": res["best_test"], "launches": counts,
+            "step_ms_median": float(np.median(step_ms)),
+            "wall_s": out["report"]["wall_s"]}
 
 
 # ------------------------------------------------------------ LM phases
@@ -1142,6 +1705,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import gather_matmul as gmod
     from repro_torch.kernels.ref import gather_matmul_ref
     from repro_torch.launch import train
+    from repro_torch.launch.profile_serve import kernel_table
+    from repro_torch.train.loop import GNNTrainer, TrainConfig
     from repro_torch.train.lm_steps import make_train_step
     from repro_torch.train.optimizer import Adam
 
@@ -1157,6 +1722,19 @@ def main(argv=None) -> int:
     rows = layer_checks(server, ops, kmod, bcoo_spmm_ref, gcn)
     stages = forward_stages(server, gcn)
     del server
+    torch.cuda.empty_cache()
+    gnn_ref = gnn_train_small_reference(GNNTrainer, TrainConfig, sbm_graph,
+                                        gcn, ops, dev)
+    gnn_out, gnn_slice = gnn_train_main_path(train, ops, args.scale)
+    gnn_slice["small_reference"] = gnn_ref
+    gnn_slice.update(gnn_train_timings(gnn_out, ops, kmod, bcoo_spmm_ref,
+                                       kernel_table, dev))
+    del gnn_out
+    gnn_slice["exact_run"] = gnn_train_exact_run(train, ops, args.scale)
+    rsc_best = gnn_slice["report"]["best_test"]
+    if not rsc_best > gnn_slice["exact_run"]["best_test"] - 0.07:
+        raise AssertionError(f"RSC best test {rsc_best} not within 0.07 of "
+                             f"the exact run's")
     torch.cuda.empty_cache()
     flash_res = flash_sweep(ops, fmod, flash_attention_ref, dev)
     lm_ref_err = lm_small_reference(serve, smoke_config, make_batch,
@@ -1188,7 +1766,8 @@ def main(argv=None) -> int:
         "name": "bcoo_spmm", "route": "cuda",
         "source": "src/repro_torch/csrc/bcoo_spmm.cu",
         "replaces": "src/repro/kernels/bcoo_spmm.py:51",
-        "variant": hidden["variant"], "launches": launches,
+        "variant": hidden["variant"],
+        "launches": launches + gnn_slice["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": hidden["ms"], "plain_ms": hidden["plain_ms"],
         "bound_ms": hidden["bound_ms"], "bound_by": hidden["bound_by"],
@@ -1220,6 +1799,7 @@ def main(argv=None) -> int:
         "sweep": sweep_res, "small_reference_max_abs_err": ref_err,
         "stages_ms": stages}}))
     say(json.dumps({"bcoo_spmm_shapes": rows}))
+    say(json.dumps({"gnn_train_slice": gnn_slice}))
     say(json.dumps({"lm_slice": {
         "report": lm_report, "run_s": lm_run_s,
         "launches": lm_launches, "warm": lm_warm,

@@ -25,7 +25,7 @@ def gnn_params_from_numpy(model: str, tree: dict, device="cuda"):
     on ``device`` (``cuda`` by default, which raises without a card)."""
     if model != "gcn":
         raise NotImplementedError(f"{model!r} is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 2)")
+                                  "(ROADMAP.md Queue 1 item 2b)")
     lins, bns = tree["lin"], tree["bn"]
     if len(bns) != len(lins) or bns[-1] is not None:
         raise ValueError("expected one bn entry per layer, None on the last")
@@ -50,6 +50,23 @@ def gnn_params_from_numpy(model: str, tree: dict, device="cuda"):
                 bn.weight.copy_(_tensor(p["g"]))
                 bn.bias.copy_(_tensor(p["b"]))
     return net
+
+
+def gnn_params_to_numpy(model) -> dict:
+    """The inverse of ``gnn_params_from_numpy``: the reference's tree
+    (f32 numpy leaves; ``w`` as ``(d_in, d_out)``, ``None`` for a layer
+    without batchnorm) from the port's GCN, so trained parameters can be
+    compared leaf by leaf with the reference's."""
+    def arr(t):
+        return t.detach().float().cpu().numpy()
+
+    n = len(model.lin)
+    bns = [model.batchnorm(l) if l < n - 1 else None for l in range(n)]
+    return {"lin": [{"w": arr(lin.weight).T.copy(), "b": arr(lin.bias)}
+                    for lin in model.lin],
+            "bn": [None if bn is None else {"g": arr(bn.weight),
+                                            "b": arr(bn.bias)}
+                   for bn in bns]}
 
 
 def _unstack(tree: dict, cfg) -> list[dict]:

@@ -1,4 +1,7 @@
-"""Block-COO SpMM apply with the fused epilogue (forward only).
+"""rsc_spmm: exact forward SpMM, top-k-sampled backward SpMM (paper §3.1).
+
+Forward:  H_pre = SpMM(Ã, J)                       — exact (Prop. 3.1 requires it)
+Backward: ∇J    = SpMM_sampled(Ãᵀ, ∇H_pre; plan)   — only the plan's tiles
 
 ``spmm_apply`` is the one entry every SpMM of the port goes through:
 
@@ -14,25 +17,36 @@ Backends:
   reference's ``spmm_stream`` (``repro/core/rsc_spmm.py``), with
   ``index_add_`` for the scatter.
 
-The autograd Functions (``rsc_spmm``, ``exact_spmm``: exact forward,
-sampled backward) come with the training port.
+``rsc_spmm`` and ``exact_spmm`` are ``torch.autograd.Function``s over
+``spmm_apply``, the ports of the reference's ``custom_vjp``s: the forward
+is exact with the fused epilogue; the backward masks the cotangent with
+the ReLU mask recomputed from the fused output (``out > 0``), gives
+``∂bias = Σ_rows`` and ``∂residual = masked cotangent``, and runs the
+backward SpMM against the pre-transposed ``at`` under the sampled plan
+(``rsc_spmm``) or ``at``'s exact plan (``exact_spmm``). Their plans come
+from ``core.plan`` / ``exact_plan``, in range by construction, so the
+kernel runs without the host check of the indices (no device sync).
+
+Bias note (paper §3.1.2): the approximation sits strictly behind the ReLU
+mask computed from exact pre-activations, so gradients stay unbiased when
+the sampler is.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.plan import SamplePlan
-from repro_torch.sparse.bcoo import BlockCOO
+from repro_torch.sparse.bcoo import BlockCOO, host_row_ptr
 
 DEFAULT_CHUNK = 32
 
 
 def exact_plan(a: BlockCOO) -> SamplePlan:
-    """The identity plan of a BlockCOO: its own sorted id lists."""
+    """The identity plan of a BlockCOO: its own sorted id lists (no
+    device work: every array is the operand's own)."""
     return SamplePlan(
-        sel=torch.arange(a.s_total, dtype=torch.int32,
-                         device=a.blocks.device),
-        row_ids=a.row_ids, col_ids=a.col_ids,
+        sel=a.tile_ids, row_ids=a.row_ids, col_ids=a.col_ids,
         s_pad=a.s_total, n_active=a.s_total, row_ptr=a.row_ptr)
 
 
@@ -85,15 +99,20 @@ def spmm_apply(
     residual: torch.Tensor | None = None,
     relu: bool = False,
     chunk: int | None = None,
+    in_range: bool = False,
 ) -> torch.Tensor:
     """out[r] = epilogue(Σ_{tiles (r,c) in plan} blocks[sel] @ h[c·bk:...]).
 
     The epilogue contract is the same on both backends (see the module
-    docstring). ``chunk`` tunes the ``"ref"`` schedule only.
+    docstring). ``chunk`` tunes the ``"ref"`` schedule only. ``in_range``
+    is for plans whose indices lie in range by construction (the
+    planner's and ``exact_plan``'s): the kernel then runs without the host
+    check of the indices, which synchronises with the card.
     """
     if backend == "kernel":
         from repro_torch.kernels import ops as kops
-        return kops.bcoo_spmm(
+        fn = kops.bcoo_spmm_in_range if in_range else kops.bcoo_spmm
+        return fn(
             blocks, plan.sel, plan.row_ids, plan.col_ids, h,
             n_row_blocks=n_row_blocks, bm=bm, bk=bk, row_ptr=plan.row_ptr,
             bias=bias, residual=residual, relu=relu)
@@ -113,3 +132,100 @@ def spmm_apply(
     if relu:
         out = torch.relu(out)
     return out
+
+
+def _apply(a: BlockCOO, plan: SamplePlan, h: torch.Tensor, backend: str,
+           bias=None, residual=None, relu: bool = False) -> torch.Tensor:
+    return spmm_apply(a.blocks, plan, h.contiguous(), a.n_row_blocks, a.bm,
+                      a.bk, backend, bias=bias, residual=residual, relu=relu,
+                      in_range=True)
+
+
+class _Spmm(torch.autograd.Function):
+    """Exact forward with the fused epilogue; the backward SpMM against
+    ``at`` under ``plan``, or under ``at``'s exact plan when it is None
+    (the reference's ``_rsc_fwd`` / ``_rsc_bwd`` and ``_eb_fwd`` /
+    ``_eb_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, a, at, plan, h, bias, residual, backend, relu):
+        out = _apply(a, exact_plan(a), h, backend, bias, residual, relu)
+        # relu'(x) = 1 <=> x > 0 <=> max(x, 0) > 0: the mask recomputes
+        # exactly from the fused output, so the pre-activation is not kept.
+        if relu:
+            ctx.save_for_backward(out)
+        ctx.at, ctx.plan, ctx.backend, ctx.relu = at, plan, backend, relu
+        ctx.has_bias = bias is not None
+        ctx.has_residual = residual is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        gp = g
+        if ctx.relu:
+            (out,) = ctx.saved_tensors
+            gp = torch.where(out > 0, g, torch.zeros((), dtype=g.dtype,
+                                                      device=g.device))
+        dh = None
+        if ctx.needs_input_grad[3]:
+            # ∇J = SpMM_sampled(Ãᵀ, ∇H_pre): only the tiles the plan kept.
+            plan = ctx.plan if ctx.plan is not None else exact_plan(ctx.at)
+            dh = _apply(ctx.at, plan, gp, ctx.backend)
+        dbias = gp.sum(0) if ctx.has_bias else None
+        dres = gp if ctx.has_residual else None
+        return None, None, None, dh, dbias, dres, None, None
+
+
+def rsc_spmm(a: BlockCOO, at: BlockCOO, bwd_plan: SamplePlan,
+             h: torch.Tensor, backend: str = "kernel", *,
+             bias: torch.Tensor | None = None,
+             residual: torch.Tensor | None = None,
+             relu: bool = False) -> torch.Tensor:
+    """SpMM(a, h) (+ fused epilogue) with the sampled backward through
+    ``at`` under ``bwd_plan``, which must come from ``core.plan``
+    (``build_plan`` / ``full_plan``): its indices are not checked.
+
+    ``a`` carries its own full plan implicitly (its sorted id lists are the
+    exact plan); ``at`` is the pre-transposed operand for the backward op.
+    The epilogue is differentiated exactly; only the SpMM against ``at``
+    is sampled.
+    """
+    return _Spmm.apply(a, at, bwd_plan, h, bias, residual, backend, relu)
+
+
+def exact_spmm(a: BlockCOO, at: BlockCOO, h: torch.Tensor,
+               backend: str = "kernel", *,
+               bias: torch.Tensor | None = None,
+               residual: torch.Tensor | None = None,
+               relu: bool = False) -> torch.Tensor:
+    """Exact SpMM (+ fused epilogue) with the exact backward through
+    ``at`` — the no-RSC baseline, on the same block-COO apply in both
+    directions. ``at`` must be the pre-transposed operand."""
+    return _Spmm.apply(a, at, None, h, bias, residual, backend, relu)
+
+
+def transpose_bcoo(a: BlockCOO) -> BlockCOO:
+    """Ãᵀ in BlockCOO form: transpose tiles, swap (row, col), re-sort.
+
+    The re-sort runs on the host (one read of the id lists), so this is
+    set-up work, not a training step's."""
+    rows = a.row_ids.cpu().numpy()
+    cols = a.col_ids.cpu().numpy()
+    order = np.lexsort((rows, cols))
+    dev = a.blocks.device
+    blocks = torch.cat(
+        [a.blocks[: a.s_total][torch.from_numpy(order).to(dev)]
+         .transpose(1, 2),
+         torch.zeros((1, a.bk, a.bm), dtype=a.blocks.dtype, device=dev)])
+    new_rows = np.ascontiguousarray(cols[order])
+    return BlockCOO(
+        blocks=blocks.contiguous(),
+        row_ids=torch.from_numpy(new_rows).to(dev),
+        col_ids=torch.from_numpy(np.ascontiguousarray(rows[order])).to(dev),
+        bm=a.bk, bk=a.bm,
+        n_rows=a.n_cols, n_cols=a.n_rows,
+        n_row_blocks=a.n_col_blocks, n_col_blocks=a.n_row_blocks,
+        s_total=a.s_total,
+        row_ptr=torch.from_numpy(host_row_ptr(new_rows, a.n_col_blocks))
+        .to(dev),
+        tile_ids=a.tile_ids)

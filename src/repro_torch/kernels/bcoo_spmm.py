@@ -214,10 +214,30 @@ def bcoo_spmm(
     """The SpMM above, output ``(n_row_blocks·bm, d)`` in ``h``'s dtype.
 
     ``bd`` is the dispatcher's column tile and must divide ``d``. Without
-    ``row_ptr`` it is recovered from the sorted ``row_ids``. Raises
-    ``ValueError`` on inputs the kernel does not take and ``RuntimeError``
-    if the launch fails.
+    ``row_ptr`` it is recovered from the sorted ``row_ids``. On a CUDA
+    tensor the index ranges are checked on the host, which synchronises
+    with the card (``bcoo_spmm_in_range`` skips it). Raises
+    ``ValueError`` on inputs the kernel does not take and
+    ``RuntimeError`` if the launch fails.
     """
+    return _dispatch(blocks, sel, row_ids, col_ids, h, n_row_blocks, bm, bk,
+                     bd, row_ptr, bias, residual, relu, checked=True)
+
+
+def bcoo_spmm_in_range(blocks, sel, row_ids, col_ids, h, *, n_row_blocks,
+                       bm, bk, bd, row_ptr=None, bias=None, residual=None,
+                       relu: bool = False) -> torch.Tensor:
+    """``bcoo_spmm`` for plans whose indices lie in range by construction
+    (``core.plan.build_plan`` / ``full_plan``, ``core.rsc_spmm.exact_plan``:
+    the training path): no host check of the indices, so no
+    synchronisation. The kernel does not check them either; an index out
+    of range reads past the operands."""
+    return _dispatch(blocks, sel, row_ids, col_ids, h, n_row_blocks, bm, bk,
+                     bd, row_ptr, bias, residual, relu, checked=False)
+
+
+def _dispatch(blocks, sel, row_ids, col_ids, h, n_row_blocks, bm, bk, bd,
+              row_ptr, bias, residual, relu, *, checked: bool):
     _check(blocks, sel, row_ids, col_ids, h, n_row_blocks, bm, bk, bd,
            row_ptr, bias, residual)
     if h.device.type == "cpu":
@@ -234,7 +254,9 @@ def bcoo_spmm(
                  "col_ids": col_ids, "h": h, "row_ptr": row_ptr,
                  "bias": bias, "residual": residual}, h.device,
                 n_row_blocks, bm, bk, bd, d)
-    _check_indices(sel, col_ids, row_ptr, blocks.shape[0], h.shape[0] // bk)
+    if checked:
+        _check_indices(sel, col_ids, row_ptr, blocks.shape[0],
+                       h.shape[0] // bk)
     out = torch.empty((n_row_blocks * bm, d), dtype=h.dtype, device=h.device)
     if n_row_blocks > 0:
         launch(blocks, sel, col_ids, row_ptr, h, bias, residual, out,

@@ -4,8 +4,9 @@
 does (the reference's heuristic default when none is given, the ``gcd``
 fallback when a given ``bd`` does not divide ``d``) and calls the kernel
 wrapper, which launches the CUDA kernel for a CUDA tensor and runs the
-plain version for a CPU tensor. There is no autotuner yet: ``bd`` comes
-from the heuristic or the caller. ``gather_matmul`` and ``flash_attention``
+plain version for a CPU tensor; ``bcoo_spmm_in_range`` is the same call
+without the host check of the indices, for the planner's plans. There is
+no autotuner yet: ``bd`` comes from the heuristic or the caller. ``gather_matmul`` and ``flash_attention``
 call their wrappers the same way (kernel on a CUDA tensor, plain version
 on a CPU tensor); each wrapper picks its kernel variant from the dtype and
 shape alone.
@@ -51,13 +52,29 @@ def resolve_bd(bd: int | None, d: int) -> int:
 def bcoo_spmm(blocks, sel, row_ids, col_ids, h, *, n_row_blocks, bm, bk,
               bd: int | None = None, row_ptr=None, bias=None, residual=None,
               relu: bool = False):
+    return _bcoo_call(_bcoo.bcoo_spmm, blocks, sel, row_ids, col_ids, h,
+                      n_row_blocks, bm, bk, bd, row_ptr, bias, residual, relu)
+
+
+def bcoo_spmm_in_range(blocks, sel, row_ids, col_ids, h, *, n_row_blocks,
+                       bm, bk, bd: int | None = None, row_ptr=None,
+                       bias=None, residual=None, relu: bool = False):
+    """``bcoo_spmm`` without the host check of the indices (no device
+    sync), for plans in range by construction: ``build_plan``,
+    ``full_plan`` and ``exact_plan``'s (the training path)."""
+    return _bcoo_call(_bcoo.bcoo_spmm_in_range, blocks, sel, row_ids,
+                      col_ids, h, n_row_blocks, bm, bk, bd, row_ptr, bias,
+                      residual, relu)
+
+
+def _bcoo_call(fn, blocks, sel, row_ids, col_ids, h, n_row_blocks, bm, bk,
+               bd, row_ptr, bias, residual, relu):
     if h.dim() != 2 or h.shape[-1] < 1:
         raise ValueError(f"h must be (n_cols, d) with d >= 1, got "
                          f"{tuple(h.shape)}")
-    return _bcoo.bcoo_spmm(
-        blocks, sel, row_ids, col_ids, h, n_row_blocks=n_row_blocks,
-        bm=bm, bk=bk, bd=resolve_bd(bd, h.shape[-1]), row_ptr=row_ptr,
-        bias=bias, residual=residual, relu=relu)
+    return fn(blocks, sel, row_ids, col_ids, h, n_row_blocks=n_row_blocks,
+              bm=bm, bk=bk, bd=resolve_bd(bd, h.shape[-1]), row_ptr=row_ptr,
+              bias=bias, residual=residual, relu=relu)
 
 
 def gather_matmul(x, g, idx, *, bk: int):

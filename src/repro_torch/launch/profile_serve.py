@@ -54,6 +54,8 @@ def kernel_kind(name: str) -> str:
         return "flash_attention"
     if "gather_mm" in name:
         return "gather_matmul"
+    if "spmm" in name or "reduce_chunks" in name:
+        return "bcoo_spmm"
     if any(w in name.lower() for w in ("gemm", "gemv", "nvjet", "cutlass")):
         return "matmul"
     if "copy" in name:

@@ -31,7 +31,7 @@ from repro_torch.graphs.datasets import DATASETS, load_dataset
 from repro_torch.infer import NodeServer, StreamConfig
 from repro_torch.models.gnn import MODELS
 
-_TRAINING = "Queue 1 item 2 (full-batch training)"
+_TRAINING = "Queue 1 item 2b (GraphSAGE, GCNII, serve_gnn --train-epochs)"
 _CKPT = "Queue 1 item 5 (checkpoint and resume)"
 _OBS = "Queue 1 item 6 (observability)"
 _SERVING = "Queue 1 item 7 (serving: updates, LRU/overlap, replicas)"

@@ -1,4 +1,14 @@
-"""Command-line training entry point (the LM stack so far).
+"""Command-line training entry point: full-batch GNN training (the paper's
+models, GCN so far) and the LM stack.
+
+    # the full-width GCN with RSC on the card
+    PYTHONPATH=src python -m repro_torch.launch.train gnn --dataset reddit \
+        --scale 0.1 --layers 3 --hidden 256 --block 128 --rsc --budget 0.1
+
+    # a small run on the CPU (plain versions of the kernels)
+    PYTHONPATH=src python -m repro_torch.launch.train gnn --dataset reddit \
+        --scale 0.003 --rsc --epochs 20 --block 32 --hidden 48 --layers 2 \
+        --device cpu
 
     PYTHONPATH=src python -m repro_torch.launch.train lm --arch qwen3-1.7b \
         --batch 4 --seq 4096 --microbatches 2 --rsc --rsc-keep 0.5 --steps 3
@@ -7,6 +17,15 @@
     PYTHONPATH=src python -m repro_torch.launch.train lm --arch qwen3-1.7b \
         --smoke --steps 5 --device cpu
 
+The ``gnn`` flags are the reference's full-batch flags plus ``--backend``
+(``kernel``, the default: the CUDA kernel, or its plain version on the
+CPU; ``ref``: the CPU-only streaming schedule) and ``--device``. It prints
+the reference's JSON keys (``model``, ``dataset``, ``rsc``, ``budget``,
+``best_test``, ``wall_s``, ``flops_fraction``). ``--model graphsage |
+gcnii``, ``--minibatch``, ``--dp``, ``--mesh``, ``--eval-mode stream``,
+``--compress-grads`` and the observability flags raise
+``NotImplementedError`` naming their ROADMAP.md item.
+
 The ``lm`` flags are those of ``repro.launch.train lm`` plus ``--device``
 (``cuda`` by default, which raises without a card; ``cpu`` runs the
 kernels' plain versions). Parameters come from a seeded random init, as in
@@ -14,8 +33,8 @@ the reference, and step ``i`` trains on ``make_batch(cfg, "train_4k",
 batch, seq, seed=i)``. ``--rsc`` samples the MLP weight gradients through
 ``rsc_matmul``, whose dW runs on the ``gather_matmul`` kernel. Prints one
 JSON line with ``arch``, ``final_loss``, ``first_loss`` and ``steps``.
-The ``gnn`` subcommand, ``--ckpt-dir`` and the observability flags raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+``--ckpt-dir`` and the observability flags raise ``NotImplementedError``
+naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -26,13 +45,18 @@ import time
 
 from repro_torch.configs import get_arch, make_batch, smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.graphs.datasets import DATASETS, load_dataset
 from repro_torch.models.lm.backbone import init_params
 from repro_torch.train.lm_steps import make_train_step
+from repro_torch.train.loop import GNNTrainer, TrainConfig
 from repro_torch.train.optimizer import Adam
 
-_GNN = "Queue 1 item 2 (full-batch GNN training)"
+_MODELS = "Queue 1 item 2b (GraphSAGE and GCNII)"
+_MINIBATCH = "Queue 1 item 4 (minibatch pipeline)"
 _CKPT = "Queue 1 item 5 (checkpoint and resume)"
 _OBS = "Queue 1 item 6 (observability)"
+_STREAM = "Queue 1 item 7 (serving: the rest, streaming evaluation)"
+_DP = "Queue 1 item 8 (data parallel)"
 
 
 def _unported(flag: str, item: str):
@@ -40,22 +64,66 @@ def _unported(flag: str, item: str):
                               f"ROADMAP.md {item}")
 
 
-def run_gnn(args) -> dict:
-    _unported("train gnn", _GNN)
+def _check(unported) -> None:
+    for hit, flag, item in unported:
+        if hit:
+            _unported(flag, item)
 
 
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for ``lm`` flags this port lacks."""
-    unported = [
-        (args.ckpt_dir is not None, "--ckpt-dir", _CKPT),
+def _obs_flags(args) -> list:
+    return [
         (args.metrics, "--metrics", _OBS),
         (args.metrics_port is not None, "--metrics-port", _OBS),
         (args.trace_out is not None, "--trace-out", _OBS),
         (args.trace_jsonl is not None, "--trace-jsonl", _OBS),
     ]
-    for hit, flag, item in unported:
-        if hit:
-            _unported(flag, item)
+
+
+def check_ported_gnn(args) -> None:
+    """Raise ``NotImplementedError`` for ``gnn`` flags this port lacks."""
+    _check([
+        (args.model != "gcn", f"--model {args.model}", _MODELS),
+        (args.minibatch, "--minibatch", _MINIBATCH),
+        (args.dp > 1, "--dp", _DP),
+        (bool(args.mesh), "--mesh", _DP),
+        (args.compress_grads, "--compress-grads", _DP),
+        (args.eval_mode == "stream", "--eval-mode stream", _STREAM),
+        *_obs_flags(args),
+    ])
+
+
+def run_gnn(args) -> dict:
+    """Full-batch GNN training; returns the JSON report (under
+    ``report``), the engine's result, the trainer and the set-up seconds
+    (graph, operands, planner and parameters, before the first step)."""
+    check_ported_gnn(args)
+    device = resolve_device(args.device)
+    spec = DATASETS[args.dataset]
+    t0 = time.perf_counter()
+    g = load_dataset(args.dataset, scale=args.scale, seed=args.seed)
+    cfg = TrainConfig(
+        model=args.model, n_layers=args.layers, hidden=args.hidden,
+        epochs=args.epochs, lr=args.lr, dropout=args.dropout,
+        metric=spec.metric, rsc=args.rsc, budget=args.budget,
+        caching=not args.no_caching, switching=not args.no_switching,
+        strategy=args.strategy, block=args.block, seed=args.seed,
+        backend=args.backend, device=str(device))
+    tr = GNNTrainer(cfg, g)
+    t1 = time.perf_counter()
+    res = tr.train(verbose=args.verbose)
+    wall = time.perf_counter() - t1
+    report = {"model": args.model, "dataset": args.dataset,
+              "rsc": args.rsc, "budget": args.budget,
+              "best_test": res["best_test"], "wall_s": round(wall, 2),
+              "flops_fraction": res["flops_fraction"]}
+    return {"report": report, "result": res, "trainer": tr,
+            "setup_s": t1 - t0}
+
+
+def check_ported(args) -> None:
+    """Raise ``NotImplementedError`` for ``lm`` flags this port lacks."""
+    _check([(args.ckpt_dir is not None, "--ckpt-dir", _CKPT),
+            *_obs_flags(args)])
 
 
 def run_lm(args) -> dict:
@@ -91,13 +159,48 @@ def run_lm(args) -> dict:
             "cfg": cfg, "params": params}
 
 
+def _add_obs_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--metrics", action="store_true")
+    p.add_argument("--metrics-port", type=int, default=None)
+    p.add_argument("--trace-out", default=None, metavar="PATH")
+    p.add_argument("--trace-jsonl", default=None, metavar="PATH")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="Training (PyTorch port; the LM stack so far)")
+        description="Training (PyTorch port): full-batch GNN and LM")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    g = sub.add_parser("gnn", help="not ported yet: takes the reference's "
-                                    "flags and raises")
+    g = sub.add_parser("gnn")
+    g.add_argument("--model", default="gcn",
+                   choices=["gcn", "graphsage", "gcnii"])
+    g.add_argument("--dataset", default="reddit", choices=sorted(DATASETS))
+    g.add_argument("--scale", type=float, default=0.005)
+    g.add_argument("--layers", type=int, default=3)
+    g.add_argument("--hidden", type=int, default=256)
+    g.add_argument("--epochs", type=int, default=200)
+    g.add_argument("--lr", type=float, default=0.01)
+    g.add_argument("--dropout", type=float, default=0.5)
+    g.add_argument("--rsc", action="store_true")
+    g.add_argument("--budget", type=float, default=0.1)
+    g.add_argument("--no-caching", action="store_true")
+    g.add_argument("--no-switching", action="store_true")
+    g.add_argument("--strategy", default="greedy",
+                   choices=["greedy", "uniform"])
+    g.add_argument("--block", type=int, default=64)
+    g.add_argument("--backend", default="kernel", choices=["kernel", "ref"],
+                   help="SpMM backend: the CUDA kernel (its plain version "
+                        "on --device cpu) or the CPU-only streaming ref")
+    g.add_argument("--eval-mode", default="auto", choices=["auto", "stream"])
+    g.add_argument("--minibatch", action="store_true")
+    g.add_argument("--dp", type=int, default=0)
+    g.add_argument("--mesh", default="")
+    g.add_argument("--compress-grads", action="store_true")
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--verbose", action="store_true")
+    _add_obs_flags(g)
+    g.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
     g.set_defaults(fn=run_gnn)
 
     l = sub.add_parser("lm")
@@ -114,10 +217,7 @@ def build_parser() -> argparse.ArgumentParser:
     l.add_argument("--ckpt-every", type=int, default=20)
     l.add_argument("--seed", type=int, default=0)
     l.add_argument("--verbose", action="store_true")
-    l.add_argument("--metrics", action="store_true")
-    l.add_argument("--metrics-port", type=int, default=None)
-    l.add_argument("--trace-out", default=None, metavar="PATH")
-    l.add_argument("--trace-jsonl", default=None, metavar="PATH")
+    _add_obs_flags(l)
     l.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     l.set_defaults(fn=run_lm)
@@ -125,10 +225,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
-    ap = build_parser()
-    args, extra = ap.parse_known_args(argv)
-    if extra and args.cmd != "gnn":
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     out = args.fn(args)
     print(json.dumps(out["report"]))
     return out

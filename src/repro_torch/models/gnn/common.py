@@ -1,9 +1,19 @@
-"""Shared GNN plumbing for the streaming-inference hooks.
+"""Shared GNN plumbing: operands, layers, taps, and the streaming-inference
+hooks.
 
 Host (numpy) row ops carried over from ``repro/models/gnn/common.py``:
 ``degree_sorted_arrays``, ``pad_node_arrays``, ``np_dense`` and
 ``np_batchnorm`` compute on the same rows, in the same order, as the
 reference's. ``GraphBatchNorm`` holds a batchnorm layer's parameters.
+
+Training: ``build_operands`` puts the graph on the device once
+(``GraphOperands``) and keeps the planner's host metadata
+(``OperandMeta``); ``spmm_op`` dispatches each SpMM to ``rsc_spmm`` (a plan
+given) or ``exact_spmm``; ``batchnorm`` and ``dropout`` are the training
+forward's row ops. The TAP mechanism: every SpMM output gets a zero-valued
+additive ``tap`` tensor (fused as the SpMM's ``residual``); the gradient
+with respect to the taps is exactly the backward operand ∇H^{(l+1)} of each
+sparse op, whose row norms the Eq. 4a scores need.
 
 Streaming-inference hook protocol (orchestration in
 ``repro_torch/infer/stream.py``); ``model`` is the model's ``nn.Module``:
@@ -23,11 +33,151 @@ Streaming-inference hook protocol (orchestration in
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.sparse.bcoo import degree_sort_permutation
+from repro_torch.core.plan import SamplePlan
+from repro_torch.core.rsc_spmm import exact_spmm, rsc_spmm
+from repro_torch.sparse.bcoo import (BlockCOO, BlockMeta, csr_to_bcoo,
+                                     degree_sort_permutation)
+from repro_torch.sparse.topology import mean_normalize, sym_normalize
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphOperands:
+    """Device-resident graph operands (padded to block multiples).
+
+    ``am`` / ``amt`` are ``None`` when the model does not aggregate by
+    mean (see ``build_operands``). ``loss_w`` (GraphSAINT pools) is the
+    per-node loss weight; ``None`` (full batch) means uniform weights.
+    """
+
+    a: BlockCOO                 # sym-normalized Ã (GCN/GCNII propagation)
+    at: BlockCOO                # Ãᵀ
+    am: BlockCOO | None         # mean-normalized D⁻¹A (GraphSAGE)
+    amt: BlockCOO | None        # (D⁻¹A)ᵀ
+    features: torch.Tensor      # (N_pad, d_in) f32
+    labels: torch.Tensor        # (N_pad,) int32 or (N_pad, C) f32
+    train_mask: torch.Tensor    # (N_pad,) bool
+    val_mask: torch.Tensor
+    test_mask: torch.Tensor
+    n_valid: int                # real (un-padded) node count
+    num_classes: int
+    multilabel: bool
+    loss_w: torch.Tensor | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class OperandMeta:
+    """Host metadata of the backward operands, for the PlanCache."""
+
+    at_meta: BlockMeta
+    amt_meta: BlockMeta | None
+    a_fro: float
+    am_fro: float
+
+
+def _fro(val: np.ndarray) -> float:
+    return float(np.sqrt(np.sum(val.astype(np.float64) ** 2)))
+
+
+def build_operands(g, bm: int = 128, bk: int = 128,
+                   degree_sort: bool = True, *, mean_agg: bool = True,
+                   device: str | torch.device = "cuda"
+                   ) -> tuple[GraphOperands, OperandMeta]:
+    """The graph's training operands on ``device`` and their planner
+    metadata: the reference's ``build_operands``, with the same tiles, ids,
+    masks and Frobenius norms (f64).
+
+    Each operand is built on the host, uploaded and its host tiles freed
+    before the next is built. ``mean_agg=False`` (a model whose
+    ``uses_mean_agg()`` is false, such as GCN) skips the mean-normalised
+    pair: ``am``, ``amt`` and ``amt_meta`` are then ``None``; no result
+    of such a model changes, and the card holds half the tiles.
+    """
+    adj = g.adj
+    feats, labels = g.features, g.labels
+    tr, va, te = g.train_mask, g.val_mask, g.test_mask
+    if degree_sort:
+        adj, feats, labels, tr, va, te, _ = degree_sorted_arrays(
+            adj, feats, labels, tr, va, te)
+
+    def tile(csr):
+        return csr_to_bcoo(csr, bm, bk, device=device)
+
+    a_csr = sym_normalize(adj)
+    a, _ = tile(a_csr)
+    at, at_meta = tile(a_csr.transpose())
+    am = amt = amt_meta = None
+    am_csr = mean_normalize(adj)
+    if mean_agg:
+        am, _ = tile(am_csr)
+        amt, amt_meta = tile(am_csr.transpose())
+
+    feats_p, labels_p, tr_p, va_p, te_p = pad_node_arrays(
+        a.n_rows, feats, labels, tr, va, te, g.multilabel)
+
+    def up(x):
+        return torch.from_numpy(x).to(device)
+
+    ops = GraphOperands(
+        a=a, at=at, am=am, amt=amt,
+        features=up(feats_p), labels=up(labels_p),
+        train_mask=up(tr_p), val_mask=up(va_p), test_mask=up(te_p),
+        n_valid=g.n, num_classes=g.num_classes, multilabel=g.multilabel)
+    meta = OperandMeta(at_meta=at_meta, amt_meta=amt_meta,
+                       a_fro=_fro(a_csr.val), am_fro=_fro(am_csr.val))
+    return ops, meta
+
+
+def spmm_op(a: BlockCOO, at: BlockCOO, h: torch.Tensor,
+            plan: SamplePlan | None, backend: str, *,
+            bias: torch.Tensor | None = None,
+            residual: torch.Tensor | None = None,
+            relu: bool = False) -> torch.Tensor:
+    """Dispatch: RSC (sampled backward) if a plan is supplied, exact else.
+
+    ``bias``/``residual``/``relu`` ride the SpMM's fused epilogue
+    (``out = relu(spmm + bias + residual)``); gradients flow through the
+    epilogue exactly (see ``core.rsc_spmm``). The gradient TAP of each
+    SpMM output is fused as the ``residual`` term.
+    """
+    if plan is None:
+        return exact_spmm(a, at, h, backend, bias=bias, residual=residual,
+                          relu=relu)
+    return rsc_spmm(a, at, plan, h, backend, bias=bias, residual=residual,
+                    relu=relu)
+
+
+def valid_rows(ops: GraphOperands) -> torch.Tensor:
+    """(N_pad,) bool: the real (un-padded) nodes."""
+    return torch.arange(ops.features.shape[0],
+                        device=ops.features.device) < ops.n_valid
+
+
+def batchnorm(bn: "GraphBatchNorm", x: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """BatchNorm over the valid rows (full-batch graph training): biased
+    variance, eps 1e-5, statistics from this pass (no running ones)."""
+    m = mask.float()[:, None]
+    cnt = torch.clamp(torch.sum(m), min=1.0)
+    mu = torch.sum(x * m, dim=0) / cnt
+    var = torch.sum(((x - mu) ** 2) * m, dim=0) / cnt
+    return ((x - mu) / torch.sqrt(var + 1e-5)) * bn.weight + bn.bias
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            train: bool) -> torch.Tensor:
+    """Inverted dropout, its keep mask drawn from ``generator`` (on ``x``'s
+    device). Torch cannot draw JAX's bits: parity tests run at rate 0."""
+    if not train or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < (1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), device=x.device))
 
 
 def degree_sorted_arrays(adj, feats, labels, tr, va, te):

@@ -2,9 +2,11 @@
 
 Layer l:  H^{l+1} = ReLU(BN(SpMM(Ã, H^l Θ^l + b^l)))   (no ReLU/BN on the last)
 
-``GCN`` holds the parameters; the streaming-inference hooks below run the
-forward with the SpMM on the device and the row ops on the host, as the
-reference's hooks (``repro/models/gnn/gcn.py``) do.
+``GCN`` holds the parameters. ``apply`` is the training forward (RSC
+replaces each layer's backward SpMM with its sampled version); the
+streaming-inference hooks below run the forward with the SpMM on the
+device and the row ops on the host, as the reference's hooks
+(``repro/models/gnn/gcn.py``) do.
 """
 from __future__ import annotations
 
@@ -68,6 +70,49 @@ def init(d_in: int, hidden: int, n_classes: int, n_layers: int,
 
 def uses_mean_agg() -> bool:
     return False
+
+
+def spmm_names(n_layers: int) -> list[str]:
+    return [f"gcn/spmm{l}" for l in range(n_layers)]
+
+
+def spmm_dims(n_layers: int, hidden: int, n_classes: int) -> dict[str, int]:
+    return {f"gcn/spmm{l}": (hidden if l < n_layers - 1 else n_classes)
+            for l in range(n_layers)}
+
+
+def tap_shapes(n_layers: int, n_pad: int, hidden: int,
+               n_classes: int) -> dict[str, tuple[int, int]]:
+    return {f"gcn/spmm{l}": (n_pad, hidden if l < n_layers - 1 else n_classes)
+            for l in range(n_layers)}
+
+
+def apply(model: GCN, ops: C.GraphOperands, taps: dict, plans: dict | None,
+          *, dropout_rate: float = 0.5, train: bool = True,
+          generator: torch.Generator | None = None,
+          backend: str = "kernel") -> torch.Tensor:
+    """The training forward: logits ``(N_pad, n_classes)``.
+
+    Each layer's SpMM runs ``rsc_spmm`` under ``plans[name]`` when one is
+    given, else ``exact_spmm``. The tap rides as the fused ``residual``,
+    and ReLU fuses into the SpMM whenever no batchnorm sits between.
+    """
+    plans = plans or {}
+    n_layers = len(model.lin)
+    h = ops.features
+    valid = C.valid_rows(ops)
+    for l in range(n_layers):
+        h = C.dropout(h, dropout_rate, generator, train)
+        j = _pre(model.lin[l], h)
+        name = f"gcn/spmm{l}"
+        bn = model.batchnorm(l) if l < n_layers - 1 else None
+        fuse_relu = l < n_layers - 1 and bn is None
+        hp = C.spmm_op(ops.a, ops.at, j, plans.get(name), backend,
+                       residual=taps.get(name), relu=fuse_relu)
+        if bn is not None:
+            hp = torch.relu(C.batchnorm(bn, hp, valid))
+        h = hp
+    return h
 
 
 # ---------------------- streaming-inference hooks --------------------------

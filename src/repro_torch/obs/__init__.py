@@ -1,5 +1,7 @@
-"""Observability. Only the guarded monotonic clock is ported so far; the
-metrics registry, tracer, ledger and SLO monitor are still to come."""
+"""Observability. The guarded monotonic clock is ported; the ledger is a
+hook with no effect (``obs.ledger``); the metrics registry, tracer and SLO
+monitor are still to come."""
 from repro_torch.obs.clock import GuardedClock, perf_now
+from repro_torch.obs.ledger import get_ledger
 
-__all__ = ["GuardedClock", "perf_now"]
+__all__ = ["GuardedClock", "get_ledger", "perf_now"]

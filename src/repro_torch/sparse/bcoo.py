@@ -12,7 +12,8 @@ Sampling never moves tile data: a sampled operand is a new index list into
 The host side (``host_row_ptr``, ``BlockMeta``, ``HostBlockCOO``,
 ``csr_to_bcoo_host``, ``degree_sort_permutation``) is a copy of
 ``repro.sparse.bcoo`` and yields bit-identical arrays. The device operand
-``BlockCOO`` is a dataclass of torch tensors.
+``BlockCOO`` is a dataclass of torch tensors; ``csr_to_bcoo`` builds one on
+the host, uploads it and keeps only the planner's ``BlockMeta``.
 """
 from __future__ import annotations
 
@@ -67,6 +68,9 @@ class BlockCOO:
     n_col_blocks: int
     s_total: int             # number of real (non-sentinel) tiles
     row_ptr: torch.Tensor | None = None  # (n_row_blocks + 1,) int32
+    # (s_total,) int32 arange: the ``sel`` of the operand's exact plan,
+    # made once with the operand
+    tile_ids: torch.Tensor | None = None
 
     def nbytes(self) -> int:
         return self.blocks.numel() * self.blocks.element_size()
@@ -121,7 +125,9 @@ class HostBlockCOO:
             n_rows=self.n_rows, n_cols=self.n_cols,
             n_row_blocks=self.n_row_blocks, n_col_blocks=self.n_col_blocks,
             s_total=self.s_total,
-            row_ptr=torch.as_tensor(row_ptr).to(device))
+            row_ptr=torch.as_tensor(row_ptr).to(device),
+            tile_ids=torch.arange(self.s_total, dtype=torch.int32,
+                                  device=device))
 
     def nbytes(self) -> int:
         return self.blocks.nbytes
@@ -187,3 +193,20 @@ def csr_to_bcoo_host(
         col_nnz=col_nnz, col_norm=col_norm,
     )
     return host, meta
+
+
+def csr_to_bcoo(
+    csr: CSR,
+    bm: int = 128,
+    bk: int = 128,
+    *,
+    device: str | torch.device = "cuda",
+    dtype: torch.dtype = torch.float32,
+) -> tuple[BlockCOO, BlockMeta]:
+    """Host CSR → device block-COO + its host planner metadata.
+
+    The dense host tiles (``(s_total + 1) · bm · bk`` floats, 2.2 GB for
+    Reddit at ``--scale 0.1``) live only until the upload: build operands
+    one at a time so one host copy exists at once."""
+    host, meta = csr_to_bcoo_host(csr, bm, bk)
+    return host.to_device(device, dtype), meta

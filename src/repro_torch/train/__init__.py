@@ -1,2 +1,2 @@
-"""Steps and the optimizer of the port (LM train, prefill and decode so
-far)."""
+"""Steps, engine and optimizer of the port: full-batch GNN training with
+RSC, and LM train, prefill and decode."""

@@ -3,8 +3,9 @@
 versions (the wgmma variants and ``bcoo_spmm``'s tensor-core variants also
 at the edges of their tiles, each launch counted under its variant), the
 wrappers' refusals, and the streaming GCN forward, the LM
-prefill + decode, ``rsc_matmul`` and LM training steps on ``cuda``
-against the same runs on the CPU.
+prefill + decode, ``rsc_matmul``, LM training steps and full-batch GCN
+training with RSC on ``cuda`` against the same runs on the CPU; the
+training path's no-sync entry ``bcoo_spmm_in_range``.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor ``repro``, so it runs on a machine with only
@@ -32,6 +33,7 @@ losses within 1e-5 relative and each parameter's change within
 ``TRAIN_DP_REL`` of the CPU run's change in L2 norm (``chip_smoke.py``'s
 limit).
 """
+import copy
 import dataclasses
 
 import numpy as np
@@ -53,6 +55,7 @@ from repro_torch.launch import serve
 from repro_torch.models.gnn import gcn
 from repro_torch.models.lm.backbone import init_params
 from repro_torch.train.lm_steps import make_train_step
+from repro_torch.train.loop import GNNTrainer, TrainConfig
 from repro_torch.train.optimizer import Adam
 
 pytestmark = pytest.mark.cuda
@@ -157,6 +160,29 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda, case):
         kmod.bcoo_spmm(c["blocks"], c["sel"], c["row_ids"], c["col_ids"],
                        c["h"], **kw)
     assert kmod.launches == before
+
+
+def test_in_range_entry_skips_the_host_check(cuda, monkeypatch):
+    """``bcoo_spmm_in_range`` (the training path's entry) launches the
+    kernel without the host check of the indices (which reads them back
+    from the card); the checked entry still runs it."""
+    c = _operands(6, 32, 32, 64, "f32", cuda)
+    args = (c["blocks"], c["sel"], c["row_ids"], c["col_ids"], c["h"])
+    kw = dict(n_row_blocks=c["n_rb"], bm=32, bk=32, bias=c["bias"],
+              residual=c["residual"], relu=True)
+    ref = bcoo_spmm_ref(*args, **kw)
+
+    def refuse(*a, **k):
+        raise AssertionError("host index check called")
+
+    monkeypatch.setattr(kmod, "_check_indices", refuse)
+    before = kmod.launches
+    out = ops.bcoo_spmm_in_range(*args, **kw)
+    torch.cuda.synchronize()
+    assert kmod.launches == before + 1
+    _close(out, ref, "f32")
+    with pytest.raises(AssertionError, match="host index check"):
+        ops.bcoo_spmm(*args, **kw)
 
 
 def _segments(seed, segs, pad, bm, bk, d, dtype, dev):
@@ -547,6 +573,60 @@ def test_lm_train_steps_on_cuda_match_cpu(cuda):
         want = 0 if name == "cpu" else 3 * cfg.n_layers * 2 * steps
         assert ops.launch_counts()["gather_matmul"] == want
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    for (k, a), (_, b) in zip(nets["cpu"].named_parameters(),
+                              nets["cuda"].named_parameters()):
+        moved = a.detach() - start[k]
+        err = (b.detach().cpu() - a.detach()).norm()
+        assert float(err) <= TRAIN_DP_REL * float(moved.norm()), k
+
+
+def test_gnn_train_on_cuda_matches_cpu(cuda):
+    """15 full-batch RSC steps of a small GCN (2 × 48, block 32, so the
+    ``tf32x3`` variant; dropout 0; budget 0.3) on the card and on the CPU
+    from one parameter set. The CPU planner is fed the card's ∇H norms,
+    so the plans are the same by construction (checked); losses within
+    1e-4 relative and each parameter's change within ``TRAIN_DP_REL`` of
+    the CPU run's (``chip_smoke.py``'s limits for its 30-step run)."""
+    graph = sbm_graph(n_nodes=700, n_clusters=7, avg_degree=12,
+                      feat_dim=32, seed=0)
+    cfg = dict(model="gcn", n_layers=2, hidden=48, block=32, dropout=0.0,
+               rsc=True, budget=0.3, epochs=15)   # refresh at step 10
+    cpu_net = gcn.init(32, 48, 7, 2, True, seed=0, device="cpu")
+    start = {k: p.detach().clone() for k, p in cpu_net.named_parameters()}
+    nets = {"cuda": copy.deepcopy(cpu_net).to(cuda), "cpu": cpu_net}
+    runs, card_norms = {}, []
+    for name, net in nets.items():
+        tr = GNNTrainer(TrainConfig(**cfg, device=name), graph, model=net)
+        planner, plans = tr.engine.planner, []
+        plans_for, record = planner.plans_for, planner.record
+        fed = iter(card_norms)
+
+        def wrapped_plans_for(tag, step, schedule, plans_for=plans_for,
+                              plans=plans):
+            out = plans_for(tag, step, schedule)
+            plans.append([p.sel.cpu() for p in out.values()])
+            return out
+
+        def wrapped_record(tag, norms, record=record, name=name, fed=fed):
+            if name == "cuda":
+                card_norms.append({k: v.cpu() for k, v in norms.items()})
+                record(tag, norms)
+            else:
+                record(tag, next(fed))
+
+        planner.plans_for, planner.record = wrapped_plans_for, wrapped_record
+        ops.reset_launch_counts()
+        res = tr.train(eval_every=5)
+        runs[name] = (res, plans, ops.launch_counts()["bcoo_spmm"])
+    (gres, gplans, glaunch), (cres, cplans, claunch) = runs["cuda"], \
+        runs["cpu"]
+    assert claunch == 0
+    assert glaunch == 4 * 15 + 2 * len(gres["history"]["val"])
+    assert all(torch.equal(a, b) for x, y in zip(gplans, cplans)
+               for a, b in zip(x, y))
+    assert gres["flops_fraction"] == cres["flops_fraction"] <= 0.3
+    np.testing.assert_allclose(gres["history"]["loss"],
+                               cres["history"]["loss"], rtol=1e-4)
     for (k, a), (_, b) in zip(nets["cpu"].named_parameters(),
                               nets["cuda"].named_parameters()):
         moved = a.detach() - start[k]
