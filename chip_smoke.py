@@ -36,7 +36,11 @@ without the final ``{"ok": true, ...}`` line:
    tensor of the same operand (a yardstick the port never calls) at the
    serving path's shapes, work out the card's bounds for the same work
    (FP32 pipes, and TF32 tensor cores for ``tf32x3``), and time the
-   stages of one full forward;
+   stages of one full forward; then serve GraphSAGE (3 layers of 256;
+   layer 0's SpMM at the feature width, d = 602, over D⁻¹A) and GCNII (4
+   layers of 256) the same way, with the same assertions (layers ×
+   partitions launches, all ``tf32x3``, finite logits, query answers
+   equal to the cached rows);
 6. GCN training with RSC (``bcoo_spmm`` in both directions): the small
    GCN of ``tests/test_torch_gnn_train.py`` (700 nodes, 2 layers of 48,
    block 32, RSC at budget 0.3, 30 epochs, dropout 0) on the card and on
@@ -65,6 +69,21 @@ without the final ``{"ok": true, ...}`` line:
    each mode (busy share, device time by kind) and time their forward,
    backward and optimizer phases; then the same training run without RSC,
    whose best test RSC's must come within 0.07 of;
+8b. the dense SpMM backend: the small GCN of phase 6 on the card through
+   the dense backend against the same run through the kernel (the dense
+   run's planner fed the kernel run's ∇H norms): identical plans, losses
+   within GNN_LOSS_RTOL, no kernel launch in the dense run;
+8c. GraphSAGE (3 layers of 256) and GCNII (4 layers of 256, α 0.1, λ 0.5)
+   as phases 6–8 do GCN: the small run (3 layers of 48) on the card
+   against the CPU; the full-width RSC run through ``launch.train gnn``
+   with the launch counts set to 0 just before and read just after
+   (GraphSAGE: 5 launches per step, its layer 0 having no backward SpMM,
+   and 3 per evaluation, 1,063 in all; GCNII: 8 and 4, 1,684), all
+   ``tf32x3``, ``flops_fraction`` within the budget, a finite, falling
+   loss and best test above chance, with step medians, planner time,
+   ``k_history`` and peak memory; each launch of one warm RSC step re-run
+   on its own inputs (GraphSAGE's d = 602 forward over D⁻¹A among them);
+   busy share and phases; the same run without RSC;
 9. LM serving (``flash_attention``): sweep the kernel against its plain
    version over b ∈ {1, 2}, (nq, nkv) ∈ {(16, 8), (14, 2), (4, 4), (8, 1)}
    (GQA ratios 2, 7, 1, 8), hd ∈ {64, 128}, f32 (variant ``fma``) and
@@ -108,10 +127,11 @@ without the final ``{"ok": true, ...}`` line:
     gate/up and down shapes, with the card's bound; report the warm step
     time, tokens/s and peak device memory;
 15. print each slice's JSON line (``slice``, ``bcoo_spmm_shapes``,
-    ``gnn_train_slice``, ``lm_slice``, ``lm_train_slice``), the build
-    report, the kernel line (with the variant each kernel ran on its main
-    path; ``bcoo_spmm``'s launches are the serving and the training
-    runs'), the card line and, last, the result line.
+    ``gnn_train_slice``, ``gnn_models_slice``, ``lm_slice``,
+    ``lm_train_slice``), the build report, the kernel line (with the
+    variant each kernel ran on its main path; ``bcoo_spmm``'s launches are
+    the three models' serving and RSC training runs'), the card line and,
+    last, the result line.
 
 Without a CUDA device it exits with code 2 and prints no result. It
 imports nothing of JAX and nothing of the ``repro`` package.
@@ -204,6 +224,13 @@ GNN_GRAPH = dict(n_nodes=700, n_clusters=7, avg_degree=12, feat_dim=32,
                  seed=0)
 GNN_SMALL = dict(model="gcn", n_layers=2, hidden=48, block=32,
                  batchnorm=True, dropout=0.0, rsc=True, budget=0.3, epochs=30)
+# The same run for GraphSAGE and GCNII (3 layers of 48 each; GraphSAGE's
+# layer 0 has no backward SpMM), and GNN_SMALL on the dense backend against
+# the kernel on the card.
+GNN_SMALL_DEEP = dict(GNN_SMALL, n_layers=3)
+# Full width of each model on the training and serving paths: (layers,
+# hidden); GCNII at the depth benchmarks/paper_tables.py gives it.
+GNN_WIDTHS = {"gcn": (3, 256), "graphsage": (3, 256), "gcnii": (4, 256)}
 # Its losses, card against CPU: both sum f32 products in other orders (the
 # kernel's 3xTF32 products carry ~1e-6 of each sum), through 30 Adam steps
 # from the same parameters with the same plans; each parameter's change is
@@ -511,9 +538,15 @@ def small_reference(sbm_graph, StreamingInference, StreamConfig,
     return err
 
 
-def main_path(serve_gnn, ops, scale: float):
-    argv = ["--dataset", "reddit", "--scale", str(scale), "--model", "gcn",
-            "--layers", "3", "--hidden", "256", "--block", "128",
+def main_path(serve_gnn, ops, scale: float, model: str = "gcn"):
+    """Serve ``model`` at its full width (``GNN_WIDTHS``) with seeded
+    weights, launch counts set to 0 just before and read just after:
+    layers × partitions launches, all ``tf32x3``; finite logits; query
+    answers equal to the cached logits rows."""
+    layers, hidden = GNN_WIDTHS[model]
+    argv = ["--dataset", "reddit", "--scale", str(scale), "--model", model,
+            "--layers", str(layers), "--hidden", str(hidden),
+            "--block", "128",
             "--memory-budget-mb", "2048", "--replicas", "0",
             "--train-epochs", "0", "--queries", "256", "--query-batch", "64",
             "--device", "cuda"]
@@ -527,7 +560,8 @@ def main_path(serve_gnn, ops, scale: float):
     by_var = ops.launch_counts_by_variant()["bcoo_spmm"]
     si = server.si
     want = args.layers * si.n_partitions
-    say(f"[serve] {report['n_nodes']} nodes, {si.n_partitions} partitions, "
+    say(f"[serve {model}] {report['n_nodes']} nodes, {si.n_partitions} "
+        f"partitions, "
         f"{si.host.s_total} tiles, build {server.build_seconds:.2f} s, "
         f"run {wall:.2f} s, launches {counts}, bcoo_spmm by variant {by_var}")
     if counts["bcoo_spmm"] != want:
@@ -693,15 +727,23 @@ def forward_stages(server, gcn) -> dict:
 
 # ------------------------------------------------------ GNN training phases
 
-def gnn_argv(scale: float, rsc: bool) -> list[str]:
-    """The full-width GCN training run: 3 layers of 256, block 128, RSC at
-    budget 0.1 (the reference CLI's defaults for the rest: 200 epochs,
-    lr 0.01, dropout 0.5, batchnorm, refresh every 10 steps, switch-back
-    after 80 %)."""
-    return ["gnn", "--dataset", "reddit", "--scale", str(scale),
-            "--layers", "3", "--hidden", "256", "--block", "128",
-            "--budget", "0.1", "--epochs", "200", "--device", "cuda"] \
-        + (["--rsc"] if rsc else [])
+def gnn_argv(scale: float, rsc: bool, model: str = "gcn") -> list[str]:
+    """The full-width training run of ``model`` (``GNN_WIDTHS``: 3 layers
+    of 256, GCNII 4), block 128, RSC at budget 0.1 (the reference CLI's
+    defaults for the rest: 200 epochs, lr 0.01, dropout 0.5, batchnorm,
+    refresh every 10 steps, switch-back after 80 %)."""
+    layers, hidden = GNN_WIDTHS[model]
+    return ["gnn", "--model", model, "--dataset", "reddit", "--scale",
+            str(scale), "--layers", str(layers), "--hidden", str(hidden),
+            "--block", "128", "--budget", "0.1", "--epochs", "200",
+            "--device", "cuda"] + (["--rsc"] if rsc else [])
+
+
+def gnn_launches(module, layers: int, steps: int, evals: int) -> int:
+    """``bcoo_spmm`` launches of a training run: each step one forward per
+    layer and one backward per layer whose SpMM input carries a gradient
+    (the ops the planner registers), each evaluation one per layer."""
+    return (layers + len(module.spmm_names(layers))) * steps + layers * evals
 
 
 class SpmmTap:
@@ -807,84 +849,114 @@ def write_refresh_fixture(tap, cache, first: int, path: Path) -> None:
     np.savez_compressed(path, **arrays)
 
 
-def gnn_train_small_reference(GNNTrainer, TrainConfig, sbm_graph, gcn, ops,
-                              dev) -> dict:
-    """``GNN_SMALL`` on the card and on the CPU from one parameter set.
-    The CPU planner is fed the card's ∇H norms, so both runs sample the
-    same plans by construction (asserted at every step); then the losses
-    within GNN_LOSS_RTOL and each parameter's change within TRAIN_DP_REL
-    of the CPU run's change."""
+def inert_biases(net) -> set[str]:
+    """The biases that feed batchnorm directly (GraphSAGE's ``self_lin`` /
+    ``neigh_lin`` biases and GCNII's ``w`` biases on layers with
+    batchnorm). Batchnorm removes a shift common to every row, so their
+    gradient is zero up to rounding, and Adam scales that noise up to steps
+    of about the learning rate on either side: their change is no measure
+    of agreement, and they do not change any output."""
+    return {f"{group}.{l}.bias" for l in net.bn
+            for group in ("self_lin", "neigh_lin", "w") if hasattr(net, group)}
+
+
+def gnn_train_small_reference(GNNTrainer, TrainConfig, sbm_graph, module,
+                              small: dict, ops, dev,
+                              second: str = "cpu") -> dict:
+    """``small`` (a ``GNN_SMALL``-like config of ``module``) on the card
+    through the kernel, and again from the same parameters either on the
+    CPU (``second="cpu"``, the kernels' plain versions) or on the card
+    through the dense backend (``second="dense"``). The second run's
+    planner is fed the first run's ∇H norms, so both sample the same plans
+    by construction (asserted at every step); then the losses within
+    GNN_LOSS_RTOL and each parameter's change within TRAIN_DP_REL of the
+    second run's change."""
     g = sbm_graph(**GNN_GRAPH)
-    cpu_net = gcn.init(GNN_GRAPH["feat_dim"], GNN_SMALL["hidden"], 7,
-                       GNN_SMALL["n_layers"], True, seed=0, device="cpu")
+    layers = small["n_layers"]
+    cpu_net = module.init(GNN_GRAPH["feat_dim"], small["hidden"], 7, layers,
+                          True, seed=0, device="cpu")
     start = {k: p.detach().clone() for k, p in cpu_net.named_parameters()}
     card_net = copy.deepcopy(cpu_net).to(dev)
+    second_net = cpu_net if second == "cpu" else \
+        copy.deepcopy(cpu_net).to(dev)
     runs, feed = {}, None
-    for name, net in (("card", card_net), ("cpu", cpu_net)):
-        device = "cpu" if name == "cpu" else str(dev)
-        tr = GNNTrainer(TrainConfig(**GNN_SMALL, device=device), g,
-                        model=net)
+    for name, net, device, backend in (
+            ("card", card_net, str(dev), "kernel"),
+            (second, second_net, "cpu" if second == "cpu" else str(dev),
+             "dense" if second == "dense" else "kernel")):
+        tr = GNNTrainer(TrainConfig(**small, device=device, backend=backend),
+                        g, model=net)
         plans, norms = capture_planner(tr.engine.planner, feed)
         ops.reset_launch_counts()
         res = tr.train(eval_every=10)
         runs[name] = (res, plans, norms, ops.launch_counts()["bcoo_spmm"])
         feed = norms
     (gres, gplans, gnorms, glaunch), (cres, cplans, cnorms, claunch) = \
-        runs["card"], runs["cpu"]
-    steps = GNN_SMALL["epochs"]
-    want = 2 * GNN_SMALL["n_layers"] * steps \
-        + GNN_SMALL["n_layers"] * len(gres["history"]["val"])
+        runs["card"], runs[second]
+    steps = small["epochs"]
+    want = gnn_launches(module, layers, steps, len(gres["history"]["val"]))
     if claunch != 0 or glaunch != want:
-        raise AssertionError(f"bcoo_spmm launches: CPU {claunch}, card "
-                             f"{glaunch}, expected 0 and {want}")
+        raise AssertionError(f"bcoo_spmm launches: {second} {claunch}, "
+                             f"card {glaunch}, expected 0 and {want}")
     if gres["history"]["mode"] != cres["history"]["mode"]:
-        raise AssertionError("step modes differ between card and CPU")
+        raise AssertionError(f"step modes differ between card and {second}")
     if len(gplans) != len(cplans) or not all(
             all(np.array_equal(x, y) for x, y in zip(a[k][0], b[k][0]))
             and a[k][1:] == b[k][1:] for a, b in zip(gplans, cplans)
             for k in a):
-        raise AssertionError("the card's and the CPU's plans differ")
+        raise AssertionError(f"the card's and the {second} run's plans "
+                             f"differ")
     gloss, closs = gres["history"]["loss"], cres["history"]["loss"]
     loss_err = float(np.max(np.abs(np.subtract(gloss, closs))
                             / np.abs(closs)))
     norm_err = max(float((a[k] - b[k]).abs().max() / b[k].abs().max())
                    for a, b in zip(gnorms, cnorms) for k in a)
-    rel = {}
-    for (name, a), (_, b) in zip(cpu_net.named_parameters(),
+    rel, inert = {}, inert_biases(card_net)
+    for (name, a), (_, b) in zip(second_net.named_parameters(),
                                  card_net.named_parameters()):
-        moved = a.detach() - start[name]
-        rel[name] = float((b.detach().cpu() - a.detach()).norm()
+        if name in inert:
+            continue
+        moved = a.detach().cpu() - start[name]
+        rel[name] = float((b.detach().cpu() - a.detach().cpu()).norm()
                           / moved.norm().clamp(min=1e-30))
     worst = max(rel, key=rel.get)
     n_sampled = sum(p[k][1] < p[k][2] for p in gplans for k in p)
-    say(f"[gnn reference] GCN 2x48 block 32 RSC, {steps} steps: plans "
-        f"identical at all {len(gplans)} RSC steps ({n_sampled} sampled "
-        f"op plans), flops fraction {gres['flops_fraction']:.4f}; launches "
-        f"card {glaunch}, CPU {claunch}; largest loss error {loss_err:.3e} "
-        f"(limit {GNN_LOSS_RTOL:.0e}), ∇H norms {norm_err:.3e} of max, "
-        f"parameter change {rel[worst]:.3e} ({worst}, limit "
-        f"{TRAIN_DP_REL:.0e})")
+    label = f"{small['model']} {layers}x{small['hidden']} block " \
+        f"{small['block']} RSC" + (", dense backend" if second == "dense"
+                                    else "")
+    say(f"[gnn reference] {label}, {steps} steps: plans identical at all "
+        f"{len(gplans)} RSC steps ({n_sampled} sampled op plans), flops "
+        f"fraction {gres['flops_fraction']:.4f}; launches card {glaunch}, "
+        f"{second} {claunch}; largest loss error {loss_err:.3e} (limit "
+        f"{GNN_LOSS_RTOL:.0e}), ∇H norms {norm_err:.3e} of max, parameter "
+        f"change {rel[worst]:.3e} ({worst}, limit {TRAIN_DP_REL:.0e}; "
+        f"{len(inert)} biases feeding batchnorm left out)")
     np.testing.assert_allclose(gloss, closs, rtol=GNN_LOSS_RTOL)
     if rel[worst] > TRAIN_DP_REL:
-        raise AssertionError(f"{worst}'s change differs from the CPU's by "
-                             f"{rel[worst]:.3e} of its norm")
-    return {"steps": steps, "launches": glaunch,
-            "flops_fraction": gres["flops_fraction"],
+        raise AssertionError(f"{worst}'s change differs from the {second} "
+                             f"run's by {rel[worst]:.3e} of its norm")
+    return {"model": small["model"], "second": second, "steps": steps,
+            "launches": glaunch, "flops_fraction": gres["flops_fraction"],
+            "sampled_op_plans": int(n_sampled),
             "max_loss_rel_err": loss_err, "max_norm_rel_err": norm_err,
             "max_param_change_err": rel[worst],
-            "losses_card": gloss, "losses_cpu": closs}
+            "losses_card": gloss, f"losses_{second}": closs}
 
 
-def gnn_train_main_path(train, ops, scale: float) -> tuple[dict, dict]:
-    """The full-width RSC training run through ``launch.train gnn``, with
-    the launch counts set to 0 just before and read just after: 6
-    ``bcoo_spmm`` launches per step (3 exact forward, 3 backward), 3 per
-    evaluation, all ``tf32x3``; flops fraction within the budget; finite,
-    falling loss."""
+def gnn_train_main_path(train, ops, scale: float,
+                        model: str = "gcn") -> tuple[dict, dict]:
+    """The full-width RSC training run of ``model`` through ``launch.train
+    gnn``, with the launch counts set to 0 just before and read just
+    after: ``gnn_launches`` ``bcoo_spmm`` launches (GCN: 6 per step, 3 per
+    evaluation), all ``tf32x3``; flops fraction within the budget; finite,
+    falling loss; best test above chance. For GCN the refreshes
+    ``REFRESH_FIXTURE_FIRST`` and the next are saved as the planner
+    test's fixture."""
     from repro_torch.core.cache import PlanCache
+    from repro_torch.models.gnn import MODELS
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    argv = gnn_argv(scale, rsc=True)
+    argv = gnn_argv(scale, rsc=True, model=model)
     ops.reset_launch_counts()
     with RefreshTap(PlanCache) as refreshes:
         t0 = time.perf_counter()
@@ -897,7 +969,9 @@ def gnn_train_main_path(train, ops, scale: float) -> tuple[dict, dict]:
     res, hist = out["result"], out["result"]["history"]
     steps, evals = len(hist["loss"]), len(hist["val"])
     layers = out["trainer"].cfg.n_layers
-    want = 2 * layers * steps + layers * evals
+    module = MODELS[model]
+    want = gnn_launches(module, layers, steps, evals)
+    per_step = layers + len(module.spmm_names(layers))
     losses = np.asarray(hist["loss"])
     modes = np.asarray(hist["mode"])
     step_ms = np.asarray(hist["step_time"]) * 1e3
@@ -905,19 +979,22 @@ def gnn_train_main_path(train, ops, scale: float) -> tuple[dict, dict]:
     exact_ms = step_ms[modes == "exact"][1:]
     stats = res["cache_stats"]
     # RSC steps by window: one where the allocator kept no column block of
-    # the output layer (no parameter below its bias gets a gradient), or
-    # one where it kept some
+    # the last op (the output layer's SpMM), or one where it kept some
     ks = hist["k"]
     rsc_at = np.flatnonzero(modes == "rsc")[-len(ks):]
     empty = np.array([k[-1] == 0 for k in ks])
     by_window = {w: float(np.median(step_ms[rsc_at[sel]]))
                  for w, sel in (("output_layer_empty", empty),
                                 ("output_layer_kept", ~empty)) if sel.any()}
-    cache = out["trainer"].engine.planner.cache
-    write_refresh_fixture(refreshes, cache, REFRESH_FIXTURE_FIRST,
-                          REFRESH_FIXTURE)
-    say(f"[gnn train] {steps} steps ({int((modes == 'rsc').sum())} rsc), "
-        f"{evals} evaluations, setup {out['setup_s']:.2f} s, run "
+    k_hist = np.array([k.tolist() for k in stats.k_history])
+    names = module.spmm_names(layers)
+    empty_windows = {n: int((k_hist[:, i] == 0).sum())
+                     for i, n in enumerate(names)}
+    if model == "gcn":
+        write_refresh_fixture(refreshes, out["trainer"].engine.planner.cache,
+                              REFRESH_FIXTURE_FIRST, REFRESH_FIXTURE)
+    say(f"[gnn train {model}] {steps} steps ({int((modes == 'rsc').sum())} "
+        f"rsc), {evals} evaluations, setup {out['setup_s']:.2f} s, run "
         f"{wall:.2f} s, launches {counts}, bcoo_spmm by variant {by_var}, "
         f"flops fraction {res['flops_fraction']:.4f}, best test "
         f"{res['best_test']:.4f}, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
@@ -925,8 +1002,8 @@ def gnn_train_main_path(train, ops, scale: float) -> tuple[dict, dict]:
     if counts["bcoo_spmm"] != want or counts["flash_attention"] \
             or counts["gather_matmul"]:
         raise AssertionError(f"launches {counts}, expected {want} bcoo_spmm "
-                             f"(6 per step, 3 per evaluation) and nothing "
-                             f"else")
+                             f"({per_step} per step, {layers} per "
+                             f"evaluation) and nothing else")
     if by_var["tf32x3"] != want:
         raise AssertionError(f"bcoo_spmm variants {by_var}: every training "
                              f"launch should be tf32x3")
@@ -936,28 +1013,34 @@ def gnn_train_main_path(train, ops, scale: float) -> tuple[dict, dict]:
     if not np.isfinite(losses).all() or \
             not losses[-10:].mean() < losses[:10].mean():
         raise AssertionError(f"loss not finite or not falling: {losses}")
+    if not res["best_test"] > 1 / 41:
+        raise AssertionError(f"best test {res['best_test']} at chance")
     warm = {"rsc_step_ms_median": float(np.median(rsc_ms)),
             "exact_step_ms_median": float(np.median(exact_ms)),
             "first_step_ms": float(step_ms[0]),
             "planner_s_per_refresh": stats.host_seconds
             / max(stats.refreshes, 1),
             "refreshes": stats.refreshes, "peak_mem_gib": peak / 2 ** 30,
-            "k_history": [k.tolist() for k in stats.k_history],
+            "k_history": k_hist.tolist(),
+            "windows_keeping_no_block": empty_windows,
             "rsc_step_ms_median_by_window": by_window,
             "rsc_steps_by_window": {
                 "output_layer_empty": int(empty.sum()),
                 "output_layer_kept": int((~empty).sum())}}
-    say(f"[gnn train warm] step median rsc {warm['rsc_step_ms_median']:.3f}"
-        f" ms, exact {warm['exact_step_ms_median']:.3f} ms (first "
+    say(f"[gnn train {model} warm] step median rsc "
+        f"{warm['rsc_step_ms_median']:.3f} ms, exact "
+        f"{warm['exact_step_ms_median']:.3f} ms (first "
         f"{warm['first_step_ms']:.1f} ms); planner "
         f"{warm['planner_s_per_refresh'] * 1e3:.2f} ms per refresh "
-        f"({stats.refreshes} refreshes; kept column blocks per layer "
-        f"{warm['k_history']}); rsc step median by window "
-        f"{by_window} over {warm['rsc_steps_by_window']} steps; refreshes "
-        f"{REFRESH_FIXTURE_FIRST} and {REFRESH_FIXTURE_FIRST + 1} saved to "
-        f"{REFRESH_FIXTURE.relative_to(ROOT)}")
-    return out, {"argv": argv, "report": out["report"], "run_s": wall,
-                 "setup_s": out["setup_s"], "steps": steps,
+        f"({stats.refreshes} refreshes; kept column blocks per op "
+        f"{warm['k_history']}; refreshes keeping no block, per op "
+        f"{empty_windows}); rsc step median by window {by_window} over "
+        f"{warm['rsc_steps_by_window']} steps"
+        + (f"; refreshes {REFRESH_FIXTURE_FIRST} and "
+           f"{REFRESH_FIXTURE_FIRST + 1} saved to "
+           f"{REFRESH_FIXTURE.relative_to(ROOT)}" if model == "gcn" else ""))
+    return out, {"model": model, "argv": argv, "report": out["report"],
+                 "run_s": wall, "setup_s": out["setup_s"], "steps": steps,
                  "evaluations": evals, "launches": counts["bcoo_spmm"],
                  "launches_by_variant": by_var, "warm": warm,
                  "loss_first": float(losses[0]),
@@ -1121,26 +1204,28 @@ def gnn_step_phases(eng, rsc: bool, gen, reps: int = 5) -> dict:
 
 def gnn_train_timings(out, ops, kmod, bcoo_spmm_ref, kernel_table,
                       dev) -> dict:
-    """On the trained engine: the six launches of one warm RSC step under
-    the run's last plans, the three backward launches of one RSC step
-    under the plans the allocator picks next (refreshed from the last
-    warm step's norms), and the three backward launches of one exact
-    step, each re-run on its own inputs (``spmm_launch_row``); a profiled
-    window of 5 warm RSC and of 5 exact steps (busy share, device time by
-    kind); the phases of a step."""
+    """On the trained engine: the launches of one warm RSC step under the
+    run's last plans, each re-run on its own inputs
+    (``spmm_launch_row``); for GCN also the backward launches of one
+    RSC step under the plans the allocator picks next (refreshed from the
+    last warm step's norms) and of one exact step; a profiled window of 5
+    warm RSC and of 5 exact steps (busy share, device time by kind); the
+    phases of a step."""
     from torch.profiler import ProfilerActivity, profile
     eng = out["trainer"].engine
     n = eng.cfg.n_layers
+    names = eng.module.spmm_names(n)
     gen = torch.Generator(device=dev)
     gen.manual_seed(12345)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def rows_of(calls, labels):
-        return [spmm_launch_row(c, lab, ops, kmod, bcoo_spmm_ref, n_sm)
+        return [spmm_launch_row(c, f"{eng.cfg.model} {lab}", ops, kmod,
+                                bcoo_spmm_ref, n_sm)
                 for c, lab in zip(calls, labels)]
 
     fwd = [f"fwd{l}" for l in range(n)]
-    bwd = [f"bwd{l}" for l in reversed(range(n))]
+    bwd = [f"bwd{name.rsplit('spmm', 1)[1]}" for name in reversed(names)]
     with SpmmTap(kmod) as tap:
         def capture(rsc: bool) -> list:
             gnn_steps(eng, 2, rsc, gen)                     # warm
@@ -1148,24 +1233,29 @@ def gnn_train_timings(out, ops, kmod, bcoo_spmm_ref, kernel_table,
             gnn_steps(eng, 1, rsc, gen)
             tap.armed = False
             calls, tap.calls = tap.calls, []
-            if len(calls) != 2 * n:
+            if len(calls) != n + len(names):
                 raise AssertionError(f"a step made {len(calls)} SpMM "
-                                     f"calls, expected {2 * n}")
+                                     f"calls, expected {n + len(names)}")
             return calls
 
         k_last = eng.planner.k_latest().tolist()
         rows = rows_of(capture(True), fwd + [b + "_sampled" for b in bwd])
-        eng.planner.plans_for(None, 0, eng.schedule)        # refresh
-        k_next = eng.planner.k_latest().tolist()
-        next_rows = rows_of(capture(True)[n:],
-                            [b + "_sampled_next" for b in bwd])
-        exact_rows = rows_of(capture(False)[n:],
-                             [b + "_exact" for b in bwd])
+        extra = {}
+        if eng.cfg.model == "gcn":
+            eng.planner.plans_for(None, 0, eng.schedule)    # refresh
+            extra["k_next"] = eng.planner.k_latest().tolist()
+            extra["next_backward_rows"] = rows_of(
+                capture(True)[n:], [b + "_sampled_next" for b in bwd])
+            extra["exact_backward_rows"] = rows_of(
+                capture(False)[n:], [b + "_exact" for b in bwd])
     torch.cuda.empty_cache()
     busy, phases = {}, {}
     for rsc in (True, False):
         mode = "rsc" if rsc else "exact"
         gnn_steps(eng, 2, rsc, gen)
+        # before the profiled window: timed right after one, the phases
+        # read slow (GCNII's RSC forward at twice its exact forward)
+        phases[mode] = gnn_step_phases(eng, rsc, gen)
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -1173,36 +1263,37 @@ def gnn_train_timings(out, ops, kmod, bcoo_spmm_ref, kernel_table,
             wall = time.perf_counter() - t0
         busy[mode] = kernel_table(prof, wall, top=6)
         busy[mode]["steps"] = 5
-        phases[mode] = gnn_step_phases(eng, rsc, gen)
-        say(f"[gnn busy {mode}] 5 warm steps: {wall * 1e3:.2f} ms wall, "
-            f"{busy[mode]['device_ms']:.2f} ms device, busy share "
-            f"{busy[mode]['busy_share']:.3f}, by kind "
+        say(f"[gnn busy {eng.cfg.model} {mode}] 5 warm steps: "
+            f"{wall * 1e3:.2f} ms wall, {busy[mode]['device_ms']:.2f} ms "
+            f"device, busy share {busy[mode]['busy_share']:.3f}, by kind "
             f"{ {k: round(v, 3) for k, v in busy[mode]['by_kind_ms'].items()} }"
             f"; phases per step {phases[mode]}")
-    return {"launch_rows": rows, "k_last": k_last,
-            "next_backward_rows": next_rows, "k_next": k_next,
-            "exact_backward_rows": exact_rows, "busy": busy,
+    return {"launch_rows": rows, "k_last": k_last, **extra, "busy": busy,
             "phases_ms": phases}
 
 
-def gnn_train_exact_run(train, ops, scale: float) -> dict:
+def gnn_train_exact_run(train, ops, scale: float, model: str = "gcn") -> dict:
     """The same run without RSC, for the reference test's accuracy margin
     (RSC's best test within 0.07 of it)."""
+    from repro_torch.models.gnn import MODELS
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = train.main(gnn_argv(scale, rsc=False))
+    out = train.main(gnn_argv(scale, rsc=False, model=model))
     res = out["result"]
     counts = ops.launch_counts()["bcoo_spmm"]
     steps, evals = len(res["history"]["loss"]), len(res["history"]["val"])
     layers = out["trainer"].cfg.n_layers
-    if counts != 2 * layers * steps + layers * evals:
+    if counts != gnn_launches(MODELS[model], layers, steps, evals):
         raise AssertionError(f"exact run: {counts} bcoo_spmm launches")
     step_ms = np.asarray(res["history"]["step_time"][1:]) * 1e3
-    say(f"[gnn exact] best test {res['best_test']:.4f}, step median "
-        f"{np.median(step_ms):.3f} ms, run {out['report']['wall_s']} s")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"[gnn exact {model}] best test {res['best_test']:.4f}, step median "
+        f"{np.median(step_ms):.3f} ms, run {out['report']['wall_s']} s, "
+        f"peak {peak:.2f} GiB")
     return {"best_test": res["best_test"], "launches": counts,
             "step_ms_median": float(np.median(step_ms)),
-            "wall_s": out["report"]["wall_s"]}
+            "wall_s": out["report"]["wall_s"], "peak_mem_gib": peak}
 
 
 # ------------------------------------------------------------ LM phases
@@ -1693,7 +1784,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.ref import bcoo_spmm_ref
     from repro_torch.launch import serve_gnn
-    from repro_torch.models.gnn import gcn
+    from repro_torch.models.gnn import MODELS, gcn
     from repro_torch.configs import make_batch, smoke_config
     from repro_torch.configs.shapes import microbatches
     from repro_torch.kernels import flash_attention as fmod
@@ -1723,8 +1814,19 @@ def main(argv=None) -> int:
     stages = forward_stages(server, gcn)
     del server
     torch.cuda.empty_cache()
+    serving = {}
+    for model in ("graphsage", "gcnii"):
+        rep, srv, n_launch, by_var, wall = main_path(serve_gnn, ops,
+                                                     args.scale, model)
+        serving[model] = {"report": rep, "launches": n_launch,
+                          "launches_by_variant": by_var, "run_s": wall,
+                          "n_partitions": srv.si.n_partitions,
+                          "spmm_dims": MODELS[model].infer_spmm_dims(
+                              srv.si.params, srv.si.features.shape[1])}
+        del srv
+        torch.cuda.empty_cache()
     gnn_ref = gnn_train_small_reference(GNNTrainer, TrainConfig, sbm_graph,
-                                        gcn, ops, dev)
+                                        gcn, GNN_SMALL, ops, dev)
     gnn_out, gnn_slice = gnn_train_main_path(train, ops, args.scale)
     gnn_slice["small_reference"] = gnn_ref
     gnn_slice.update(gnn_train_timings(gnn_out, ops, kmod, bcoo_spmm_ref,
@@ -1736,6 +1838,24 @@ def main(argv=None) -> int:
         raise AssertionError(f"RSC best test {rsc_best} not within 0.07 of "
                              f"the exact run's")
     torch.cuda.empty_cache()
+    models_slice = {"serving": serving, "dense_backend":
+                    gnn_train_small_reference(GNNTrainer, TrainConfig,
+                                              sbm_graph, gcn, GNN_SMALL, ops,
+                                              dev, second="dense")}
+    for model in ("graphsage", "gcnii"):
+        small = gnn_train_small_reference(
+            GNNTrainer, TrainConfig, sbm_graph, MODELS[model],
+            dict(GNN_SMALL_DEEP, model=model), ops, dev)
+        m_out, m_slice = gnn_train_main_path(train, ops, args.scale, model)
+        m_slice["small_reference"] = small
+        m_slice.update(gnn_train_timings(m_out, ops, kmod, bcoo_spmm_ref,
+                                         kernel_table, dev))
+        del m_out
+        torch.cuda.empty_cache()
+        m_slice["exact_run"] = gnn_train_exact_run(train, ops, args.scale,
+                                                   model)
+        models_slice[model] = m_slice
+        torch.cuda.empty_cache()
     flash_res = flash_sweep(ops, fmod, flash_attention_ref, dev)
     lm_ref_err = lm_small_reference(serve, smoke_config, make_batch,
                                     init_params, dev)
@@ -1767,7 +1887,9 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/bcoo_spmm.cu",
         "replaces": "src/repro/kernels/bcoo_spmm.py:51",
         "variant": hidden["variant"],
-        "launches": launches + gnn_slice["launches"],
+        "launches": launches + gnn_slice["launches"] + sum(
+            models_slice[m]["launches"] + serving[m]["launches"]
+            for m in serving),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": hidden["ms"], "plain_ms": hidden["plain_ms"],
         "bound_ms": hidden["bound_ms"], "bound_by": hidden["bound_by"],
@@ -1800,6 +1922,7 @@ def main(argv=None) -> int:
         "stages_ms": stages}}))
     say(json.dumps({"bcoo_spmm_shapes": rows}))
     say(json.dumps({"gnn_train_slice": gnn_slice}))
+    say(json.dumps({"gnn_models_slice": models_slice}))
     say(json.dumps({"lm_slice": {
         "report": lm_report, "run_s": lm_run_s,
         "launches": lm_launches, "warm": lm_warm,

@@ -1,11 +1,20 @@
 """Carry parameters across from (and back to) the JAX package's layout.
 
-The reference keeps GNN parameters as a tree of arrays,
-``{"lin": [{"w": (d_in, d_out), "b": (d_out,)}, ...],
-"bn": [{"g": (d,), "b": (d,)} | None, ...]}``, and computes ``x @ w + b``.
-``nn.Linear.weight`` is ``(d_out, d_in)``, so ``w`` is transposed exactly
-once here. The tree holds numpy arrays (``jax.device_get`` of the
-reference's params gives them); this module imports no JAX.
+The reference keeps GNN parameters as a tree of arrays and computes
+``x @ w + b`` with each linear as ``{"w": (d_in, d_out), "b": (d_out,)}``
+and each batchnorm as ``{"g": (d,), "b": (d,)}`` or ``None``:
+
+* GCN: ``{"lin": [linear, ...], "bn": [bn | None, ...]}``;
+* GraphSAGE: ``{"self": [linear, ...], "neigh": [linear, ...],
+  "bn": [bn | None, ...]}``;
+* GCNII: ``{"proj_in": linear, "w": [linear, ...], "bn": [bn | None, ...],
+  "proj_out": linear}``.
+
+GCN and GraphSAGE carry one ``bn`` entry per layer, ``None`` on the last;
+GCNII one per layer, the last included. ``nn.Linear.weight`` is
+``(d_out, d_in)``, so ``w`` is transposed exactly once here. The tree holds
+numpy arrays (``jax.device_get`` of the reference's params gives them);
+this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -14,59 +23,117 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import MODELS
+from repro_torch.models.gnn.gcn import GCN
+from repro_torch.models.gnn.gcnii import GCNII
+from repro_torch.models.gnn.graphsage import GraphSAGE
 
 
 def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
-def gnn_params_from_numpy(model: str, tree: dict, device="cuda"):
-    """The port's ``nn.Module`` for ``model`` holding the tree's values,
-    on ``device`` (``cuda`` by default, which raises without a card)."""
-    if model != "gcn":
-        raise NotImplementedError(f"{model!r} is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 2b)")
-    lins, bns = tree["lin"], tree["bn"]
-    if len(bns) != len(lins) or bns[-1] is not None:
-        raise ValueError("expected one bn entry per layer, None on the last")
-    with_bn = [b is not None for b in bns[:-1]]
+def _arr(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _d_in_out(p) -> tuple[int, int]:
+    d_in, d_out = np.shape(p["w"])
+    return int(d_in), int(d_out)
+
+
+def _bn_flags(bns: list, n_layers: int, last: bool) -> bool:
+    """Whether the layers carry batchnorm: one entry per layer, ``None`` on
+    the last unless ``last``, and on every other layer or on none."""
+    if len(bns) != n_layers or (not last and bns[-1] is not None):
+        raise ValueError("expected one bn entry per layer" +
+                         ("" if last else ", None on the last"))
+    with_bn = [b is not None for b in (bns if last else bns[:-1])]
     if any(with_bn) and not all(with_bn):
         raise ValueError("batchnorm must be on every hidden layer or none")
-    dims = [int(np.shape(lins[0]["w"])[0])] + [int(np.shape(p["w"])[1])
-                                               for p in lins]
-    net = MODELS[model].GCN(dims, all(with_bn) and len(bns) > 1,
-                            device=resolve_device(device))
+    return bool(with_bn) and all(with_bn)
+
+
+def _set_linear(lin: torch.nn.Linear, p) -> None:
+    w = _tensor(p["w"])
+    if tuple(w.shape) != (lin.in_features, lin.out_features):
+        raise ValueError(f"w of shape {tuple(w.shape)} does not chain with "
+                         f"the other layers")
+    lin.weight.copy_(w.t())
+    lin.bias.copy_(_tensor(p["b"]))
+
+
+def _set_bns(net, bns: list) -> None:
+    for l, p in enumerate(bns):
+        if p is not None:
+            bn = net.batchnorm(l)
+            bn.weight.copy_(_tensor(p["g"]))
+            bn.bias.copy_(_tensor(p["b"]))
+
+
+def _get_linear(lin: torch.nn.Linear) -> dict:
+    return {"w": _arr(lin.weight).T.copy(), "b": _arr(lin.bias)}
+
+
+def _get_bns(net, n: int) -> list:
+    bns = [net.batchnorm(l) for l in range(n)]
+    return [None if bn is None else {"g": _arr(bn.weight),
+                                     "b": _arr(bn.bias)} for bn in bns]
+
+
+def gnn_params_from_numpy(model: str, tree: dict, device="cuda"):
+    """The port's ``nn.Module`` for ``model`` (``gcn``, ``graphsage`` or
+    ``gcnii``) holding the tree's values, on ``device`` (``cuda`` by
+    default, which raises without a card)."""
+    if model not in MODELS:
+        raise ValueError(f"unknown model {model!r} (expected one of "
+                         f"{sorted(MODELS)})")
+    device = resolve_device(device)
+    if model == "gcnii":
+        ws = tree["w"]
+        (d_in, hidden), (_, n_classes) = (_d_in_out(tree["proj_in"]),
+                                          _d_in_out(tree["proj_out"]))
+        net = GCNII(d_in, hidden, n_classes, len(ws),
+                    _bn_flags(tree["bn"], len(ws), last=True), device=device)
+        pairs = [(net.proj_in, tree["proj_in"]), *zip(net.w, ws),
+                 (net.proj_out, tree["proj_out"])]
+    else:
+        lins = tree["lin" if model == "gcn" else "self"]
+        dims = [_d_in_out(lins[0])[0]] + [_d_in_out(p)[1] for p in lins]
+        batchnorm = _bn_flags(tree["bn"], len(lins), last=False)
+        if model == "gcn":
+            net = GCN(dims, batchnorm, device=device)
+            pairs = list(zip(net.lin, lins))
+        else:
+            if len(tree["neigh"]) != len(lins):
+                raise ValueError("expected as many neigh as self layers")
+            net = GraphSAGE(dims, batchnorm, device=device)
+            pairs = [*zip(net.self_lin, lins),
+                     *zip(net.neigh_lin, tree["neigh"])]
     with torch.no_grad():
-        for lin, p in zip(net.lin, lins):
-            w = _tensor(p["w"])
-            if tuple(w.shape) != (lin.in_features, lin.out_features):
-                raise ValueError(f"w of shape {tuple(w.shape)} does not "
-                                 f"chain with the other layers")
-            lin.weight.copy_(w.t())
-            lin.bias.copy_(_tensor(p["b"]))
-        for l, p in enumerate(bns[:-1]):
-            if p is not None:
-                bn = net.batchnorm(l)
-                bn.weight.copy_(_tensor(p["g"]))
-                bn.bias.copy_(_tensor(p["b"]))
+        for lin, p in pairs:
+            _set_linear(lin, p)
+        _set_bns(net, tree["bn"])
     return net
 
 
 def gnn_params_to_numpy(model) -> dict:
     """The inverse of ``gnn_params_from_numpy``: the reference's tree
     (f32 numpy leaves; ``w`` as ``(d_in, d_out)``, ``None`` for a layer
-    without batchnorm) from the port's GCN, so trained parameters can be
-    compared leaf by leaf with the reference's."""
-    def arr(t):
-        return t.detach().float().cpu().numpy()
-
-    n = len(model.lin)
-    bns = [model.batchnorm(l) if l < n - 1 else None for l in range(n)]
-    return {"lin": [{"w": arr(lin.weight).T.copy(), "b": arr(lin.bias)}
-                    for lin in model.lin],
-            "bn": [None if bn is None else {"g": arr(bn.weight),
-                                            "b": arr(bn.bias)}
-                   for bn in bns]}
+    without batchnorm) from the port's GCN, GraphSAGE or GCNII, so trained
+    parameters can be compared leaf by leaf with the reference's."""
+    if isinstance(model, GCNII):
+        return {"proj_in": _get_linear(model.proj_in),
+                "w": [_get_linear(lin) for lin in model.w],
+                "bn": _get_bns(model, len(model.w)),
+                "proj_out": _get_linear(model.proj_out)}
+    if isinstance(model, GraphSAGE):
+        return {"self": [_get_linear(lin) for lin in model.self_lin],
+                "neigh": [_get_linear(lin) for lin in model.neigh_lin],
+                "bn": _get_bns(model, len(model.self_lin))}
+    if isinstance(model, GCN):
+        return {"lin": [_get_linear(lin) for lin in model.lin],
+                "bn": _get_bns(model, len(model.lin))}
+    raise TypeError(f"not a GNN of the port: {type(model).__name__}")
 
 
 def _unstack(tree: dict, cfg) -> list[dict]:

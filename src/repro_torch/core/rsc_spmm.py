@@ -16,6 +16,9 @@ Backends:
 * ``"ref"`` — CPU tensors only: the chunked streaming schedule of the
   reference's ``spmm_stream`` (``repro/core/rsc_spmm.py``), with
   ``index_add_`` for the scatter.
+* ``"dense"`` — any device: the plan's tiles scattered into the dense
+  operand and one ``torch.matmul``
+  (``repro_torch.kernels.dense_spmm``, the reference's dense backend).
 
 ``rsc_spmm`` and ``exact_spmm`` are ``torch.autograd.Function``s over
 ``spmm_apply``, the ports of the reference's ``custom_vjp``s: the forward
@@ -103,7 +106,7 @@ def spmm_apply(
 ) -> torch.Tensor:
     """out[r] = epilogue(Σ_{tiles (r,c) in plan} blocks[sel] @ h[c·bk:...]).
 
-    The epilogue contract is the same on both backends (see the module
+    The epilogue contract is the same on every backend (see the module
     docstring). ``chunk`` tunes the ``"ref"`` schedule only. ``in_range``
     is for plans whose indices lie in range by construction (the
     planner's and ``exact_plan``'s): the kernel then runs without the host
@@ -116,9 +119,15 @@ def spmm_apply(
             blocks, plan.sel, plan.row_ids, plan.col_ids, h,
             n_row_blocks=n_row_blocks, bm=bm, bk=bk, row_ptr=plan.row_ptr,
             bias=bias, residual=residual, relu=relu)
+    if backend == "dense":
+        from repro_torch.kernels.dense_spmm import dense_spmm
+        return dense_spmm(
+            blocks, plan.sel, plan.row_ids, plan.col_ids, h,
+            n_row_blocks=n_row_blocks, bm=bm, bk=bk, bias=bias,
+            residual=residual, relu=relu)
     if backend != "ref":
         raise ValueError(f"unknown SpMM backend {backend!r} "
-                         "(expected 'kernel' or 'ref')")
+                         "(expected 'kernel', 'ref' or 'dense')")
     if h.device.type != "cpu":
         raise ValueError(f"backend 'ref' runs CPU tensors only, got "
                          f"{h.device}; use backend 'kernel' on the card")

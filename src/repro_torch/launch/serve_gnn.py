@@ -1,7 +1,9 @@
 """GNN node-serving entry point: streaming full-graph forward + batched
 queries.
 
-Builds a seeded GCN, precomputes full-graph activations by partitioned
+Builds a GCN, GraphSAGE or GCNII (trained for ``--train-epochs`` full-batch
+epochs with ``GNNTrainer``, or seeded random weights with
+``--train-epochs 0``), precomputes full-graph activations by partitioned
 streaming inference through the CUDA SpMM kernel, and answers batched
 node-id queries from the cached logits:
 
@@ -12,11 +14,11 @@ node-id queries from the cached logits:
 
 The flags are those of ``repro.launch.serve_gnn`` plus ``--device``
 (``cuda`` by default; ``cpu`` runs the kernels' plain versions). This
-port covers the bare-server path (``--replicas 0``) with parameters from
-a seeded random init; the defaults of ``--replicas`` and
-``--train-epochs`` are therefore 0. Flags of parts not yet ported raise
-``NotImplementedError`` naming the ROADMAP.md Queue 1 item that ports them.
-Prints one JSON line.
+port covers the bare-server path (``--replicas 0``, the default here).
+Flags of parts not yet ported raise ``NotImplementedError`` naming the
+ROADMAP.md Queue 1 item that ports them. With ``--train-epochs`` > 0 it
+prints a ``[serve] trained ...`` line first; the last line is one JSON
+object.
 """
 from __future__ import annotations
 
@@ -30,8 +32,8 @@ from repro_torch.device import resolve_device
 from repro_torch.graphs.datasets import DATASETS, load_dataset
 from repro_torch.infer import NodeServer, StreamConfig
 from repro_torch.models.gnn import MODELS
+from repro_torch.train.loop import GNNTrainer, TrainConfig
 
-_TRAINING = "Queue 1 item 2b (GraphSAGE, GCNII, serve_gnn --train-epochs)"
 _CKPT = "Queue 1 item 5 (checkpoint and resume)"
 _OBS = "Queue 1 item 6 (observability)"
 _SERVING = "Queue 1 item 7 (serving: updates, LRU/overlap, replicas)"
@@ -52,12 +54,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-bn", action="store_true",
                     help="disable batchnorm")
     ap.add_argument("--block", type=int, default=64)
-    ap.add_argument("--backend", default="kernel", choices=["kernel", "ref"],
-                    help="SpMM backend: the CUDA kernel (its plain version "
-                         "on --device cpu) or the CPU-only streaming ref")
+    ap.add_argument("--backend", default="kernel",
+                    choices=["kernel", "ref", "dense"],
+                    help="SpMM backend of training and serving: the CUDA "
+                         "kernel (its plain version on --device cpu), the "
+                         "CPU-only streaming ref, or dense (scatter into a "
+                         "dense operand + matmul)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    ap.add_argument("--train-epochs", type=int, default=0)
+    ap.add_argument("--train-epochs", type=int, default=10,
+                    help="full-batch training epochs before serving (0: "
+                         "seeded random weights)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--memory-budget-mb", type=float, default=64.0)
     ap.add_argument("--partitions", type=int, default=0,
@@ -87,8 +94,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for flags this port does not cover."""
     unported = [
-        (args.model != "gcn", f"--model {args.model}", _TRAINING),
-        (args.train_epochs > 0, "--train-epochs > 0", _TRAINING),
         (args.ckpt_dir is not None, "--ckpt-dir", _CKPT),
         (args.replicas > 0, "--replicas > 0", _SERVING),
         (args.update_edges > 0, "--update-edges", _SERVING),
@@ -111,10 +116,24 @@ def check_ported(args) -> None:
 
 
 def get_params(args, graph, device):
-    """Seeded random parameters on ``device``."""
-    return MODELS[args.model].init(
-        graph.features.shape[1], args.hidden, graph.num_classes,
-        args.layers, not args.no_bn, seed=args.seed, device=device)
+    """The model to serve, on ``device``: trained for ``--train-epochs``
+    full-batch epochs (no RSC), as the reference's ``get_params`` does, or
+    the seeded initial parameters (the trainer's own) without training."""
+    if args.train_epochs <= 0:
+        return MODELS[args.model].init(
+            graph.features.shape[1], args.hidden, graph.num_classes,
+            args.layers, not args.no_bn, seed=args.seed, device=device)
+    cfg = TrainConfig(model=args.model, n_layers=args.layers,
+                      hidden=args.hidden, epochs=args.train_epochs,
+                      dropout=args.dropout, batchnorm=not args.no_bn,
+                      block=args.block, seed=args.seed,
+                      metric=DATASETS[args.dataset].metric,
+                      backend=args.backend, device=str(device))
+    tr = GNNTrainer(cfg, graph)
+    res = tr.train(eval_every=max(args.train_epochs // 2, 1))
+    print(f"[serve] trained {args.train_epochs} epochs, "
+          f"test={res['best_test']:.4f}", flush=True)
+    return tr.params
 
 
 def run(args) -> tuple[dict, NodeServer]:

@@ -1,7 +1,8 @@
 """Command-line training entry point: full-batch GNN training (the paper's
-models, GCN so far) and the LM stack.
+models: GCN, GraphSAGE, GCNII) and the LM stack.
 
-    # the full-width GCN with RSC on the card
+    # the full-width GCN with RSC on the card (--model graphsage: the same
+    # flags; --model gcnii: --layers 4)
     PYTHONPATH=src python -m repro_torch.launch.train gnn --dataset reddit \
         --scale 0.1 --layers 3 --hidden 256 --block 128 --rsc --budget 0.1
 
@@ -19,11 +20,12 @@ models, GCN so far) and the LM stack.
 
 The ``gnn`` flags are the reference's full-batch flags plus ``--backend``
 (``kernel``, the default: the CUDA kernel, or its plain version on the
-CPU; ``ref``: the CPU-only streaming schedule) and ``--device``. It prints
-the reference's JSON keys (``model``, ``dataset``, ``rsc``, ``budget``,
-``best_test``, ``wall_s``, ``flops_fraction``). ``--model graphsage |
-gcnii``, ``--minibatch``, ``--dp``, ``--mesh``, ``--eval-mode stream``,
-``--compress-grads`` and the observability flags raise
+CPU; ``ref``: the CPU-only streaming schedule; ``dense``: the plan's tiles
+scattered into a dense operand and one ``torch.matmul``) and
+``--device``. It prints the reference's JSON keys (``model``,
+``dataset``, ``rsc``, ``budget``, ``best_test``, ``wall_s``,
+``flops_fraction``). ``--minibatch``, ``--dp``, ``--mesh``, ``--eval-mode
+stream``, ``--compress-grads`` and the observability flags raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 
 The ``lm`` flags are those of ``repro.launch.train lm`` plus ``--device``
@@ -51,7 +53,6 @@ from repro_torch.train.lm_steps import make_train_step
 from repro_torch.train.loop import GNNTrainer, TrainConfig
 from repro_torch.train.optimizer import Adam
 
-_MODELS = "Queue 1 item 2b (GraphSAGE and GCNII)"
 _MINIBATCH = "Queue 1 item 4 (minibatch pipeline)"
 _CKPT = "Queue 1 item 5 (checkpoint and resume)"
 _OBS = "Queue 1 item 6 (observability)"
@@ -82,7 +83,6 @@ def _obs_flags(args) -> list:
 def check_ported_gnn(args) -> None:
     """Raise ``NotImplementedError`` for ``gnn`` flags this port lacks."""
     _check([
-        (args.model != "gcn", f"--model {args.model}", _MODELS),
         (args.minibatch, "--minibatch", _MINIBATCH),
         (args.dp > 1, "--dp", _DP),
         (bool(args.mesh), "--mesh", _DP),
@@ -188,9 +188,11 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--strategy", default="greedy",
                    choices=["greedy", "uniform"])
     g.add_argument("--block", type=int, default=64)
-    g.add_argument("--backend", default="kernel", choices=["kernel", "ref"],
+    g.add_argument("--backend", default="kernel",
+                   choices=["kernel", "ref", "dense"],
                    help="SpMM backend: the CUDA kernel (its plain version "
-                        "on --device cpu) or the CPU-only streaming ref")
+                        "on --device cpu), the CPU-only streaming ref, or "
+                        "dense (scatter into a dense operand + matmul)")
     g.add_argument("--eval-mode", default="auto", choices=["auto", "stream"])
     g.add_argument("--minibatch", action="store_true")
     g.add_argument("--dp", type=int, default=0)

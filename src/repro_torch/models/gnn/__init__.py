@@ -1,9 +1,7 @@
-"""GNN models as ``nn.Module``s with streaming-inference hooks.
+"""GNN models as ``nn.Module``s with streaming-inference hooks: GCN,
+GraphSAGE (MEAN) and GCNII, the paper's three."""
+from repro_torch.models.gnn import gcn, gcnii, graphsage
 
-GCN is ported; GraphSAGE and GCNII come with the training port.
-"""
-from repro_torch.models.gnn import gcn
+MODELS = {"gcn": gcn, "graphsage": graphsage, "gcnii": gcnii}
 
-MODELS = {"gcn": gcn}
-
-__all__ = ["MODELS", "gcn"]
+__all__ = ["MODELS", "gcn", "graphsage", "gcnii"]

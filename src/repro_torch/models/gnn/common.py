@@ -34,6 +34,7 @@ Streaming-inference hook protocol (orchestration in
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -202,6 +203,34 @@ def pad_node_arrays(n_pad: int, feats, labels, tr, va, te,
     return (padf(feats).astype(np.float32), labels_p,
             padf(tr).astype(bool), padf(va).astype(bool),
             padf(te).astype(bool))
+
+
+def linear(d_in: int, d_out: int, device=None) -> nn.Linear:
+    """An uninitialised ``nn.Linear`` (filled by :func:`init_linear_`)."""
+    return nn.utils.skip_init(nn.Linear, d_in, d_out, device=device)
+
+
+@torch.no_grad()
+def init_linear_(lin: nn.Linear, generator: torch.Generator) -> None:
+    """He-normal weights ``N(0, 2/d_in)`` and zero biases, drawn from
+    ``generator`` (the reference's ``dense_init`` scheme; the draws
+    differ from JAX's, so parity tests carry weights across with
+    ``convert.gnn_params_from_numpy``)."""
+    w = torch.randn(lin.in_features, lin.out_features, generator=generator)
+    lin.weight.copy_(w.t() * math.sqrt(2.0 / lin.in_features))
+    lin.bias.zero_()
+
+
+def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b`` with the reference's ``w = lin.weight.t()``."""
+    return torch.matmul(x, lin.weight.t()) + lin.bias
+
+
+def host_linear(lin: nn.Linear) -> dict:
+    """``{"w": (d_in, d_out), "b": (d_out,)}`` as numpy arrays, for
+    :func:`np_dense`."""
+    return {"w": lin.weight.detach().cpu().numpy().T,
+            "b": lin.bias.detach().cpu().numpy()}
 
 
 def np_dense(p, x: np.ndarray) -> np.ndarray:

@@ -10,8 +10,6 @@ device and the row ops on the host, as the reference's hooks
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 from torch import nn
@@ -32,27 +30,15 @@ class GCN(nn.Module):
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
         n_layers = len(dims) - 1
-        self.lin = nn.ModuleList(
-            nn.utils.skip_init(nn.Linear, dims[l], dims[l + 1],
-                               device=device)
-            for l in range(n_layers))
+        self.lin = nn.ModuleList(C.linear(dims[l], dims[l + 1], device)
+                                 for l in range(n_layers))
         self.bn = nn.ModuleDict(
             {str(l): C.GraphBatchNorm(dims[l + 1], device=device)
              for l in range(n_layers - 1) if batchnorm})
-        self.reset_parameters(generator if generator is not None
-                              else torch.Generator().manual_seed(0))
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """He-normal weights ``N(0, 2/d_in)`` and zero biases, drawn from
-        ``generator`` (the reference's ``dense_init`` scheme; the draws
-        differ from JAX's, so parity tests carry weights across with
-        ``convert.gnn_params_from_numpy``)."""
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
         for lin in self.lin:
-            w = torch.randn(lin.in_features, lin.out_features,
-                            generator=generator)
-            lin.weight.copy_(w.t() * math.sqrt(2.0 / lin.in_features))
-            lin.bias.zero_()
+            C.init_linear_(lin, gen)
 
     def batchnorm(self, l: int) -> C.GraphBatchNorm | None:
         return self.bn[str(l)] if str(l) in self.bn else None
@@ -103,7 +89,7 @@ def apply(model: GCN, ops: C.GraphOperands, taps: dict, plans: dict | None,
     valid = C.valid_rows(ops)
     for l in range(n_layers):
         h = C.dropout(h, dropout_rate, generator, train)
-        j = _pre(model.lin[l], h)
+        j = C.dense(model.lin[l], h)
         name = f"gcn/spmm{l}"
         bn = model.batchnorm(l) if l < n_layers - 1 else None
         fuse_relu = l < n_layers - 1 and bn is None
@@ -131,12 +117,8 @@ def infer_init(model: GCN, feats):
     return np.asarray(feats, np.float32), None
 
 
-def _pre(lin: nn.Linear, h: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(h, lin.weight.t()) + lin.bias
-
-
 def infer_pre(model: GCN, l: int):
-    return _pre, model.lin[l]
+    return C.dense, model.lin[l]
 
 
 def infer_post(model: GCN, l: int, p, h, ctx, valid, bn_stats=None):

@@ -58,7 +58,8 @@ class TrainConfig:
     caching: bool = True         # False ⇒ refresh every step (Table 4 ablation)
     switching: bool = True       # False ⇒ rsc for 100% of epochs
     strategy: str = "greedy"     # "uniform" for Fig. 6 baseline
-    backend: str = "kernel"      # "kernel" (CUDA kernel / plain version) | "ref"
+    backend: str = "kernel"      # "kernel" (CUDA kernel / plain version) |
+                                 # "ref" (CPU streaming) | "dense" (matmul)
     block: int = 128             # bm == bk
     device: str = "cuda"         # "cpu" runs the kernels' plain versions
 
@@ -139,6 +140,7 @@ class FullGraphSource:
             mean_agg=module.uses_mean_agg(), device=self.device)
         self.num_classes = graph.num_classes
         self.feat_dim = graph.features.shape[1]
+        self.mean_agg = module.uses_mean_agg()
         # host copies for evaluation, read once
         valid = valid_rows(self.ops).cpu().numpy()
         self._labels = self.ops.labels.cpu().numpy()
@@ -147,7 +149,9 @@ class FullGraphSource:
 
     def planner_operand(self):
         """(at, meta, fro) of the backward operand the planner scores:
-        Ãᵀ (a mean-aggregating model, GraphSAGE, will score (D⁻¹A)ᵀ)."""
+        (D⁻¹A)ᵀ for a mean-aggregating model (GraphSAGE), Ãᵀ otherwise."""
+        if self.mean_agg:
+            return self.ops.amt, self.meta.amt_meta, self.meta.am_fro
         return self.ops.at, self.meta.at_meta, self.meta.a_fro
 
     def batches(self, epoch: int):
@@ -267,9 +271,8 @@ class Engine:
 def full_batch_engine(cfg: TrainConfig, graph, *, model=None) -> Engine:
     """The full-batch trainer as an Engine configuration."""
     if cfg.model not in MODELS:
-        raise NotImplementedError(
-            f"model {cfg.model!r} is not ported to repro_torch yet: see "
-            "ROADMAP.md Queue 1 item 2b")
+        raise ValueError(f"unknown model {cfg.model!r} (expected one of "
+                         f"{sorted(MODELS)})")
     module = MODELS[cfg.model]
     source = FullGraphSource(graph, cfg, module)
     planner = None

@@ -14,7 +14,7 @@ __all__ = ["GNNTrainer", "TrainConfig"]
 
 
 class GNNTrainer:
-    """Paper-faithful full-batch trainer (+RSC); GCN so far.
+    """Paper-faithful full-batch trainer (+RSC): GCN, GraphSAGE, GCNII.
 
     ``model`` replaces the seeded initial parameters (see ``Engine``).
     """

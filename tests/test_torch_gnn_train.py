@@ -44,6 +44,17 @@ TRAJ = dict(model="gcn", n_layers=2, hidden=48, block=32, batchnorm=True,
 TRAJ_RTOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run each module of these small-graph tests on one intra-op thread:
+    at this size the threads buy nothing, and under the suite's parallel
+    workers they contend for the cores (a module ran ~18× slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def graph():
     return sbm_graph(**GRAPH)
@@ -286,8 +297,23 @@ def test_cli_defaults_to_cuda():
         train_cli.main(SKILL_ARGV)
 
 
+@pytest.mark.parametrize("flag,model", [
+    (["--model", "graphsage", "--layers", "3"], "graphsage"),
+    (["--model", "gcnii", "--layers", "3"], "gcnii"),
+    (["--backend", "dense"], "gcn"), (["--backend", "ref"], "gcn")])
+def test_cli_flags_run_on_cpu(capsys, flag, model):
+    """``--model graphsage|gcnii`` and ``--backend dense|ref`` train on
+    the CPU and print the reference's keys."""
+    train_cli.main(SKILL_ARGV + ["--device", "cpu", *flag])
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(report) == {"model", "dataset", "rsc", "budget", "best_test",
+                           "wall_s", "flops_fraction"}
+    assert report["model"] == model and report["rsc"] is True
+    assert 0 < report["flops_fraction"] <= 0.1
+    assert report["best_test"] > 1 / 41
+
+
 @pytest.mark.parametrize("flag,item", [
-    (["--model", "graphsage"], "item 2b"), (["--model", "gcnii"], "item 2b"),
     (["--minibatch"], "item 4"), (["--dp", "4"], "item 8"),
     (["--mesh", "data:4"], "item 8"), (["--compress-grads"], "item 8"),
     (["--eval-mode", "stream"], "item 7"), (["--metrics"], "item 6"),

@@ -344,8 +344,9 @@ def test_train_cli_defaults_to_cuda():
     (["lm", "--arch", "qwen3-1.7b", "--smoke", "--trace-out", "t.json"],
      "item 6"),
     (["lm", "--arch", "deepseek-v2-lite-16b", "--smoke"], "item 9c"),
-    # GCN training is ported; GraphSAGE waits for Queue 1 item 2b
-    (["gnn", "--model", "graphsage", "--rsc", "--epochs", "2"], "item 2"),
+    # full-batch training is ported for every model; minibatch is item 4
+    (["gnn", "--model", "graphsage", "--minibatch", "--epochs", "2"],
+     "item 4"),
 ])
 def test_train_cli_unported_parts_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):

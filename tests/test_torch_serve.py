@@ -21,7 +21,12 @@ from repro_torch.graphs.synthetic import sbm_graph
 from repro_torch.infer import NodeServer, StreamConfig, StreamingInference
 from repro_torch.kernels import ops
 from repro_torch.launch import serve_gnn
+from repro_torch.graphs.datasets import load_dataset
+from repro_torch.models.gnn import MODELS as MODELS_PORT
 from repro_torch.models.gnn import gcn
+from repro_torch.models.gnn.common import build_operands
+
+from tests.test_torch_gnn_train import one_torch_thread  # noqa: F401
 
 GRAPH = dict(n_nodes=500, n_clusters=5, avg_degree=10, feat_dim=16, seed=0)
 
@@ -187,13 +192,61 @@ def test_serve_gnn_main_on_cpu(capsys):
     assert srv.si.logits.shape[1] == 41
 
 
+SERVE_ARGV = ["--dataset", "reddit", "--scale", "0.002", "--layers", "3",
+              "--hidden", "32", "--block", "32", "--queries", "40",
+              "--query-batch", "16", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("model", ["graphsage", "gcnii"])
+def test_serve_gnn_other_models_on_cpu(capsys, model):
+    """``--model graphsage|gcnii`` with ``--train-epochs 2``: the
+    reference's progress line, then one JSON line; every query answered
+    from the cached logits."""
+    out = serve_gnn.main(SERVE_ARGV + ["--model", model, "--train-epochs",
+                                       "2", "--memory-budget-mb", "0.5"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("[serve] trained 2 epochs, test=")
+    assert lines[-1].startswith("{") and out["model"] == model
+    assert out["queries"] == out["serve_stats"]["queries"] == 40
+    assert out["n_partitions"] >= 2
+
+
+def _eval_logits(graph, model, net, block):
+    """The training path's full-graph evaluation forward (device row ops,
+    fresh batchnorm statistics), in operand order."""
+    module = MODELS_PORT[model]
+    ops_, _ = build_operands(graph, block, block,
+                             mean_agg=module.uses_mean_agg(), device="cpu")
+    with torch.no_grad():
+        return module.apply(net, ops_, {}, None, dropout_rate=0.0,
+                            train=False).numpy()
+
+
+@pytest.mark.parametrize("model", ["gcn", "graphsage", "gcnii"])
+def test_serve_gnn_serves_the_trained_model(model):
+    """``--train-epochs 2 --dropout 0``: the served logits are the trained
+    model's full-graph evaluation forward (within 1e-4·max|logit|, the
+    host and device row ops summing in other orders), and differ from the
+    untrained model's."""
+    argv = SERVE_ARGV + ["--model", model, "--dropout", "0"]
+    args = serve_gnn.build_parser().parse_args(argv + ["--train-epochs",
+                                                       "2"])
+    _, srv = serve_gnn.run(args)
+    g = load_dataset("reddit", scale=0.002, seed=0)
+    n = g.n
+    _close(srv.si.logits[:n], _eval_logits(g, model, srv.si.params, 32)[:n])
+    _, fresh = serve_gnn.run(serve_gnn.build_parser().parse_args(
+        argv + ["--train-epochs", "0"]))
+    assert not np.allclose(fresh.si.logits[:n], srv.si.logits[:n])
+
+
 @pytest.mark.parametrize("flag", [
-    ["--train-epochs", "2"], ["--ckpt-dir", "ck"], ["--replicas", "2"],
+    ["--ckpt-dir", "ck"], ["--replicas", "2"],
     ["--update-edges", "3"], ["--sampled-budget", "0.5"],
     ["--stream-resident-mb", "8"], ["--stream-overlap"],
     ["--slow-log", "s.json"], ["--metrics"], ["--metrics-port", "0"],
     ["--trace-out", "t.json"], ["--trace-jsonl", "t.jsonl"],
-    ["--slo", "p99_ms=5"], ["--strict-slo"], ["--model", "graphsage"]])
+    ["--slo", "p99_ms=5"], ["--strict-slo"]])
 def test_serve_gnn_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         serve_gnn.main(["--device", "cpu", *flag])
