@@ -84,6 +84,26 @@ without the final ``{"ok": true, ...}`` line:
    ``k_history`` and peak memory; each launch of one warm RSC step re-run
    on its own inputs (GraphSAGE's d = 602 forward over D⁻¹A among them);
    busy share and phases; the same run without RSC;
+8d. minibatch GraphSAINT training (``pipeline/``, ``bcoo_spmm`` in both
+   directions): the small GCN of phase 6 over a 4-subgraph random-walk
+   pool in 2 buckets with streamed evaluation, on the card and on the CPU
+   from one parameter set and one pool, the CPU planner fed the card's ∇H
+   norms: the same subgraph order, identical plans at every RSC step,
+   losses within GNN_LOSS_RTOL, each parameter's change within
+   TRAIN_DP_REL, equal streamed val/test; then the full-width run through
+   ``launch.train gnn --minibatch`` (GCN 3 × 256, block 128, RSC at budget
+   0.1, synthetic ogbn-products at ``--scale`` 0.1, 8 random-walk
+   subgraphs of 2,000 roots and walk length 4, 2 buckets, autotune on, 40
+   epochs) with the launch counts set to 0 just before and read just
+   after: 6 ``bcoo_spmm`` launches per step, 3 per subgraph per pooled
+   evaluation and the autotune sweeps', all ``tf32x3``, ``flops_fraction``
+   within the budget, a finite, falling loss and no autotune miss; the
+   tuned decisions; the same pool without prefetch and with all 8
+   subgraphs resident on the card, whose losses must equal the prefetch
+   run's step for step; each mode's step medians, uploads, stall, planner
+   time, hit rate, peak memory and a profiled epoch's busy share; the
+   launches of one warm step re-run on their own inputs; the run without
+   RSC, whose pooled best test RSC's must come within 0.07 of;
 9. LM serving (``flash_attention``): sweep the kernel against its plain
    version over b ∈ {1, 2}, (nq, nkv) ∈ {(16, 8), (14, 2), (4, 4), (8, 1)}
    (GQA ratios 2, 7, 1, 8), hd ∈ {64, 128}, f32 (variant ``fma``) and
@@ -127,10 +147,12 @@ without the final ``{"ok": true, ...}`` line:
     gate/up and down shapes, with the card's bound; report the warm step
     time, tokens/s and peak device memory;
 15. print each slice's JSON line (``slice``, ``bcoo_spmm_shapes``,
-    ``gnn_train_slice``, ``gnn_models_slice``, ``lm_slice``,
+    ``gnn_train_slice``, ``gnn_models_slice``, ``minibatch_slice``,
+    ``lm_slice``,
     ``lm_train_slice``), the build report, the kernel line (with the
     variant each kernel ran on its main path; ``bcoo_spmm``'s launches are
-    the three models' serving and RSC training runs'), the card line and,
+    the three models' serving and RSC training runs' and the minibatch
+    run's), the card line and,
     last, the result line.
 
 Without a CUDA device it exits with code 2 and prints no result. It
@@ -242,6 +264,27 @@ GNN_LOSS_RTOL = 1e-4
 # tests/test_torch_planner_main_path.npz)
 REFRESH_FIXTURE_FIRST = 4
 REFRESH_FIXTURE = ROOT / "chiprun_out" / "test_torch_planner_main_path.npz"
+# The autotuner's cache file for this run: a fresh one, so the serving and
+# full-batch phases dispatch the heuristic bd (no entry), the minibatch
+# phase sweeps its own signatures, and its decisions come back.
+AUTOTUNE_CACHE = ROOT / "chiprun_out" / "spmm_autotune_torch.json"
+# The small minibatch run held on the card against the CPU: GNN_SMALL's
+# graph and model over a random-walk pool of 4 subgraphs in 2 buckets,
+# streamed evaluation in 2 partitions (autotune off: one fixed bd per
+# shape on the card).
+MB_SMALL = dict(GNN_SMALL, epochs=8, n_subgraphs=4, n_buckets=2, roots=100,
+                walk_length=2, autotune=False, eval_mode="stream",
+                stream_partitions=2)
+# The full-width minibatch run: GCN 3 × 256, block 128, batchnorm, RSC at
+# budget 0.1 on synthetic ogbn-products at --scale 0.1 (244,902 nodes, too
+# many tiles for full-batch training on one card); 8 random-walk subgraphs
+# of 2,000 roots and walk length 4 (GraphSAINT's random-walk sampler for
+# Reddit, Zeng et al. ICLR 2020, train_config/table2/reddit2_rw.yml), 2
+# buckets, autotune on; 40 epochs, the CLI's 200 cut for time. It runs in
+# three upload modes (prefetch on, off, and all 8 subgraphs resident on
+# the card), whose losses must be equal step for step, and without RSC.
+MB_EPOCHS = 40
+MB_RESIDENT = 8
 
 
 def train_argv(microbatches: int) -> list[str]:
@@ -1296,6 +1339,340 @@ def gnn_train_exact_run(train, ops, scale: float, model: str = "gcn") -> dict:
             "wall_s": out["report"]["wall_s"], "peak_mem_gib": peak}
 
 
+# ------------------------------------------------------- minibatch phases
+
+def mb_argv(rsc: bool = True, prefetch: bool = True) -> list[str]:
+    """The full-width minibatch run (``MB_EPOCHS``; the rest as the
+    comment on ``MB_EPOCHS`` says)."""
+    return (["gnn", "--minibatch", "--dataset", "ogbn-products", "--scale",
+             "0.1", "--layers", "3", "--hidden", "256", "--block", "128",
+             "--budget", "0.1", "--epochs", str(MB_EPOCHS), "--subgraphs",
+             "8", "--roots", "2000", "--walk-length", "4", "--buckets", "2",
+             "--device", "cuda"] + (["--rsc"] if rsc else [])
+            + ([] if prefetch else ["--no-prefetch"]))
+
+
+def mb_small_reference(ops, dev) -> dict:
+    """``MB_SMALL`` on the card through the kernel and on the CPU (the
+    kernels' plain versions) from one parameter set and one pool, the CPU
+    planner fed the card's ∇H norms: the same subgraph order, identical
+    plans at every RSC step, losses within GNN_LOSS_RTOL, each parameter's
+    change within TRAIN_DP_REL of the CPU run's, and the streamed val/test
+    of every evaluation equal."""
+    from repro_torch.graphs.synthetic import sbm_graph
+    from repro_torch.models.gnn import gcn
+    from repro_torch.pipeline import (MinibatchConfig, MinibatchTrainer,
+                                      PoolConfig, build_pool)
+    g = sbm_graph(**GNN_GRAPH)
+    pool = build_pool(g, PoolConfig(
+        n_subgraphs=MB_SMALL["n_subgraphs"], roots=MB_SMALL["roots"],
+        walk_length=MB_SMALL["walk_length"],
+        n_buckets=MB_SMALL["n_buckets"], block=MB_SMALL["block"]))
+    cpu_net = gcn.init(GNN_GRAPH["feat_dim"], MB_SMALL["hidden"], 7,
+                       MB_SMALL["n_layers"], True, seed=0, device="cpu")
+    start = {k: p.detach().clone() for k, p in cpu_net.named_parameters()}
+    card_net = copy.deepcopy(cpu_net).to(dev)
+    runs, feed = {}, None
+    for name, net, device in (("card", card_net, str(dev)),
+                              ("cpu", cpu_net, "cpu")):
+        tr = MinibatchTrainer(MinibatchConfig(**MB_SMALL, device=device), g,
+                              pool, model=net)
+        plans, norms = capture_planner(tr.engine.planner, feed)
+        ops.reset_launch_counts()
+        res = tr.train(eval_every=2)
+        runs[name] = (res, plans, norms, ops.launch_counts()["bcoo_spmm"],
+                      tr.engine.stream_eval.si.n_partitions)
+        feed = norms
+    (gres, gplans, gnorms, glaunch, parts), (cres, cplans, _, claunch, _) = \
+        runs["card"], runs["cpu"]
+    gh, ch = gres["history"], cres["history"]
+    layers = MB_SMALL["n_layers"]
+    want = 2 * layers * len(gh["loss"]) + layers * parts * len(gh["val"])
+    if claunch != 0 or glaunch != want:
+        raise AssertionError(f"bcoo_spmm launches: cpu {claunch}, card "
+                             f"{glaunch}, expected 0 and {want}")
+    if gh["sub_id"] != ch["sub_id"] or gh["mode"] != ch["mode"]:
+        raise AssertionError("subgraph order or step modes differ between "
+                             "card and cpu")
+    if len(gplans) != len(cplans) or not all(
+            all(np.array_equal(x, y) for x, y in zip(a[k][0], b[k][0]))
+            and a[k][1:] == b[k][1:] for a, b in zip(gplans, cplans)
+            for k in a):
+        raise AssertionError("the card's and the cpu run's plans differ")
+    loss_err = float(np.max(np.abs(np.subtract(gh["loss"], ch["loss"]))
+                            / np.abs(ch["loss"])))
+    rel = {}
+    for (name, a), (_, b) in zip(cpu_net.named_parameters(),
+                                 card_net.named_parameters()):
+        moved = a.detach().cpu() - start[name]
+        rel[name] = float((b.detach().cpu() - a.detach().cpu()).norm()
+                          / moved.norm().clamp(min=1e-30))
+    worst = max(rel, key=rel.get)
+    rsc_sids = [sid for sid, m in zip(gh["sub_id"], gh["mode"])
+                if m == "rsc"]
+    n_sampled = sum(p[k][1] < pool.subgraphs[sid].meta.row_ids.shape[0]
+                    for p, sid in zip(gplans, rsc_sids) for k in p)
+    say(f"[minibatch reference] gcn {layers}x{MB_SMALL['hidden']} block "
+        f"{MB_SMALL['block']} RSC, {len(pool)} subgraphs in "
+        f"{len(pool.buckets)} buckets, {len(gh['loss'])} steps, subgraph "
+        f"order {gh['sub_id'][:8]}...: plans identical at all "
+        f"{len(gplans)} RSC steps ({n_sampled} sampled op plans), hit rate "
+        f"{gres['plan_hit_rate']:.3f}; launches card {glaunch}, cpu "
+        f"{claunch}; largest loss error {loss_err:.3e} (limit "
+        f"{GNN_LOSS_RTOL:.0e}), parameter change {rel[worst]:.3e} ({worst}, "
+        f"limit {TRAIN_DP_REL:.0e}); streamed val/test card {gh['val']} "
+        f"{gh['test']}, cpu {ch['val']} {ch['test']}")
+    np.testing.assert_allclose(gh["loss"], ch["loss"], rtol=GNN_LOSS_RTOL)
+    if rel[worst] > TRAIN_DP_REL:
+        raise AssertionError(f"{worst}'s change differs from the cpu run's "
+                             f"by {rel[worst]:.3e} of its norm")
+    if gh["val"] != ch["val"] or gh["test"] != ch["test"]:
+        raise AssertionError("streamed val/test differ between card and cpu")
+    if not n_sampled:
+        raise AssertionError("no sampled plan in the small minibatch run")
+    return {"steps": len(gh["loss"]), "launches": glaunch,
+            "sub_id": gh["sub_id"], "sampled_op_plans": int(n_sampled),
+            "plan_hit_rate": gres["plan_hit_rate"],
+            "max_loss_rel_err": loss_err, "max_param_change_err": rel[worst],
+            "val": gh["val"], "test": gh["test"]}
+
+
+def mb_epoch(eng, gen) -> tuple[int, float]:
+    """One more epoch of RSC steps through the trained engine's own source
+    (its upload mode), each ending in its loss read; (steps, seconds)."""
+    t0 = time.perf_counter()
+    n = 0
+    for tag, ops_ in eng.source.batches(0):
+        plans = eng.planner.plans_for(tag, 0, eng.schedule)
+        _, eng.opt_state, lv, norms = eng.rsc_step(
+            eng.model, eng.opt_state, ops_, plans, gen)
+        eng.planner.record(tag, norms)
+        float(lv)
+        n += 1
+    return n, time.perf_counter() - t0
+
+
+def mb_window(eng, gen, kernel_table) -> dict:
+    """A timed epoch of RSC steps (fetch included: the per-step cost end
+    to end), then a profiled one: the busy share counts the card's compute
+    (every device event but the copies), the copies apart."""
+    from torch.profiler import ProfilerActivity, profile
+    n, epoch_s = mb_epoch(eng, gen)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mb_epoch(eng, gen)
+        wall = time.perf_counter() - t0
+    table = kernel_table(prof, wall, top=6)
+    copy_ms = sum(
+        (getattr(e, "self_device_time_total", 0.0) or 0.0) / 1e3
+        for e in prof.key_averages()
+        if not str(getattr(e, "device_type", "")).endswith("CPU")
+        and e.key.startswith(("Memcpy", "Memset")))
+    compute_ms = table["device_ms"] - copy_ms
+    return {"steps": n, "epoch_ms_per_step": epoch_s * 1e3 / n,
+            "wall_ms": wall * 1e3, "compute_ms": compute_ms,
+            "copy_ms": copy_ms, "busy_share": compute_ms / (wall * 1e3),
+            "by_kind_ms": table["by_kind_ms"]}
+
+
+def mb_mode(out, label: str, peak: float, gen, kernel_table) -> dict:
+    """What one minibatch run spent where: warm step medians, uploads
+    (per step, bytes each, the consumer's stall), planner time per
+    refresh, plan hit rate, peak memory and a profiled epoch's busy
+    share."""
+    res, tr = out["result"], out["trainer"]
+    eng = tr.engine
+    hist = res["history"]
+    modes = np.asarray(hist["mode"])
+    step_ms = np.asarray(hist["step_time"]) * 1e3
+    n_sub = len(tr.pool)
+    rsc_ms = step_ms[modes == "rsc"][n_sub:]          # past the first epoch
+    exact_ms = step_ms[modes == "exact"][1:]
+    t = eng.source.transfer_stats("train")
+    steps = len(hist["loss"])
+    pp = tr.plan_pool
+    row = {"mode": label, "steps": steps,
+           "rsc_step_ms_median": (float(np.median(rsc_ms)) if rsc_ms.size
+                                  else None),
+           "exact_step_ms_median": (float(np.median(exact_ms))
+                                    if exact_ms.size else None),
+           "uploads": t["uploads"], "resident_hits": t["resident_hits"],
+           "upload_ms_per_upload": t["upload_seconds"] * 1e3
+           / max(t["uploads"], 1),
+           "upload_ms_per_step": t["upload_seconds"] * 1e3 / steps,
+           "bytes_per_upload": t["upload_bytes"] / max(t["uploads"], 1),
+           "stall_ms_per_step": t["stall_seconds"] * 1e3 / steps,
+           "planner_ms_per_refresh": (pp.host_seconds() * 1e3
+                                      / max(pp.stats.refreshes, 1)
+                                      if pp is not None else None),
+           "plan_hit_rate": res["plan_hit_rate"],
+           "peak_mem_gib": peak / 2 ** 30,
+           "best_test": res["best_test"],
+           "run_s": out["report"]["wall_s"], "setup_s": out["setup_s"]}
+    if pp is not None:
+        row["window"] = mb_window(eng, gen, kernel_table)
+    say(f"[minibatch {label}] {steps} steps, best test "
+        f"{res['best_test']:.4f}, step median rsc "
+        f"{row['rsc_step_ms_median']} ms, exact "
+        f"{row['exact_step_ms_median']} ms; {t['uploads']} uploads "
+        f"({row['upload_ms_per_upload']:.2f} ms and "
+        f"{row['bytes_per_upload'] / 1e6:.1f} MB each, "
+        f"{row['upload_ms_per_step']:.2f} ms per step), {t['resident_hits']} "
+        f"resident hits, stall {row['stall_ms_per_step']:.2f} ms per step; "
+        f"planner {row['planner_ms_per_refresh']} ms per refresh, hit rate "
+        f"{row['plan_hit_rate']}; peak {row['peak_mem_gib']:.2f} GiB"
+        + (f"; one epoch {row['window']['epoch_ms_per_step']:.2f} ms per "
+           f"step with its fetch; one epoch profiled: "
+           f"{row['window']['wall_ms']:.1f} ms wall, "
+           f"compute {row['window']['compute_ms']:.1f} ms, copies "
+           f"{row['window']['copy_ms']:.1f} ms, busy share "
+           f"{row['window']['busy_share']:.3f}" if "window" in row else ""))
+    return row
+
+
+def mb_launch_rows(eng, ops, kmod, bcoo_spmm_ref, dev) -> list[dict]:
+    """The launches of one warm RSC step on subgraph 0 (after two more
+    steps there), each re-run on its own inputs (``spmm_launch_row``): the
+    forwards over the bucket's Ã and the sampled backwards over
+    ``plan_pad`` entries."""
+    from repro_torch.pipeline import device_operands
+    pool = eng.source.pool
+    ops_ = device_operands(pool, pool.subgraphs[0], dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12345)
+    n = eng.cfg.n_layers
+    names = eng.module.spmm_names(n)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    with SpmmTap(kmod) as tap:
+        for armed in (False, False, True):
+            plans = eng.planner.plans_for(0, 0, eng.schedule)
+            tap.calls, tap.armed = [], armed
+            _, eng.opt_state, lv, norms = eng.rsc_step(
+                eng.model, eng.opt_state, ops_, plans, gen)
+            tap.armed = False
+            eng.planner.record(0, norms)
+            float(lv)
+        calls = tap.calls
+    if len(calls) != n + len(names):
+        raise AssertionError(f"a minibatch step made {len(calls)} SpMM "
+                             f"calls, expected {n + len(names)}")
+    labels = [f"fwd{l}" for l in range(n)] + [
+        f"bwd{name.rsplit('spmm', 1)[1]}_sampled" for name in reversed(names)]
+    return [spmm_launch_row(c, f"minibatch {lab}", ops, kmod, bcoo_spmm_ref,
+                            n_sm) for c, lab in zip(calls, labels)]
+
+
+def mb_main_path(train, ops, kmod, bcoo_spmm_ref, autotune, kernel_table,
+                 dev) -> tuple[int, dict]:
+    """Phase 8d: the full-width minibatch run through ``launch.train gnn
+    --minibatch`` with the launch counts set to 0 just before and read just
+    after (6 ``bcoo_spmm`` launches per step, 3 per subgraph per pooled
+    evaluation, and the autotune sweeps', all ``tf32x3``; flops fraction
+    within the budget; a finite, falling loss; no autotune miss); the same
+    pool again without prefetch and with every subgraph resident (losses
+    equal step for step); the run without RSC; one warm step's launches.
+    Returns the main run's launches and the slice's report."""
+    if AUTOTUNE_CACHE.exists():
+        AUTOTUNE_CACHE.unlink()
+    cache = autotune.reset(AUTOTUNE_CACHE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = mb_argv()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    by_var = ops.launch_counts_by_variant()["bcoo_spmm"]
+    peak = torch.cuda.max_memory_allocated()
+    res, hist = out["result"], out["result"]["history"]
+    tr = out["trainer"]
+    pool, graph = tr.pool, out["graph"]
+    steps, evals, n_sub = len(hist["loss"]), len(hist["val"]), len(pool)
+    sweeps = cache.stats.sweep_launches
+    want = 6 * steps + 3 * n_sub * evals + sweeps
+    losses = np.asarray(hist["loss"])
+    tuned = {sig: {"bd": e["bd"], "us": e["us"],
+                   "candidates_us": e.get("candidates")}
+             for sig, e in sorted(cache.entries.items())}
+    shapes = [{"n_blocks": b.n_blocks, "s_pad": b.s_pad,
+               "plan_pad": b.plan_pad} for b in pool.buckets]
+    say(f"[minibatch train] {argv[1:]}: {steps} steps "
+        f"({int((np.asarray(hist['mode']) == 'rsc').sum())} rsc), {evals} "
+        f"pooled evaluations, setup {out['setup_s']:.2f} s, run {wall:.2f} "
+        f"s; {n_sub} subgraphs of {[s.n_valid for s in pool.subgraphs]} "
+        f"nodes in buckets {shapes}; launches {counts} ({sweeps} by the "
+        f"autotune sweeps), bcoo_spmm by variant {by_var}; flops fraction "
+        f"{res['flops_fraction']:.4f}, plan hit rate "
+        f"{res['plan_hit_rate']:.3f}, best test {res['best_test']:.4f}, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; autotune {cache.stats}, "
+        f"tuned {tuned}")
+    if counts["bcoo_spmm"] != want or counts["flash_attention"]             or counts["gather_matmul"]:
+        raise AssertionError(f"launches {counts}, expected {want} bcoo_spmm "
+                             f"(6 per step, 3 per subgraph per evaluation, "
+                             f"{sweeps} by the sweeps) and nothing else")
+    if by_var["tf32x3"] != want:
+        raise AssertionError(f"bcoo_spmm variants {by_var}: every launch "
+                             f"should be tf32x3")
+    if not res["flops_fraction"] <= 0.1 + 1e-9:
+        raise AssertionError(f"flops fraction {res['flops_fraction']} above "
+                             f"the budget 0.1")
+    if not np.isfinite(losses).all() or \
+            not losses[-n_sub:].mean() < losses[:n_sub].mean():
+        raise AssertionError(f"loss not finite or not falling: {losses}")
+    if cache.stats.defaults or cache.missed or not cache.stats.sweeps:
+        raise AssertionError(f"autotune missed {sorted(cache.missed)} "
+                             f"({cache.stats})")
+    out_report = out["report"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(777)
+    modes = [mb_mode(out, "prefetch", peak, gen, kernel_table)]
+    rows = mb_launch_rows(tr.engine, ops, kmod, bcoo_spmm_ref, dev)
+    del out, tr
+    runs = {}
+    for label, argv_m, extra in (
+            ("no_prefetch", mb_argv(prefetch=False), {}),
+            (f"resident{MB_RESIDENT}", mb_argv(), {"resident": MB_RESIDENT}),
+            ("exact", mb_argv(rsc=False), {})):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        o = train.run_gnn(train.build_parser().parse_args(argv_m),
+                          graph=graph, pool=pool, **extra)
+        torch.cuda.synchronize()
+        runs[label] = o["result"]["history"]
+        modes.append(mb_mode(o, label, torch.cuda.max_memory_allocated(),
+                             gen, kernel_table))
+        del o
+    for label in ("no_prefetch", f"resident{MB_RESIDENT}"):
+        h = runs[label]
+        if h["sub_id"] != hist["sub_id"] or h["loss"] != hist["loss"]:
+            diff = float(np.max(np.abs(np.subtract(h["loss"],
+                                                   hist["loss"]))))
+            raise AssertionError(f"{label}: subgraph order or losses differ "
+                                 f"from the prefetch run (largest loss "
+                                 f"difference {diff:.3e})")
+    exact_best = modes[-1]["best_test"]
+    if not res["best_test"] > exact_best - 0.07:
+        raise AssertionError(f"minibatch RSC best test {res['best_test']} "
+                             f"not within 0.07 of the exact run's "
+                             f"{exact_best}")
+    say(f"[minibatch modes] losses identical step for step with prefetch "
+        f"on, off and {MB_RESIDENT} resident ({steps} steps); best test "
+        f"RSC {res['best_test']:.4f}, exact {exact_best:.4f}")
+    return counts["bcoo_spmm"], {
+        "argv": argv, "report": out_report,
+        "run_s": wall, "steps": steps, "evaluations": evals,
+        "launches": counts["bcoo_spmm"], "sweep_launches": sweeps,
+        "launches_by_variant": by_var, "buckets": shapes,
+        "subgraph_nodes": [s.n_valid for s in pool.subgraphs],
+        "autotune": {"stats": dataclasses.asdict(cache.stats),
+                     "tuned": tuned},
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "modes": modes, "launch_rows": rows}
+
+
 # ------------------------------------------------------------ LM phases
 
 def flash_close(out, ref, dtype) -> tuple[float, float]:
@@ -1781,7 +2158,7 @@ def main(argv=None) -> int:
     from repro_torch.graphs.synthetic import sbm_graph
     from repro_torch.infer import StreamConfig, StreamingInference
     from repro_torch.kernels import bcoo_spmm as kmod
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import autotune, build, ops
     from repro_torch.kernels.ref import bcoo_spmm_ref
     from repro_torch.launch import serve_gnn
     from repro_torch.models.gnn import MODELS, gcn
@@ -1804,6 +2181,12 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # a fresh autotune cache: every phase before 8d dispatches its
+    # heuristic bd, as before the autotuner existed
+    AUTOTUNE_CACHE.parent.mkdir(parents=True, exist_ok=True)
+    if AUTOTUNE_CACHE.exists():
+        AUTOTUNE_CACHE.unlink()
+    autotune.reset(AUTOTUNE_CACHE)
     build_rep = build_kernels(build)
     sweep_res = sweep(ops, kmod, bcoo_spmm_ref, plan_row_ptr, dev)
     ref_err = small_reference(sbm_graph, StreamingInference, StreamConfig,
@@ -1856,6 +2239,11 @@ def main(argv=None) -> int:
                                                    model)
         models_slice[model] = m_slice
         torch.cuda.empty_cache()
+    mb_small = mb_small_reference(ops, dev)
+    mb_launches, mb_slice = mb_main_path(train, ops, kmod, bcoo_spmm_ref,
+                                         autotune, kernel_table, dev)
+    mb_slice["small_reference"] = mb_small
+    torch.cuda.empty_cache()
     flash_res = flash_sweep(ops, fmod, flash_attention_ref, dev)
     lm_ref_err = lm_small_reference(serve, smoke_config, make_batch,
                                     init_params, dev)
@@ -1887,7 +2275,7 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/bcoo_spmm.cu",
         "replaces": "src/repro/kernels/bcoo_spmm.py:51",
         "variant": hidden["variant"],
-        "launches": launches + gnn_slice["launches"] + sum(
+        "launches": launches + gnn_slice["launches"] + mb_launches + sum(
             models_slice[m]["launches"] + serving[m]["launches"]
             for m in serving),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -1923,6 +2311,7 @@ def main(argv=None) -> int:
     say(json.dumps({"bcoo_spmm_shapes": rows}))
     say(json.dumps({"gnn_train_slice": gnn_slice}))
     say(json.dumps({"gnn_models_slice": models_slice}))
+    say(json.dumps({"minibatch_slice": mb_slice}))
     say(json.dumps({"lm_slice": {
         "report": lm_report, "run_s": lm_run_s,
         "launches": lm_launches, "warm": lm_warm,

@@ -14,8 +14,9 @@ tiles never move.
 ``s_pad`` bucketing: plan lengths quantize to multiples of
 ``ceil(s_total · BUCKET_FRAC)``, as in the reference (there it bounds
 recompiles; here it keeps the plans bit-identical to the reference's).
-The reference's fixed ``plan_pad`` serves its minibatch pools and comes
-with them (ROADMAP.md Queue 1 item 4).
+A cache built with ``plan_pad`` (the minibatch pools' per-bucket length)
+pads every plan, full and sampled, to exactly ``plan_pad`` entries, so all
+plans of a shape bucket share one SpMM signature (one autotune decision).
 """
 from __future__ import annotations
 
@@ -54,6 +55,16 @@ class CacheStats:
     k_history: list = dataclasses.field(default_factory=list)
     auc_history: list = dataclasses.field(default_factory=list)
 
+    def summary(self) -> dict:
+        """JSON-ready snapshot (per-cache reporting)."""
+        return {
+            "refreshes": self.refreshes,
+            "allocations": self.allocations,
+            "host_seconds": round(self.host_seconds, 4),
+            "mean_auc": (float(np.mean(self.auc_history))
+                         if self.auc_history else None),
+        }
+
 
 class PlanCache:
     """Owns sampling plans for every RSC op in a model."""
@@ -64,14 +75,23 @@ class PlanCache:
         step_frac: float = 0.02,
         strategy: str = "greedy",   # or "uniform" (Fig. 6 baseline)
         *,
+        plan_pad: int | None = None,
+        label: str = "",            # diagnostics: which subgraph
         device: str | torch.device = "cuda",
     ):
         self.budget_frac = budget_frac
         self.step_frac = step_frac
         self.strategy = strategy
+        self.plan_pad = plan_pad
+        self.label = label
         self.device = device
         self.ops: dict[str, OpEntry] = {}
         self.stats = CacheStats()
+
+    def _bucket(self, at) -> int:
+        if self.plan_pad is not None:
+            return self.plan_pad
+        return max(1, int(np.ceil(at.s_total * BUCKET_FRAC)))
 
     def register(self, name: str, at: BlockCOO, meta: BlockMeta, d: int,
                  a_fro: float) -> None:
@@ -80,7 +100,7 @@ class PlanCache:
         entry = OpEntry(name=name, at=at, meta=meta, d=d, a_fro=a_fro)
         # Start exact (full plan) until the first refresh has gradient info.
         entry.plan = full_plan(meta, at.n_row_blocks, at.s_total,
-                               device=self.device)
+                               bucket=self.plan_pad or 1, device=self.device)
         self.ops[name] = entry
 
     def plans(self) -> dict[str, SamplePlan]:
@@ -112,9 +132,8 @@ class PlanCache:
 
         for n, spec, keep in zip(names, layers, alloc.keep):
             e = self.ops[n]
-            bucket = max(1, int(np.ceil(e.at.s_total * BUCKET_FRAC)))
             e.plan = build_plan(e.meta, keep, e.at.n_row_blocks,
-                                e.at.s_total, bucket=bucket,
+                                e.at.s_total, bucket=self._bucket(e.at),
                                 device=self.device)
             if e.last_scores is not None:
                 self.stats.auc_history.append(
@@ -125,7 +144,7 @@ class PlanCache:
         self.stats.k_history.append(alloc.k.copy())
         self.stats.host_seconds += time.perf_counter() - t0
         obs.get_ledger().note_allocation(
-            scope="full", strategy=self.strategy,
+            scope=self.label or "full", strategy=self.strategy,
             cost=float(alloc.cost), budget=float(alloc.budget),
             k=alloc.k)
         return alloc

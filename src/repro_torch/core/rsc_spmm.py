@@ -19,6 +19,14 @@ Backends:
 * ``"dense"`` — any device: the plan's tiles scattered into the dense
   operand and one ``torch.matmul``
   (``repro_torch.kernels.dense_spmm``, the reference's dense backend).
+* ``"auto"`` — the per-signature decision cached by
+  ``kernels.autotune.get_or_tune_auto`` (``kernel`` or ``dense`` on the
+  card, ``ref`` or ``dense`` on the CPU), read at dispatch and never
+  swept; a signature nobody tuned runs ``kernel`` on the card and ``ref``
+  on the CPU.
+
+The ``ref`` schedule's ``chunk`` and the kernel's column tile come from
+``kernels.autotune.lookup`` when not given.
 
 ``rsc_spmm`` and ``exact_spmm`` are ``torch.autograd.Function``s over
 ``spmm_apply``, the ports of the reference's ``custom_vjp``s: the forward
@@ -112,6 +120,22 @@ def spmm_apply(
     planner's and ``exact_plan``'s): the kernel then runs without the host
     check of the indices, which synchronises with the card.
     """
+    if backend == "auto":
+        from repro_torch.kernels import autotune
+        cfg = autotune.lookup(autotune.signature(
+            "auto", bm=bm, bk=bk, d=h.shape[-1], s_pad=plan.s_pad,
+            n_row_blocks=n_row_blocks, n_col_blocks=h.shape[0] // bk),
+            d=h.shape[-1])
+        on_card = h.device.type == "cuda"
+        if cfg.source == "default":
+            backend = "kernel" if on_card else "ref"
+        elif cfg.backend == "ref" and on_card:
+            raise ValueError("the cached auto decision is 'ref', timed on "
+                             "the CPU; re-tune this signature on the card")
+        else:
+            backend = cfg.backend
+        if chunk is None:
+            chunk = cfg.chunk
     if backend == "kernel":
         from repro_torch.kernels import ops as kops
         fn = kops.bcoo_spmm_in_range if in_range else kops.bcoo_spmm
@@ -127,13 +151,18 @@ def spmm_apply(
             residual=residual, relu=relu)
     if backend != "ref":
         raise ValueError(f"unknown SpMM backend {backend!r} "
-                         "(expected 'kernel', 'ref' or 'dense')")
+                         "(expected 'kernel', 'ref', 'dense' or 'auto')")
     if h.device.type != "cpu":
         raise ValueError(f"backend 'ref' runs CPU tensors only, got "
                          f"{h.device}; use backend 'kernel' on the card")
+    if chunk is None:
+        from repro_torch.kernels import autotune
+        chunk = autotune.lookup(autotune.signature(
+            "ref", bm=bm, bk=bk, d=h.shape[-1], s_pad=plan.s_pad,
+            n_row_blocks=n_row_blocks,
+            n_col_blocks=h.shape[0] // bk)).chunk
     out = spmm_stream(blocks, plan.sel, plan.row_ids, plan.col_ids, h,
-                      n_row_blocks=n_row_blocks, bm=bm, bk=bk,
-                      chunk=chunk if chunk is not None else DEFAULT_CHUNK)
+                      n_row_blocks=n_row_blocks, bm=bm, bk=bk, chunk=chunk)
     if bias is not None:
         out = out + bias
     if residual is not None:

@@ -6,6 +6,8 @@ resulting activations behind a refcounted snapshot and answers batched node
 queries.
 """
 from repro_torch.infer.serve import NodeServer, Snapshot
-from repro_torch.infer.stream import StreamConfig, StreamingInference
+from repro_torch.infer.stream import (StreamConfig, StreamEvaluator,
+                                      StreamingInference)
 
-__all__ = ["NodeServer", "Snapshot", "StreamConfig", "StreamingInference"]
+__all__ = ["NodeServer", "Snapshot", "StreamConfig", "StreamEvaluator",
+           "StreamingInference"]

@@ -17,6 +17,9 @@ reference (``repro/infer/stream.py``):
 * row-wise math (batchnorm, activations — the model's ``infer_post`` /
   ``infer_out`` hooks) runs on the host over the full graph.
 
+:class:`StreamEvaluator` is the training engine's exact full-graph
+evaluator over this forward (``eval_mode="stream"``).
+
 Still to be ported: the device-resident partition LRU, upload overlap,
 RSC-sampled partitions, LDG partitioning, ``update_operand`` and
 ``recompute_rows`` (edge updates).
@@ -291,3 +294,32 @@ class StreamingInference:
             self.logits = logits
             self.params = params
         return logits
+
+
+class StreamEvaluator:
+    """Engine-facing adapter: streaming evaluation with the training metric.
+
+    Built lazily — the tiled operand and partitions are constructed on the
+    first evaluation (the parameters give the layer widths), then reused
+    for every periodic evaluation of the run. ``params`` is the training
+    model, on ``cfg.device``.
+    """
+
+    def __init__(self, graph: GraphData, model: str,
+                 cfg: StreamConfig = StreamConfig()):
+        self.graph = graph
+        self.model = model
+        self.cfg = cfg
+        self.si: StreamingInference | None = None
+        self.evals = 0
+
+    def evaluate(self, params, mfn) -> tuple[float, float]:
+        if self.si is None:
+            self.si = StreamingInference(self.graph, self.model, params,
+                                         self.cfg)
+        logits = self.si.forward(params, store=False)
+        si = self.si
+        val = mfn(logits, si.labels, si.val_mask & si.valid)
+        test = mfn(logits, si.labels, si.test_mask & si.valid)
+        self.evals += 1
+        return val, test

@@ -1,12 +1,14 @@
 """Public dispatch for the hand-written kernels.
 
 ``bcoo_spmm`` picks the column tile ``bd`` the way ``repro.kernels.ops``
-does (the reference's heuristic default when none is given, the ``gcd``
-fallback when a given ``bd`` does not divide ``d``) and calls the kernel
-wrapper, which launches the CUDA kernel for a CUDA tensor and runs the
-plain version for a CPU tensor; ``bcoo_spmm_in_range`` is the same call
-without the host check of the indices, for the planner's plans. There is
-no autotuner yet: ``bd`` comes from the heuristic or the caller. ``gather_matmul`` and ``flash_attention``
+does: when none is given it reads ``autotune.lookup`` for the operand's
+signature (``kernel``, or ``kernel_plain`` for a CPU tensor), whose miss
+answers the reference's heuristic default (``default_bd``), so a shape
+nobody tuned launches as it always did; a ``bd`` that does not divide
+``d`` falls back to the ``gcd``. It then calls the kernel wrapper, which
+launches the CUDA kernel for a CUDA tensor and runs the plain version for
+a CPU tensor; ``bcoo_spmm_in_range`` is the same call without the host
+check of the indices, for the planner's plans. ``gather_matmul`` and ``flash_attention``
 call their wrappers the same way (kernel on a CUDA tensor, plain version
 on a CPU tensor); each wrapper picks its kernel variant from the dtype and
 shape alone.
@@ -67,11 +69,25 @@ def bcoo_spmm_in_range(blocks, sel, row_ids, col_ids, h, *, n_row_blocks,
                       residual, relu)
 
 
+def tuned_bd(h, s_pad: int, n_row_blocks: int, bm: int, bk: int) -> int:
+    """The autotuned column tile of this operand's signature, or
+    ``default_bd(d)`` on a miss."""
+    from repro_torch.kernels import autotune
+    d = h.shape[-1]
+    sig = autotune.signature(
+        "kernel" if h.device.type == "cuda" else "kernel_plain",
+        bm=bm, bk=bk, d=d, s_pad=s_pad, n_row_blocks=n_row_blocks,
+        n_col_blocks=h.shape[0] // bk)
+    return autotune.lookup(sig, d=d).bd
+
+
 def _bcoo_call(fn, blocks, sel, row_ids, col_ids, h, n_row_blocks, bm, bk,
                bd, row_ptr, bias, residual, relu):
     if h.dim() != 2 or h.shape[-1] < 1:
         raise ValueError(f"h must be (n_cols, d) with d >= 1, got "
                          f"{tuple(h.shape)}")
+    if bd is None:
+        bd = tuned_bd(h, sel.shape[0], n_row_blocks, bm, bk)
     return fn(blocks, sel, row_ids, col_ids, h, n_row_blocks=n_row_blocks,
               bm=bm, bk=bk, bd=resolve_bd(bd, h.shape[-1]), row_ptr=row_ptr,
               bias=bias, residual=residual, relu=relu)

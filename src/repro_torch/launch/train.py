@@ -1,5 +1,6 @@
-"""Command-line training entry point: full-batch GNN training (the paper's
-models: GCN, GraphSAGE, GCNII) and the LM stack.
+"""Command-line training entry point: GNN training, full batch or over a
+GraphSAINT subgraph pool (the paper's models: GCN, GraphSAGE, GCNII), and
+the LM stack.
 
     # the full-width GCN with RSC on the card (--model graphsage: the same
     # flags; --model gcnii: --layers 4)
@@ -11,6 +12,16 @@ models: GCN, GraphSAGE, GCNII) and the LM stack.
         --scale 0.003 --rsc --epochs 20 --block 32 --hidden 48 --layers 2 \
         --device cpu
 
+    # minibatch: 8 random-walk subgraphs of 2,000 roots, walk length 4
+    PYTHONPATH=src python -m repro_torch.launch.train gnn --minibatch \
+        --dataset ogbn-products --scale 0.1 --layers 3 --hidden 256 \
+        --block 128 --rsc --budget 0.1 --roots 2000 --walk-length 4
+
+    # a small minibatch run on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.train gnn --minibatch \
+        --device cpu --scale 0.004 --block 32 --hidden 48 --layers 2 \
+        --subgraphs 4 --roots 50 --walk-length 2 --epochs 4 --rsc
+
     PYTHONPATH=src python -m repro_torch.launch.train lm --arch qwen3-1.7b \
         --batch 4 --seq 4096 --microbatches 2 --rsc --rsc-keep 0.5 --steps 3
 
@@ -18,15 +29,23 @@ models: GCN, GraphSAGE, GCNII) and the LM stack.
     PYTHONPATH=src python -m repro_torch.launch.train lm --arch qwen3-1.7b \
         --smoke --steps 5 --device cpu
 
-The ``gnn`` flags are the reference's full-batch flags plus ``--backend``
-(``kernel``, the default: the CUDA kernel, or its plain version on the
-CPU; ``ref``: the CPU-only streaming schedule; ``dense``: the plan's tiles
-scattered into a dense operand and one ``torch.matmul``) and
-``--device``. It prints the reference's JSON keys (``model``,
-``dataset``, ``rsc``, ``budget``, ``best_test``, ``wall_s``,
-``flops_fraction``). ``--minibatch``, ``--dp``, ``--mesh``, ``--eval-mode
-stream``, ``--compress-grads`` and the observability flags raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The ``gnn`` flags are the reference's, with ``--backend`` (``kernel``, the
+default: the CUDA kernel, or its plain version on the CPU; ``ref``: the
+CPU-only streaming schedule; ``dense``: the plan's tiles scattered into a
+dense operand and one ``torch.matmul``; ``auto``: the autotuner's cached
+decision per signature) and ``--device``. ``--minibatch`` trains over a
+subgraph pool (``--subgraphs``, ``--pool-method``, ``--roots``,
+``--walk-length``, ``--buckets``, ``--no-prefetch``, ``--no-autotune``,
+``--no-saint-norm``, the reference's defaults); ``--eval-mode stream``
+evaluates with the exact streaming full-graph forward, in either mode. It
+prints the reference's JSON keys (``model``, ``dataset``, ``rsc``,
+``budget``, ``best_test``, ``wall_s``, ``flops_fraction``; with
+``--minibatch`` also ``minibatch``, ``pool``, ``subgraphs``,
+``n_buckets`` and ``plan_hit_rate``). The reference's ``compiles`` key
+counts jit compiles; the port runs eagerly and compiles nothing, so it has
+no such key. ``--dp``, ``--mesh``, ``--compress-grads`` and the
+observability flags raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 
 The ``lm`` flags are those of ``repro.launch.train lm`` plus ``--device``
 (``cuda`` by default, which raises without a card; ``cpu`` runs the
@@ -49,14 +68,14 @@ from repro_torch.configs import get_arch, make_batch, smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.graphs.datasets import DATASETS, load_dataset
 from repro_torch.models.lm.backbone import init_params
+from repro_torch.pipeline.minibatch_loop import (MinibatchConfig,
+                                                 MinibatchTrainer)
 from repro_torch.train.lm_steps import make_train_step
 from repro_torch.train.loop import GNNTrainer, TrainConfig
 from repro_torch.train.optimizer import Adam
 
-_MINIBATCH = "Queue 1 item 4 (minibatch pipeline)"
 _CKPT = "Queue 1 item 5 (checkpoint and resume)"
 _OBS = "Queue 1 item 6 (observability)"
-_STREAM = "Queue 1 item 7 (serving: the rest, streaming evaluation)"
 _DP = "Queue 1 item 8 (data parallel)"
 
 
@@ -83,32 +102,47 @@ def _obs_flags(args) -> list:
 def check_ported_gnn(args) -> None:
     """Raise ``NotImplementedError`` for ``gnn`` flags this port lacks."""
     _check([
-        (args.minibatch, "--minibatch", _MINIBATCH),
         (args.dp > 1, "--dp", _DP),
         (bool(args.mesh), "--mesh", _DP),
         (args.compress_grads, "--compress-grads", _DP),
-        (args.eval_mode == "stream", "--eval-mode stream", _STREAM),
         *_obs_flags(args),
     ])
 
 
-def run_gnn(args) -> dict:
-    """Full-batch GNN training; returns the JSON report (under
-    ``report``), the engine's result, the trainer and the set-up seconds
-    (graph, operands, planner and parameters, before the first step)."""
+def run_gnn(args, *, graph=None, pool=None, **minibatch) -> dict:
+    """GNN training, full batch or (``--minibatch``) over a subgraph pool;
+    returns the JSON report (under ``report``), the engine's result, the
+    trainer, the graph and the set-up seconds (graph, operands or pool,
+    planner, autotune sweeps and parameters, before the first step).
+    ``graph`` (the loaded dataset), ``pool`` (a prebuilt ``SubgraphPool``
+    of it) and ``minibatch`` (``MinibatchConfig`` fields the CLI has no
+    flag for, such as ``resident``) are for callers that drive the path
+    in-process more than once."""
     check_ported_gnn(args)
     device = resolve_device(args.device)
     spec = DATASETS[args.dataset]
     t0 = time.perf_counter()
-    g = load_dataset(args.dataset, scale=args.scale, seed=args.seed)
-    cfg = TrainConfig(
+    g = graph if graph is not None else load_dataset(
+        args.dataset, scale=args.scale, seed=args.seed)
+    common = dict(
         model=args.model, n_layers=args.layers, hidden=args.hidden,
         epochs=args.epochs, lr=args.lr, dropout=args.dropout,
         metric=spec.metric, rsc=args.rsc, budget=args.budget,
         caching=not args.no_caching, switching=not args.no_switching,
         strategy=args.strategy, block=args.block, seed=args.seed,
-        backend=args.backend, device=str(device))
-    tr = GNNTrainer(cfg, g)
+        backend=args.backend, eval_mode=args.eval_mode,
+        stream_partitions=args.stream_partitions,
+        stream_budget_mb=args.stream_budget_mb, device=str(device))
+    if args.minibatch:
+        cfg = MinibatchConfig(
+            n_subgraphs=args.subgraphs, method=args.pool_method,
+            roots=args.roots, walk_length=args.walk_length,
+            n_buckets=args.buckets, prefetch=not args.no_prefetch,
+            autotune=not args.no_autotune,
+            saint_norm=not args.no_saint_norm, **common, **minibatch)
+        tr = MinibatchTrainer(cfg, g, pool)
+    else:
+        tr = GNNTrainer(TrainConfig(**common), g)
     t1 = time.perf_counter()
     res = tr.train(verbose=args.verbose)
     wall = time.perf_counter() - t1
@@ -116,7 +150,12 @@ def run_gnn(args) -> dict:
               "rsc": args.rsc, "budget": args.budget,
               "best_test": res["best_test"], "wall_s": round(wall, 2),
               "flops_fraction": res["flops_fraction"]}
-    return {"report": report, "result": res, "trainer": tr,
+    if args.minibatch:
+        report.update({"minibatch": True, "pool": args.pool_method,
+                       "subgraphs": args.subgraphs,
+                       "n_buckets": res["n_buckets"],
+                       "plan_hit_rate": res["plan_hit_rate"]})
+    return {"report": report, "result": res, "trainer": tr, "graph": g,
             "setup_s": t1 - t0}
 
 
@@ -168,7 +207,7 @@ def _add_obs_flags(p: argparse.ArgumentParser) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="Training (PyTorch port): full-batch GNN and LM")
+        description="Training (PyTorch port): GNN and LM")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     g = sub.add_parser("gnn")
@@ -189,12 +228,34 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["greedy", "uniform"])
     g.add_argument("--block", type=int, default=64)
     g.add_argument("--backend", default="kernel",
-                   choices=["kernel", "ref", "dense"],
+                   choices=["kernel", "ref", "dense", "auto"],
                    help="SpMM backend: the CUDA kernel (its plain version "
-                        "on --device cpu), the CPU-only streaming ref, or "
-                        "dense (scatter into a dense operand + matmul)")
-    g.add_argument("--eval-mode", default="auto", choices=["auto", "stream"])
-    g.add_argument("--minibatch", action="store_true")
+                        "on --device cpu), the CPU-only streaming ref, "
+                        "dense (scatter into a dense operand + matmul), or "
+                        "auto (the autotuner's decision per signature)")
+    g.add_argument("--eval-mode", default="auto", choices=["auto", "stream"],
+                   help="'stream' evaluates with the exact streaming "
+                        "full-graph forward instead of the source's "
+                        "full-graph / pooled evaluator")
+    g.add_argument("--stream-partitions", type=int, default=0,
+                   help="streaming-eval partition count (0 = size by "
+                        "--stream-budget-mb)")
+    g.add_argument("--stream-budget-mb", type=float, default=256.0,
+                   help="device-memory budget per streaming-eval partition")
+    g.add_argument("--minibatch", action="store_true",
+                   help="GraphSAINT subgraph-pool training (pipeline/)")
+    g.add_argument("--subgraphs", type=int, default=8)
+    g.add_argument("--pool-method", default="random_walk",
+                   choices=["random_walk", "ldg"])
+    g.add_argument("--roots", type=int, default=200)
+    g.add_argument("--walk-length", type=int, default=4)
+    g.add_argument("--buckets", type=int, default=2)
+    g.add_argument("--no-prefetch", action="store_true")
+    g.add_argument("--no-autotune", action="store_true",
+                   help="skip the per-bucket SpMM sweeps at startup")
+    g.add_argument("--no-saint-norm", action="store_true",
+                   help="disable GraphSAINT loss/aggregator bias "
+                        "correction on sampled pools")
     g.add_argument("--dp", type=int, default=0)
     g.add_argument("--mesh", default="")
     g.add_argument("--compress-grads", action="store_true")

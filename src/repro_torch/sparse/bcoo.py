@@ -9,8 +9,9 @@ A sparse matrix is stored as a list of dense (bm, bk) tiles:
 Sampling never moves tile data: a sampled operand is a new index list into
 ``blocks`` (a ``SamplePlan``), with padding entries pointing at the sentinel.
 
-The host side (``host_row_ptr``, ``BlockMeta``, ``HostBlockCOO``,
-``csr_to_bcoo_host``, ``degree_sort_permutation``) is a copy of
+The host side (``host_row_ptr``, ``BlockMeta``, ``HostBlockCOO`` with
+``pad_to``, ``pad_block_meta``, ``csr_to_bcoo_host``,
+``degree_sort_permutation``) is a copy of
 ``repro.sparse.bcoo`` and yields bit-identical arrays. The device operand
 ``BlockCOO`` is a dataclass of torch tensors; ``csr_to_bcoo`` builds one on
 the host, uploads it and keeps only the planner's ``BlockMeta``.
@@ -112,6 +113,36 @@ class HostBlockCOO:
     s_total: int
     row_ptr: np.ndarray | None = None  # (n_row_blocks + 1,) int32
 
+    def pad_to(self, n_blocks: int, s_pad: int) -> "HostBlockCOO":
+        """Pad to a bucket shape: ``n_blocks`` row/col blocks (square
+        operands only) and ``s_pad`` tiles.
+
+        Pad tiles are zero and sit at the last row block so ``row_ids``
+        stays sorted; they are no-ops under SpMM. Shape bucketing pads every
+        subgraph of a bucket to one shape.
+        """
+        if n_blocks < self.n_row_blocks or s_pad < self.s_total:
+            raise ValueError(
+                f"bucket ({n_blocks} blocks, {s_pad} tiles) smaller than "
+                f"operand ({self.n_row_blocks} blocks, {self.s_total} tiles)")
+        if n_blocks == self.n_row_blocks and s_pad == self.s_total:
+            return self
+        if self.n_row_blocks != self.n_col_blocks:
+            raise ValueError("pad_to supports square operands only")
+        extra = s_pad - self.s_total
+        blocks = np.zeros((s_pad + 1, self.bm, self.bk), dtype=np.float32)
+        blocks[: self.s_total] = self.blocks[: self.s_total]
+        row_ids = np.concatenate(
+            [self.row_ids, np.full(extra, n_blocks - 1, np.int32)])
+        col_ids = np.concatenate([self.col_ids, np.zeros(extra, np.int32)])
+        return HostBlockCOO(
+            blocks=blocks, row_ids=row_ids, col_ids=col_ids,
+            bm=self.bm, bk=self.bk,
+            n_rows=n_blocks * self.bm, n_cols=n_blocks * self.bk,
+            n_row_blocks=n_blocks, n_col_blocks=n_blocks,
+            s_total=s_pad,
+            row_ptr=host_row_ptr(row_ids, n_blocks))
+
     def to_device(self, device: str | torch.device,
                   dtype: torch.dtype = torch.float32) -> BlockCOO:
         row_ptr = (self.row_ptr if self.row_ptr is not None
@@ -131,6 +162,25 @@ class HostBlockCOO:
 
     def nbytes(self) -> int:
         return self.blocks.nbytes
+
+
+def pad_block_meta(meta: BlockMeta, n_col_blocks: int) -> BlockMeta:
+    """Extend planner metadata to a bucket-padded column-block count.
+
+    Padding blocks carry zero tiles and zero norms: the allocator treats
+    them as free zero-score columns and never selects them.
+    """
+    cur = meta.col_block_tiles.shape[0]
+    if n_col_blocks == cur:
+        return meta
+    if n_col_blocks < cur:
+        raise ValueError(f"cannot shrink meta from {cur} to {n_col_blocks}")
+    extra = n_col_blocks - cur
+    return BlockMeta(
+        row_ids=meta.row_ids, col_ids=meta.col_ids,
+        col_block_tiles=np.pad(meta.col_block_tiles, (0, extra)),
+        col_block_norm=np.pad(meta.col_block_norm, (0, extra)),
+        col_nnz=meta.col_nnz, col_norm=meta.col_norm)
 
 
 def degree_sort_permutation(adj: CSR) -> np.ndarray:

@@ -1,6 +1,6 @@
-"""Full-batch RSC training engine (single device).
+"""RSC training engine (single device): full batch or a subgraph pool.
 
-The port of ``repro.train.engine``'s single-device full-batch parts. The
+The port of ``repro.train.engine``'s single-device parts. The
 :class:`Engine` owns
 
 * the :class:`~repro_torch.core.schedule.RSCSchedule` (switch-back §3.3.2
@@ -10,12 +10,20 @@ The port of ``repro.train.engine``'s single-device full-batch parts. The
 * the steps (``rsc_step``, ``exact_step``, ``eval_logits`` from
   :func:`~repro_torch.train.steps.make_gnn_steps`; the reference's
   ``SingleDeviceRunner`` holds them, and the port has no other runner yet),
-* the history (loss, step time, mode, kept blocks) and evaluation.
+* the SpMM autotune warmup (``cfg.autotune``: delegated to the source,
+  which knows its shape buckets), before the first step,
+* the history (loss, step time, mode, kept blocks, subgraph id) and
+  evaluation: the source's own, or with ``eval_mode="stream"`` the exact
+  streaming full-graph forward (``infer.stream.StreamEvaluator``).
 
-A data source yields ``(tag, operands)`` batches per epoch and knows how to
-evaluate; :class:`FullGraphSource` is the whole graph as one batch resident
-on the device. Data parallelism, minibatch pools, checkpoints, probes and
-the streaming evaluator are not ported yet (ROADMAP.md Queue 1 items 4–8).
+A data source yields ``(tag, operands)`` batches per epoch — the tag is the
+plan-cache identity (``None`` for the full graph, a subgraph id for a
+pool) — says how many steps an epoch has and how many shape buckets it
+holds, and knows how to evaluate; :class:`FullGraphSource` is the whole
+graph as one batch resident on the device, and
+``pipeline.minibatch_loop.PooledSource`` a prefetched GraphSAINT subgraph
+pool. Data parallelism, checkpoints and probes are not ported yet
+(ROADMAP.md Queue 1 items 5, 6 and 8).
 
 Device reads per step: the loss (its value ends the step). The ∇H row
 norms stay on the device until a refresh is due, when the planner reads
@@ -61,6 +69,14 @@ class TrainConfig:
     backend: str = "kernel"      # "kernel" (CUDA kernel / plain version) |
                                  # "ref" (CPU streaming) | "dense" (matmul)
     block: int = 128             # bm == bk
+    degree_sort: bool = True
+    autotune: bool = False       # sweep the SpMM per shape bucket first
+    # Evaluation: "auto" keeps the source's evaluator (full graph / pooled
+    # with dedup); "stream" runs the exact streaming full-graph forward
+    # (repro_torch/infer), an exact measurement under minibatch training.
+    eval_mode: str = "auto"
+    stream_partitions: int = 0       # 0 = size by stream_budget_mb
+    stream_budget_mb: float = 256.0
     device: str = "cuda"         # "cpu" runs the kernels' plain versions
 
 
@@ -79,6 +95,9 @@ class NullPlanner:
 
     def flops_fraction(self) -> float:
         return 1.0
+
+    def hit_rate(self) -> float | None:
+        return None
 
     def stats(self):
         return None
@@ -116,6 +135,9 @@ class FullGraphPlanner:
     def flops_fraction(self) -> float:
         return self.cache.flops_fraction()
 
+    def hit_rate(self) -> float | None:
+        return None
+
     def stats(self):
         return self.cache.stats
 
@@ -131,12 +153,13 @@ class FullGraphPlanner:
 class FullGraphSource:
     """The whole graph as one batch, resident on the device, every step."""
 
+    n_buckets = 1
     steps_per_epoch = 1
 
     def __init__(self, graph, cfg: TrainConfig, module):
         self.device = resolve_device(cfg.device)
         self.ops, self.meta = build_operands(
-            graph, bm=cfg.block, bk=cfg.block,
+            graph, bm=cfg.block, bk=cfg.block, degree_sort=cfg.degree_sort,
             mean_agg=module.uses_mean_agg(), device=self.device)
         self.num_classes = graph.num_classes
         self.feat_dim = graph.features.shape[1]
@@ -153,6 +176,9 @@ class FullGraphSource:
         if self.mean_agg:
             return self.ops.amt, self.meta.amt_meta, self.meta.am_fro
         return self.ops.at, self.meta.at_meta, self.meta.a_fro
+
+    def warmup(self, cfg, dims, n_classes) -> None:
+        pass
 
     def batches(self, epoch: int):
         yield None, self.ops
@@ -172,11 +198,12 @@ class Engine:
 
     ``model`` (an ``nn.Module`` of ``cfg.model`` on the source's device)
     replaces the seeded initial parameters, e.g. with the reference's
-    carried across by ``convert.gnn_params_from_numpy``.
+    carried across by ``convert.gnn_params_from_numpy``. ``graph`` (the
+    full graph) is what ``eval_mode="stream"`` evaluates on.
     """
 
     def __init__(self, cfg: TrainConfig, source, *, planner=None,
-                 model=None):
+                 model=None, graph=None):
         self.cfg = cfg
         self.source = source
         self.module = MODELS[cfg.model]
@@ -198,12 +225,37 @@ class Engine:
         names = self.module.spmm_names(cfg.n_layers)
         dims = self.module.spmm_dims(cfg.n_layers, cfg.hidden,
                                      self.n_classes)
+        # Autotune warmup before the first step: dispatch reads the tuned
+        # configs from the process-wide cache at every launch.
+        if cfg.autotune:
+            source.warmup(cfg, dims, self.n_classes)
         self.rsc_step, self.exact_step, self.eval_logits = make_gnn_steps(
             self.module, self.opt, dims, names,
             dropout=cfg.dropout, backend=cfg.backend)
+
+        # Streaming full-graph evaluator: exact accuracy even when the
+        # source's own evaluator only covers pooled nodes.
+        self.stream_eval = None
+        if cfg.eval_mode == "stream":
+            if graph is None:
+                raise ValueError('eval_mode="stream" needs the full graph '
+                                 "(pass graph= to the engine factory)")
+            from repro_torch.infer.stream import (StreamConfig,
+                                                  StreamEvaluator)
+            self.stream_eval = StreamEvaluator(
+                graph, cfg.model,
+                StreamConfig(
+                    block=cfg.block,
+                    n_partitions=cfg.stream_partitions or None,
+                    memory_budget_mb=(None if cfg.stream_partitions
+                                      else cfg.stream_budget_mb),
+                    backend=cfg.backend, device=str(source.device)))
+        elif cfg.eval_mode != "auto":
+            raise ValueError(f"unknown eval_mode {cfg.eval_mode!r} "
+                             "(expected 'auto' or 'stream')")
         self.history: dict[str, list] = {
             "loss": [], "val": [], "test": [], "step_time": [],
-            "mode": [], "k": []}
+            "mode": [], "k": [], "sub_id": []}
 
     def train(self, epochs: int | None = None, eval_every: int = 10,
               verbose: bool = False) -> dict:
@@ -237,6 +289,8 @@ class Engine:
                 self.history["step_time"].append(time.perf_counter() - t0)
                 self.history["loss"].append(loss)
                 self.history["mode"].append("rsc" if use_rsc else "exact")
+                if tag is not None:
+                    self.history["sub_id"].append(tag)
                 if use_rsc:
                     k = self.planner.k_latest()
                     if k is not None:
@@ -259,11 +313,16 @@ class Engine:
             "best_test": best_test,
             "history": self.history,
             "cache_stats": self.planner.stats(),
-            "flops_fraction": self.planner.flops_fraction(),
+            "plan_hit_rate": self.planner.hit_rate(),
+            "flops_fraction": (self.planner.flops_fraction()
+                               if cfg.rsc else 1.0),
+            "n_buckets": self.source.n_buckets,
         }
 
     def evaluate(self, mfn=None) -> tuple[float, float]:
         mfn = mfn or metric_fn(self.cfg.metric)
+        if self.stream_eval is not None:
+            return self.stream_eval.evaluate(self.model, mfn)
         return self.source.evaluate(self.eval_logits, mfn,
                                     self.model)
 
@@ -280,4 +339,4 @@ def full_batch_engine(cfg: TrainConfig, graph, *, model=None) -> Engine:
         at, meta, fro = source.planner_operand()
         planner = FullGraphPlanner(cfg, module, at, meta, fro,
                                    source.num_classes, source.device)
-    return Engine(cfg, source, planner=planner, model=model)
+    return Engine(cfg, source, planner=planner, model=model, graph=graph)

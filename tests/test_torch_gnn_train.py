@@ -314,9 +314,9 @@ def test_cli_flags_run_on_cpu(capsys, flag, model):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--minibatch"], "item 4"), (["--dp", "4"], "item 8"),
+    (["--minibatch", "--dp", "2"], "item 8"), (["--dp", "4"], "item 8"),
     (["--mesh", "data:4"], "item 8"), (["--compress-grads"], "item 8"),
-    (["--eval-mode", "stream"], "item 7"), (["--metrics"], "item 6"),
+    (["--minibatch", "--mesh", "data:2"], "item 8"), (["--metrics"], "item 6"),
     (["--metrics-port", "0"], "item 6"), (["--trace-out", "t.json"], "item 6"),
     (["--trace-jsonl", "t.jsonl"], "item 6")])
 def test_cli_unported_flags_raise(flag, item):

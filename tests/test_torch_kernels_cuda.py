@@ -632,3 +632,36 @@ def test_gnn_train_on_cuda_matches_cpu(cuda):
         moved = a.detach() - start[k]
         err = (b.detach().cpu() - a.detach()).norm()
         assert float(err) <= TRAIN_DP_REL * float(moved.norm()), k
+
+
+@pytest.mark.parametrize("resident", [0, 2])
+def test_prefetcher_side_stream_matches_synchronous_upload(cuda, resident):
+    """The CUDA ``Prefetcher`` (pinned host copies, a side stream, an event
+    the consumer waits on, ``record_stream``) hands the step the same bits
+    as a synchronous upload, over two passes of a schedule, while the
+    consumer's stream is kept busy so a missing wait would show."""
+    from repro_torch.graphs.datasets import load_dataset
+    from repro_torch.pipeline import (PoolConfig, Prefetcher, build_pool,
+                                      device_operands)
+    from repro_torch.pipeline.prefetch import operand_tensors
+    g = load_dataset("reddit", scale=0.004, seed=0)
+    pool = build_pool(g, PoolConfig(n_subgraphs=4, roots=50, walk_length=2,
+                                    n_buckets=2, block=32))
+    schedule = [2, 0, 3, 1, 0, 2]
+    want = {sid: [t.cpu() for t in operand_tensors(
+        device_operands(pool, pool.subgraphs[sid], cuda))]
+        for sid in set(schedule)}
+    cache, pinned = None, {}
+    busy = torch.randn(4096, 4096, device=cuda)
+    for _ in range(2):
+        fetch = Prefetcher(pool, schedule, device=cuda, resident=resident,
+                           cache=cache, pinned=pinned)
+        for sid, ops_ in fetch:
+            busy = busy @ busy / 64.0       # the consumer's stream is busy
+            got = [t.clone() for t in operand_tensors(ops_)]
+            for a, b in zip(got, want[sid]):
+                assert torch.equal(a.cpu(), b)
+        cache = fetch._cache
+        assert fetch.uploads + fetch.resident_hits == len(schedule)
+    assert len(pinned) == 4 and all(
+        t.is_pinned() for ts in pinned.values() for t in ts.values())

@@ -344,9 +344,10 @@ def test_train_cli_defaults_to_cuda():
     (["lm", "--arch", "qwen3-1.7b", "--smoke", "--trace-out", "t.json"],
      "item 6"),
     (["lm", "--arch", "deepseek-v2-lite-16b", "--smoke"], "item 9c"),
-    # full-batch training is ported for every model; minibatch is item 4
-    (["gnn", "--model", "graphsage", "--minibatch", "--epochs", "2"],
-     "item 4"),
+    # full-batch and minibatch training are ported for every model; the
+    # data-parallel pools are item 8
+    (["gnn", "--model", "graphsage", "--minibatch", "--epochs", "2",
+      "--dp", "2"], "item 8"),
 ])
 def test_train_cli_unported_parts_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
