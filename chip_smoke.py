@@ -104,6 +104,28 @@ without the final ``{"ok": true, ...}`` line:
    time, hit rate, peak memory and a profiled epoch's busy share; the
    launches of one warm step re-run on their own inputs; the run without
    RSC, whose pooled best test RSC's must come within 0.07 of;
+8e. checkpoints and observability: (a) phase 7's run again through
+   ``launch.train gnn --metrics --trace-out --trace-jsonl --probe-every
+   20`` (phase 7's graph), launch counts set to 0 just before and read
+   just after: phase 7's 1,263 launches, all ``tf32x3``; ``engine.step_ms``
+   counts summing to the 200 steps; ``step``, ``plan``, ``device_step``,
+   ``eval`` and ``probe`` spans in both trace files; every allocation of
+   the ledger within its budget, the last one's achieved fraction equal
+   to ``flops_fraction``; finite probe gauges per op; it reports the warm
+   RSC step median beside phase 7's, the probe's ms per op and the trace
+   events written; (c, d) that run's model saved (host snapshot and
+   written file timed) and served through ``serve_gnn --ckpt-dir
+   --metrics --slo``: layers × partitions ``tf32x3`` launches, the saved
+   parameters served, one ``serve.query_ms`` observation per query
+   batch, an SLO report; (b) phase 8d's run again (its graph, pool and
+   tuned cache) with ``--metrics --trace-jsonl``: 8d's launches,
+   ``prefetch.uploads`` equal to the source's count, every training
+   upload span in the trace of the step that consumed it (two threads
+   each), plan-pool hits + refreshes + cold builds equal to the RSC
+   steps; (c) the small minibatch run with dropout 0.5 and a checkpoint
+   every 9 steps, uninterrupted and restored at step 9: the same losses
+   and final parameters bit for bit, and the same directory restored
+   into a full-batch engine of the model;
 9. LM serving (``flash_attention``): sweep the kernel against its plain
    version over b ∈ {1, 2}, (nq, nkv) ∈ {(16, 8), (14, 2), (4, 4), (8, 1)}
    (GQA ratios 2, 7, 1, 8), hd ∈ {64, 128}, f32 (variant ``fma``) and
@@ -148,11 +170,11 @@ without the final ``{"ok": true, ...}`` line:
     time, tokens/s and peak device memory;
 15. print each slice's JSON line (``slice``, ``bcoo_spmm_shapes``,
     ``gnn_train_slice``, ``gnn_models_slice``, ``minibatch_slice``,
-    ``lm_slice``,
+    ``obs_slice``, ``lm_slice``,
     ``lm_train_slice``), the build report, the kernel line (with the
     variant each kernel ran on its main path; ``bcoo_spmm``'s launches are
-    the three models' serving and RSC training runs' and the minibatch
-    run's), the card line and,
+    the three models' serving and RSC training runs', the minibatch
+    run's and phase 8e's), the card line and,
     last, the result line.
 
 Without a CUDA device it exits with code 2 and prints no result. It
@@ -285,6 +307,12 @@ MB_SMALL = dict(GNN_SMALL, epochs=8, n_subgraphs=4, n_buckets=2, roots=100,
 # the card), whose losses must be equal step for step, and without RSC.
 MB_EPOCHS = 40
 MB_RESIDENT = 8
+# Phase 8e: the full-width GCN run probes every OBS_PROBE_EVERY epochs (the
+# CLI's default is every epoch) on OBS_PROBE_ROWS row blocks per op; the
+# serving run's SLO is a p99 no query here comes near.
+OBS_PROBE_EVERY = 20
+OBS_PROBE_ROWS = 8
+OBS_SLO_P99_MS = 1000.0
 
 
 def train_argv(microbatches: int) -> list[str]:
@@ -1572,7 +1600,8 @@ def mb_main_path(train, ops, kmod, bcoo_spmm_ref, autotune, kernel_table,
     within the budget; a finite, falling loss; no autotune miss); the same
     pool again without prefetch and with every subgraph resident (losses
     equal step for step); the run without RSC; one warm step's launches.
-    Returns the main run's launches and the slice's report."""
+    Returns the main run's launches, the slice's report, the graph and
+    the pool."""
     if AUTOTUNE_CACHE.exists():
         AUTOTUNE_CACHE.unlink()
     cache = autotune.reset(AUTOTUNE_CACHE)
@@ -1670,7 +1699,351 @@ def mb_main_path(train, ops, kmod, bcoo_spmm_ref, autotune, kernel_table,
         "autotune": {"stats": dataclasses.asdict(cache.stats),
                      "tuned": tuned},
         "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
-        "modes": modes, "launch_rows": rows}
+        "modes": modes, "launch_rows": rows}, graph, pool
+
+
+# ------------------------------------------- observability and checkpoints
+
+def _spans(events, kind_key: str) -> dict[str, list]:
+    """Span records by name (``kind_key``: the JSONL's ``kind`` == span,
+    or the Chrome trace's ``ph`` == X)."""
+    out: dict[str, list] = {}
+    for e in events:
+        if e.get(kind_key) in ("span", "X"):
+            out.setdefault(e["name"], []).append(e)
+    return out
+
+
+def _rsc_step_median(res) -> float:
+    """Warm RSC step median (ms) of a training run, past its first 3."""
+    modes = np.asarray(res["history"]["mode"])
+    ms = np.asarray(res["history"]["step_time"]) * 1e3
+    return float(np.median(ms[modes == "rsc"][3:]))
+
+
+def obs_full_batch(train, ops, scale: float, graph, phase7: dict):
+    """Phase 8e (a): phase 7's full-width GCN RSC run through ``launch.train
+    gnn`` with ``--metrics --trace-out --trace-jsonl --probe-every
+    OBS_PROBE_EVERY``, launch counts set to 0 just before and read just
+    after: phase 7's launches (6 per step, 3 per evaluation, all
+    ``tf32x3``); ``engine.step_ms`` counts summing to the steps; the
+    ``step``/``plan``/``device_step``/``eval``/``probe`` spans in both
+    trace files; every allocation within its budget and the last one's
+    achieved fraction equal to ``flops_fraction``; finite probe gauges per
+    op. Reports the probe's ms per op, the trace events written and the
+    warm RSC step median beside phase 7's and beside those of the same
+    run with observability off, in turns on, off, off, on (the off runs
+    and the second on run after the counted one; one graph). Returns (its
+    run, its report)."""
+    from repro_torch import obs
+    from repro_torch.models.gnn import MODELS
+    chrome = ROOT / "chiprun_out" / "obs_gnn_trace.json"
+    jsonl = ROOT / "chiprun_out" / "obs_gnn_trace.jsonl"
+    jsonl.parent.mkdir(parents=True, exist_ok=True)
+    argv = gnn_argv(scale, rsc=True) + [
+        "--metrics", "--trace-out", str(chrome), "--trace-jsonl",
+        str(jsonl), "--probe-every", str(OBS_PROBE_EVERY)]
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.run_gnn(train.build_parser().parse_args(argv), graph=graph)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    by_var = ops.launch_counts_by_variant()["bcoo_spmm"]
+    ledger = obs.get_ledger().snapshot()
+    obs.reset()
+    res, rep = out["result"], out["report"]
+    hist, snap = res["history"], rep["metrics"]
+    steps, evals = len(hist["loss"]), len(hist["val"])
+    module, layers = MODELS["gcn"], GNN_WIDTHS["gcn"][0]
+    names = module.spmm_names(layers)
+    want = gnn_launches(module, layers, steps, evals)
+    if counts["bcoo_spmm"] != want or want != phase7["launches"] or \
+            by_var["tf32x3"] != want:
+        raise AssertionError(f"launches {counts} by variant {by_var}, "
+                             f"expected phase 7's {phase7['launches']}, all "
+                             f"tf32x3")
+    step_counts = {k: h["count"] for k, h in snap["histograms"].items()
+                   if k.startswith("engine.step_ms")}
+    if sum(step_counts.values()) != steps:
+        raise AssertionError(f"engine.step_ms counts {step_counts} do not "
+                             f"sum to the {steps} steps")
+    recs = [json.loads(x) for x in jsonl.read_text().splitlines()]
+    cev = json.loads(chrome.read_text())["traceEvents"]
+    need = {"step", "plan", "device_step", "eval", "probe"}
+    by_name, c_names = _spans(recs, "kind"), set(_spans(cev, "ph"))
+    if not need <= set(by_name) or not need <= c_names:
+        raise AssertionError(f"spans missing: jsonl {sorted(by_name)}, "
+                             f"chrome {sorted(c_names)}")
+    allocs = [a for row in ledger["epochs"] for a in row["allocations"]]
+    last = allocs[-1]
+    achieved = last["cost"] / last["budget"] * 0.1
+    if not all(a["ok"] for a in allocs) or last["cost"] > last["budget"] \
+            or abs(achieved - res["flops_fraction"]) > 1e-9:
+        raise AssertionError(f"ledger: allocations {allocs[-2:]}, achieved "
+                             f"{achieved} against flops fraction "
+                             f"{res['flops_fraction']}")
+    gauges = {n: snap["gauges"].get(f"rsc.probe.rel_error{{layer={n}}}")
+              for n in names}
+    if not all(g is not None and np.isfinite(g) for g in gauges.values()):
+        raise AssertionError(f"probe gauges {gauges}")
+    rsc_ms = _rsc_step_median(res)
+    turns = {"on": [rsc_ms], "off": []}
+    for on in (False, False, True):
+        extra = ["--metrics", "--trace-jsonl", str(jsonl.with_suffix(
+            ".again.jsonl")), "--probe-every", str(OBS_PROBE_EVERY)]
+        o = train.run_gnn(train.build_parser().parse_args(
+            gnn_argv(scale, rsc=True) + (extra if on else [])), graph=graph)
+        obs.reset()
+        turns["on" if on else "off"].append(_rsc_step_median(o["result"]))
+        del o
+        torch.cuda.empty_cache()
+    overhead = float(np.mean(turns["on"]) - np.mean(turns["off"]))
+    probe_ms = [e["dur_us"] / 1e3 / len(names) for e in by_name["probe"]]
+    # the counted run's RSC steps from its trace, past the first 3: the
+    # step span, its device_step (launch to loss read) and plan spans, and
+    # the rest of the step (the planner's record, the ledger, the spans')
+    rsc = [i for i, e in enumerate(by_name["step"])
+           if e["args"]["mode"] == "rsc"][3:]
+    dev_rsc = [e for e in by_name["device_step"] if e["args"]["mode"] ==
+               "rsc"]
+
+    def med_ms(xs):
+        return float(np.median(xs)) / 1e3
+
+    inner = {"step": med_ms([by_name["step"][i]["dur_us"] for i in rsc]),
+             "device_step": med_ms([e["dur_us"] for e in dev_rsc[3:]]),
+             "plan": med_ms([e["dur_us"] for e in by_name["plan"][3:]]),
+             "rest": med_ms([by_name["step"][i]["dur_us"]
+                             - by_name["plan"][j]["dur_us"]
+                             - dev_rsc[j]["dur_us"]
+                             for j, i in enumerate(rsc, start=3)])}
+    row = {"argv": argv, "run_s": wall, "steps": steps, "evaluations": evals,
+           "launches": counts["bcoo_spmm"],
+           "rsc_step_ms_median": rsc_ms,
+           "phase7_rsc_step_ms_median": phase7["warm"]["rsc_step_ms_median"],
+           "rsc_step_ms_median_turns": turns, "obs_overhead_ms": overhead,
+           "rsc_step_spans_ms_median": inner,
+           "probe_ms_per_op": probe_ms,
+           "probe_ms_per_op_median": float(np.median(probe_ms)),
+           "probes": len(probe_ms), "probe_rel_error": gauges,
+           "trace_events_jsonl": len(recs), "trace_events_chrome": len(cev),
+           "allocations": len(allocs), "achieved_fraction": achieved,
+           "flops_fraction": res["flops_fraction"],
+           "ledger": rep["ledger"], "step_ms_counts": step_counts}
+    say(f"[obs gnn] {steps} steps, {evals} evaluations, launches "
+        f"{counts['bcoo_spmm']} (phase 7 {phase7['launches']}), all tf32x3; "
+        f"rsc step median {rsc_ms:.3f} ms with metrics, traces, ledger and "
+        f"probes (phase 7: {row['phase7_rsc_step_ms_median']:.3f} ms; in "
+        f"turns on {turns['on']}, off {turns['off']}: overhead "
+        f"{overhead:+.3f} ms per step; its spans' medians {inner}); probe "
+        f"{row['probe_ms_per_op_median']:.2f} ms per op (median of "
+        f"{len(probe_ms)}, every {OBS_PROBE_EVERY} epochs, "
+        f"{OBS_PROBE_ROWS} rows); trace events {len(recs)} (jsonl), "
+        f"{len(cev)} (chrome); {len(allocs)} allocations within budget, "
+        f"last achieved {achieved:.6f} = flops fraction; probe rel. error "
+        f"{gauges}")
+    return out, row
+
+
+def obs_minibatch(train, ops, graph, pool, phase8d: dict):
+    """Phase 8e (b): phase 8d's full-width minibatch run (its graph, pool
+    and tuned cache) with ``--metrics --trace-jsonl``, launch counts set
+    to 0 just before and read just after (6 per step and 3 per subgraph
+    per pooled evaluation, as 8d, no sweep): ``prefetch.uploads`` equals
+    the source's uploads, every training upload span shares its trace id
+    with the step span that consumed it, and the plan pool's hits,
+    refreshes and cold builds add up to the RSC steps."""
+    from repro_torch import obs
+    jsonl = ROOT / "chiprun_out" / "obs_minibatch_trace.jsonl"
+    argv = mb_argv() + ["--metrics", "--trace-jsonl", str(jsonl)]
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.run_gnn(train.build_parser().parse_args(argv), graph=graph,
+                        pool=pool)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    by_var = ops.launch_counts_by_variant()["bcoo_spmm"]
+    obs.reset()
+    res, snap = out["result"], out["report"]["metrics"]
+    hist = res["history"]
+    tr = out["trainer"]
+    steps, evals, n_sub = len(hist["loss"]), len(hist["val"]), len(pool)
+    want = 6 * steps + 3 * n_sub * evals
+    if counts["bcoo_spmm"] != want or by_var["tf32x3"] != want:
+        raise AssertionError(f"launches {counts} by variant {by_var}, "
+                             f"expected {want} tf32x3")
+    src = tr.engine.source
+    uploads = snap["counters"].get("prefetch.uploads", 0.0)
+    if uploads != src.transfer_stats()["uploads"]:
+        raise AssertionError(f"prefetch.uploads {uploads}, the source "
+                             f"counted {src.transfer_stats()}")
+    recs = [json.loads(x) for x in jsonl.read_text().splitlines()]
+    by_trace: dict = {}
+    for e in recs:
+        if e["kind"] == "span" and e.get("trace"):
+            by_trace.setdefault(e["trace"], []).append(e)
+    linked = [v for v in by_trace.values()
+              if {"upload", "step"} <= {e["name"] for e in v}]
+    train_uploads = src.transfer_stats("train")["uploads"]
+    threads = {len({e["tid"] for e in v}) for v in linked}
+    if len(linked) != train_uploads or train_uploads != steps or \
+            threads != {2}:
+        raise AssertionError(f"{len(linked)} traces link an upload to its "
+                             f"step ({train_uploads} training uploads, "
+                             f"{steps} steps, threads per trace {threads})")
+    pp = {k: snap["counters"].get(f"plan_pool.{k}{{pool=pool}}", 0.0)
+          for k in ("hits", "refreshes", "cold")}
+    n_rsc = hist["mode"].count("rsc")
+    if sum(pp.values()) != n_rsc:
+        raise AssertionError(f"plan pool counters {pp}, {n_rsc} rsc steps")
+    modes = np.asarray(hist["mode"])
+    rsc_ms = (np.asarray(hist["step_time"]) * 1e3)[modes == "rsc"][n_sub:]
+    up = snap["histograms"]["prefetch.upload_ms"]
+    stall = snap["histograms"]["prefetch.stall_ms"]
+    row = {"argv": argv, "run_s": wall, "steps": steps,
+           "launches": counts["bcoo_spmm"],
+           "rsc_step_ms_median": float(np.median(rsc_ms)),
+           "phase8d_rsc_step_ms_median":
+           phase8d["modes"][0]["rsc_step_ms_median"],
+           "uploads": uploads, "linked_traces": len(linked),
+           "plan_pool": pp, "upload_ms": up, "stall_ms": stall,
+           "refresh_ms": snap["histograms"].get(
+               "plan_pool.refresh_ms{pool=pool}"),
+           "trace_events_jsonl": len(recs)}
+    say(f"[obs minibatch] {steps} steps, launches {counts['bcoo_spmm']}; "
+        f"prefetch.uploads {uploads:.0f} = the source's; {len(linked)} "
+        f"upload spans share their trace with the step that used them "
+        f"(two threads each); plan pool {pp} = {n_rsc} rsc steps; rsc step "
+        f"median {row['rsc_step_ms_median']:.3f} ms (8d: "
+        f"{row['phase8d_rsc_step_ms_median']:.3f} ms); upload_ms p50 "
+        f"{up['p50']:.2f} p99 {up['p99']:.2f}, stall_ms p50 "
+        f"{stall['p50']:.2f}; {len(recs)} trace events")
+    return row
+
+
+def obs_resume(dev) -> dict:
+    """Phase 8e (c): ``MB_SMALL`` with dropout 0.5 and a checkpoint every
+    9 steps on the card, uninterrupted and restored at step 9 (mid-epoch):
+    losses and final parameters compared step for step; then the same
+    directory restored into a full-batch Engine of the same model."""
+    import shutil
+    from repro_torch.graphs.synthetic import sbm_graph
+    from repro_torch.pipeline import MinibatchConfig, MinibatchTrainer
+    from repro_torch.train.loop import GNNTrainer, TrainConfig
+    d = ROOT / "chiprun_out" / "obs_resume_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    g = sbm_graph(**GNN_GRAPH)
+    cfg = MinibatchConfig(**dict(MB_SMALL, dropout=0.5, epochs=6),
+                          ckpt_dir=str(d),
+                          ckpt_every=9, device=str(dev))
+    a = MinibatchTrainer(cfg, g)
+    ra = a.train(eval_every=2)
+    b = MinibatchTrainer(cfg, g)
+    step = b.engine.restore(step=9)
+    rb = b.train(eval_every=2)
+    la, lb = ra["history"]["loss"][9:], rb["history"]["loss"]
+    params_equal = all(torch.equal(x, y) for x, y in zip(
+        a.params.parameters(), b.params.parameters()))
+    exact = la == lb and params_equal
+    loss_err = float(np.max(np.abs(np.subtract(la, lb)) / np.abs(la)))
+    fields = {f.name for f in dataclasses.fields(TrainConfig)}
+    full = GNNTrainer(TrainConfig(**{k: v for k, v in cfg.__dict__.items()
+                                     if k in fields and k != "ckpt_every"}),
+                      g)
+    full_step = full.engine.restore()
+    layout_ok = all(torch.equal(x, y) for x, y in zip(
+        a.params.parameters(), full.params.parameters()))
+    say(f"[obs resume] minibatch gcn {MB_SMALL['n_layers']}x"
+        f"{MB_SMALL['hidden']}, dropout 0.5, RSC, checkpoint every 9: "
+        f"restored at step {step} of {len(ra['history']['loss'])}, "
+        f"{len(lb)} steps on; losses and final parameters bit-identical: "
+        f"{exact} (largest loss difference {loss_err:.3e}); the final "
+        f"checkpoint (step {full_step}) restored into a full-batch Engine: "
+        f"parameters equal {layout_ok}")
+    if step != 9 or rb["history"]["sub_id"] != ra["history"]["sub_id"][9:]:
+        raise AssertionError("the resumed run did not continue at step 9 "
+                             "in the same subgraph order")
+    np.testing.assert_allclose(lb, la, rtol=GNN_LOSS_RTOL)
+    if not exact:
+        raise AssertionError("the resumed run is not bit-identical")
+    if not layout_ok or full_step != len(ra["history"]["loss"]):
+        raise AssertionError("the full-batch engine did not restore the "
+                             "minibatch run's parameters")
+    return {"steps": len(ra["history"]["loss"]), "restored_at": step,
+            "bit_identical": exact, "max_loss_rel_diff": loss_err,
+            "full_batch_restore_step": full_step}
+
+
+def obs_save_and_serve(serve_gnn, ops, scale: float, out) -> dict:
+    """Phase 8e (c, d): save (a)'s full-width GCN (host snapshot, then the
+    written file), then serve it through ``serve_gnn --ckpt-dir --metrics
+    --slo``, launch counts set to 0 just before and read just after:
+    layers × partitions ``tf32x3`` launches, the restored parameters equal
+    the saved ones, one ``serve.query_ms`` observation per query batch,
+    an SLO report."""
+    import shutil
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.convert import gnn_state_tree
+    d = ROOT / "chiprun_out" / "obs_gnn_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    eng = out["trainer"].engine
+    ck = Checkpointer(d)
+    saves = []
+    for step in (199, 200):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(step, gnn_state_tree(eng.model, eng.opt_state))
+        t1 = time.perf_counter()
+        ck.wait()
+        saves.append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
+    size = (d / "step_200.npz").stat().st_size
+    layers, hidden = GNN_WIDTHS["gcn"]
+    argv = ["--dataset", "reddit", "--scale", str(scale), "--model", "gcn",
+            "--layers", str(layers), "--hidden", str(hidden), "--block",
+            "128", "--memory-budget-mb", "2048", "--replicas", "0",
+            "--queries", "256", "--query-batch", "64", "--device",
+            eng.source.device.type, "--ckpt-dir", str(d), "--metrics", "--slo",
+            f"p99_ms={OBS_SLO_P99_MS}"]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    report, server = serve_gnn.run(serve_gnn.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    by_var = ops.launch_counts_by_variant()["bcoo_spmm"]
+    want = layers * server.si.n_partitions
+    same = all(torch.equal(x, y) for x, y in zip(
+        eng.model.parameters(), server.si.params.parameters()))
+    h = report["metrics"]["histograms"]["serve.query_ms{replica=r0}"]
+    slo = report.get("slo", {})
+    say(f"[obs save] full-width gcn checkpoint ({size / 1e6:.2f} MB): "
+        f"host snapshot {saves[-1][0]:.2f} ms, written "
+        f"{saves[-1][1]:.2f} ms (first save {saves[0][0]:.2f} / "
+        f"{saves[0][1]:.2f} ms)")
+    say(f"[obs serve] restored and served in {wall:.2f} s: launches "
+        f"{counts['bcoo_spmm']} ({want} expected, by variant {by_var}); "
+        f"parameters equal the saved ones: {same}; serve.query_ms count "
+        f"{h['count']} for {report['query_batches']} batches, p50 "
+        f"{h['p50']:.3f} ms p99 {h['p99']:.3f} ms; slo {slo.get('objectives')}")
+    if counts["bcoo_spmm"] != want or by_var["tf32x3"] != want:
+        raise AssertionError(f"serving launches {counts} {by_var}, "
+                             f"expected {want} tf32x3")
+    if not same:
+        raise AssertionError("served parameters differ from the saved ones")
+    if h["count"] != report["query_batches"] or \
+            "p99_ms" not in slo.get("objectives", {}):
+        raise AssertionError(f"query histogram {h} / slo report {slo}")
+    del server
+    torch.cuda.empty_cache()
+    return {"checkpoint_bytes": size,
+            "save_host_snapshot_ms": [s[0] for s in saves],
+            "save_written_ms": [s[1] for s in saves],
+            "serve_run_s": wall, "serve_launches": counts["bcoo_spmm"],
+            "query_ms": h, "slo": slo}
 
 
 # ------------------------------------------------------------ LM phases
@@ -2214,6 +2587,7 @@ def main(argv=None) -> int:
     gnn_slice["small_reference"] = gnn_ref
     gnn_slice.update(gnn_train_timings(gnn_out, ops, kmod, bcoo_spmm_ref,
                                        kernel_table, dev))
+    gnn_graph = gnn_out["graph"]
     del gnn_out
     gnn_slice["exact_run"] = gnn_train_exact_run(train, ops, args.scale)
     rsc_best = gnn_slice["report"]["best_test"]
@@ -2240,9 +2614,20 @@ def main(argv=None) -> int:
         models_slice[model] = m_slice
         torch.cuda.empty_cache()
     mb_small = mb_small_reference(ops, dev)
-    mb_launches, mb_slice = mb_main_path(train, ops, kmod, bcoo_spmm_ref,
-                                         autotune, kernel_table, dev)
+    mb_launches, mb_slice, mb_graph, mb_pool = mb_main_path(
+        train, ops, kmod, bcoo_spmm_ref, autotune, kernel_table, dev)
     mb_slice["small_reference"] = mb_small
+    torch.cuda.empty_cache()
+    obs_out, obs_gnn = obs_full_batch(train, ops, args.scale, gnn_graph,
+                                      gnn_slice)
+    obs_slice = {"full_batch": obs_gnn,
+                 "save_serve": obs_save_and_serve(serve_gnn, ops, args.scale,
+                                                  obs_out)}
+    del obs_out, gnn_graph
+    obs_slice["minibatch"] = obs_minibatch(train, ops, mb_graph, mb_pool,
+                                           mb_slice)
+    del mb_graph, mb_pool
+    obs_slice["resume"] = obs_resume(dev)
     torch.cuda.empty_cache()
     flash_res = flash_sweep(ops, fmod, flash_attention_ref, dev)
     lm_ref_err = lm_small_reference(serve, smoke_config, make_batch,
@@ -2277,7 +2662,9 @@ def main(argv=None) -> int:
         "variant": hidden["variant"],
         "launches": launches + gnn_slice["launches"] + mb_launches + sum(
             models_slice[m]["launches"] + serving[m]["launches"]
-            for m in serving),
+            for m in serving) + obs_gnn["launches"]
+        + obs_slice["minibatch"]["launches"]
+        + obs_slice["save_serve"]["serve_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": hidden["ms"], "plain_ms": hidden["plain_ms"],
         "bound_ms": hidden["bound_ms"], "bound_by": hidden["bound_by"],
@@ -2312,6 +2699,7 @@ def main(argv=None) -> int:
     say(json.dumps({"gnn_train_slice": gnn_slice}))
     say(json.dumps({"gnn_models_slice": models_slice}))
     say(json.dumps({"minibatch_slice": mb_slice}))
+    say(json.dumps({"obs_slice": obs_slice}))
     say(json.dumps({"lm_slice": {
         "report": lm_report, "run_s": lm_run_s,
         "launches": lm_launches, "warm": lm_warm,

@@ -15,6 +15,11 @@ GCNII one per layer, the last included. ``nn.Linear.weight`` is
 ``(d_out, d_in)``, so ``w`` is transposed exactly once here. The tree holds
 numpy arrays (``jax.device_get`` of the reference's params gives them);
 this module imports no JAX.
+
+The same mappings give the training state in the reference's checkpoint
+layout (``gnn_state_tree`` / ``lm_state_tree``: ``(params, {"count", "m",
+"v"})``, Adam's moments keyed like the parameters), so each package
+restores the other's checkpoints.
 """
 from __future__ import annotations
 
@@ -236,3 +241,192 @@ def lm_params_to_numpy(net, cfg) -> dict:
         for i in range(n_pat)) if cfg.repeats else ()
     tree["suffix"] = layers[n_pre + cfg.repeats * n_pat:]
     return tree
+
+
+# ------------------------------------------------------------ training state
+def _gnn_pairs(model) -> list[tuple[tuple, torch.nn.Parameter, bool]]:
+    """(reference tree path, parameter, stored transposed) of every
+    parameter of a GCN, GraphSAGE or GCNII."""
+    def linear(path, lin):
+        return [(path + ("w",), lin.weight, True),
+                (path + ("b",), lin.bias, False)]
+
+    if isinstance(model, GCNII):
+        lins = [(("proj_in",), model.proj_in),
+                *((("w", i), l) for i, l in enumerate(model.w)),
+                (("proj_out",), model.proj_out)]
+        n = len(model.w)
+    elif isinstance(model, GraphSAGE):
+        lins = [*((("self", i), l) for i, l in enumerate(model.self_lin)),
+                *((("neigh", i), l) for i, l in enumerate(model.neigh_lin))]
+        n = len(model.self_lin)
+    elif isinstance(model, GCN):
+        lins = [(("lin", i), l) for i, l in enumerate(model.lin)]
+        n = len(model.lin)
+    else:
+        raise TypeError(f"not a GNN of the port: {type(model).__name__}")
+    out = [p for path, lin in lins for p in linear(path, lin)]
+    for l in range(n):
+        bn = model.batchnorm(l)
+        if bn is not None:
+            out += [(("bn", l, "g"), bn.weight, False),
+                    (("bn", l, "b"), bn.bias, False)]
+    return out
+
+
+def gnn_param_paths(model) -> dict[str, tuple[tuple, bool]]:
+    """``{parameter name: (reference tree path, stored transposed)}``."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    paths = {names[id(p)]: (path, tr) for path, p, tr in _gnn_pairs(model)}
+    if len(paths) != len(names):
+        raise ValueError(f"{len(names) - len(paths)} parameters of "
+                         f"{type(model).__name__} have no reference path")
+    return paths
+
+
+def _nest(flat: dict[tuple, object]):
+    """A tree of dicts (str keys) and lists (int keys; gaps ``None``)."""
+    def build(items):
+        heads = {}
+        for path, v in items:
+            heads.setdefault(path[0], []).append((path[1:], v))
+        kids = {k: (vs[0][1] if vs[0][0] == () else build(vs))
+                for k, vs in heads.items()}
+        if all(isinstance(k, int) for k in kids):
+            return [kids.get(i) for i in range(max(kids) + 1)]
+        return kids
+    return build(list(flat.items()))
+
+
+def _get(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def gnn_state_tree(model, opt_state: dict) -> tuple:
+    """``(params, opt_state)`` in the reference's tree layout: the leaves
+    are the port's tensors (``w`` as a transposed view), the step count an
+    int32 scalar, as ``repro``'s ``Adam.init`` keeps it."""
+    paths = gnn_param_paths(model)
+
+    def tree(named):
+        return _nest({paths[n][0]: (t.t() if paths[n][1] else t)
+                      for n, t in named.items()})
+    return (tree(dict(model.named_parameters())),
+            {"count": np.int32(opt_state["count"]),
+             "m": tree(opt_state["m"]), "v": tree(opt_state["v"])})
+
+
+@torch.no_grad()
+def load_gnn_state(model, opt_state: dict, tree: tuple) -> dict:
+    """Copy a ``gnn_state_tree``-shaped tree into ``model``'s parameters;
+    returns the optimizer state it holds (moments as tensors like the
+    parameters')."""
+    params, opt = tree
+    named = dict(model.named_parameters())
+    out = {"m": {}, "v": {}, "count": int(opt["count"])}
+    for name, (path, tr) in gnn_param_paths(model).items():
+        named[name].copy_(_unview(_get(params, path), tr))
+        for k in ("m", "v"):
+            out[k][name] = _unview(_get(opt[k], path), tr).to(
+                device=opt_state[k][name].device,
+                dtype=opt_state[k][name].dtype).contiguous()
+    return out
+
+
+def _unview(x: torch.Tensor, transposed: bool) -> torch.Tensor:
+    return x.t() if transposed else x
+
+
+def _named_tree(named: dict) -> dict:
+    """Dotted parameter names as a tree of dicts."""
+    tree: dict = {}
+    for name, v in named.items():
+        *head, last = name.split(".")
+        node = tree
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return tree
+
+
+def _dotted(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_dotted(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def lm_tree(named: dict[str, torch.Tensor], cfg) -> dict:
+    """``{parameter name: tensor}`` of the port's ``LM`` (parameters or
+    anything keyed like them, such as Adam's moments) as the reference's
+    tree: the pattern's layers stacked over the repeats into ``blocks``.
+    Leaves are CPU tensors (the stacks are made on the host)."""
+    tree = _named_tree({n: t.detach().cpu() for n, t in named.items()})
+    layers = tree.pop("layers", {})
+    layers = [layers.get(str(i), {}) for i in range(cfg.n_layers)]
+    n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    tree["prefix"] = layers[:n_pre]
+    tree["blocks"] = tuple(
+        stack([layers[n_pre + r * n_pat + i] for r in range(cfg.repeats)])
+        for i in range(n_pat)) if cfg.repeats else ()
+    tree["suffix"] = layers[n_pre + cfg.repeats * n_pat:]
+    return tree
+
+
+def lm_named(tree: dict, cfg) -> dict[str, torch.Tensor]:
+    """The inverse of ``lm_tree``: ``{parameter name: tensor}``."""
+    n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
+    top = {k: v for k, v in tree.items()
+           if k not in ("prefix", "blocks", "suffix")}
+    out = _dotted(top)
+    for i, sub in enumerate(tree.get("prefix", [])):
+        out.update(_dotted(sub, f"layers.{i}."))
+    for i, blk in enumerate(tree.get("blocks") or ()):
+        for name, x in _dotted(blk).items():
+            for r in range(cfg.repeats):
+                out[f"layers.{n_pre + r * n_pat + i}.{name}"] = x[r]
+    first = n_pre + cfg.repeats * n_pat
+    for i, sub in enumerate(tree.get("suffix", [])):
+        out.update(_dotted(sub, f"layers.{first + i}."))
+    return out
+
+
+def lm_state_tree(net, opt_state: dict, cfg) -> tuple:
+    """``(params, opt_state)`` of the port's LM in the reference's tree
+    layout (CPU tensors; the step count an int32 scalar)."""
+    return (lm_tree(dict(net.named_parameters()), cfg),
+            {"count": np.int32(opt_state["count"]),
+             "m": lm_tree(opt_state["m"], cfg),
+             "v": lm_tree(opt_state["v"], cfg)})
+
+
+@torch.no_grad()
+def load_lm_state(net, opt_state: dict, tree: tuple, cfg) -> dict:
+    """Copy an ``lm_state_tree``-shaped tree into ``net``'s parameters;
+    returns the optimizer state it holds."""
+    params, opt = tree
+    named = dict(net.named_parameters())
+    got = lm_named(params, cfg)
+    if set(got) != set(named):
+        raise ValueError(f"checkpoint parameters differ from the model's: "
+                         f"{sorted(set(got) ^ set(named))[:4]}")
+    for n, p in named.items():
+        p.copy_(got[n])
+    out = {"count": int(opt["count"])}
+    for k in ("m", "v"):
+        out[k] = {n: x.to(device=opt_state[k][n].device,
+                          dtype=opt_state[k][n].dtype).contiguous()
+                  for n, x in lm_named(opt[k], cfg).items()}
+    return out

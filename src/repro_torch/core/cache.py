@@ -36,6 +36,13 @@ from repro_torch.sparse.bcoo import BlockCOO, BlockMeta
 BUCKET_FRAC = 1 / 16
 
 
+def host_norms(norms: dict) -> dict[str, np.ndarray]:
+    """∇H row norms as host arrays (tensors on any device, or arrays): what
+    ``PlanCache.refresh`` takes and a checkpoint keeps."""
+    return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)) for k, v in norms.items()}
+
+
 @dataclasses.dataclass
 class OpEntry:
     name: str

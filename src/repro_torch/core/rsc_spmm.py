@@ -47,6 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.plan import SamplePlan
 from repro_torch.sparse.bcoo import BlockCOO, host_row_ptr
 
@@ -122,10 +123,10 @@ def spmm_apply(
     """
     if backend == "auto":
         from repro_torch.kernels import autotune
-        cfg = autotune.lookup(autotune.signature(
+        sig = autotune.signature(
             "auto", bm=bm, bk=bk, d=h.shape[-1], s_pad=plan.s_pad,
-            n_row_blocks=n_row_blocks, n_col_blocks=h.shape[0] // bk),
-            d=h.shape[-1])
+            n_row_blocks=n_row_blocks, n_col_blocks=h.shape[0] // bk)
+        cfg = autotune.lookup(sig, d=h.shape[-1])
         on_card = h.device.type == "cuda"
         if cfg.source == "default":
             backend = "kernel" if on_card else "ref"
@@ -134,6 +135,7 @@ def spmm_apply(
                              "the CPU; re-tune this signature on the card")
         else:
             backend = cfg.backend
+        obs.get_ledger().note_backend(sig, backend)
         if chunk is None:
             chunk = cfg.chunk
     if backend == "kernel":

@@ -18,6 +18,7 @@ import time
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.graphs.synthetic import GraphData
 from repro_torch.infer.stream import StreamConfig, StreamingInference
 from repro_torch.obs.clock import GuardedClock
@@ -65,6 +66,8 @@ class NodeServer:
             layer_store=list(self.si.layer_store),
             bn_stats=dict(self.si.bn_stats), ctx_store=self.si.ctx_store,
             applied_seq=0, created_at=time.time())
+        obs.get_registry().gauge("serve.build_seconds", self.build_seconds,
+                                 replica=self.name)
 
     @property
     def n_nodes(self) -> int:
@@ -102,6 +105,9 @@ class NodeServer:
         with self._lock:
             self.queries += ids.size
             self.query_seconds += dt
+        reg = obs.get_registry()
+        reg.observe("serve.query_ms", dt * 1e3, replica=self.name)
+        reg.counter("serve.queries", float(ids.size), replica=self.name)
         return out
 
     def predict(self, node_ids) -> np.ndarray:

@@ -27,10 +27,12 @@ RSC-sampled partitions, LDG partitioning, ``update_operand`` and
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.plan import SamplePlan
 from repro_torch.core.rsc_spmm import spmm_apply
 from repro_torch.device import resolve_device
@@ -246,16 +248,21 @@ class StreamingInference:
             slab = fn(pre_params, slab)
         return slab
 
-    def _spmm_layer(self, h: np.ndarray, pre) -> np.ndarray:
-        """SpMM(operand, pre(h)) for every row, one partition at a time."""
+    def _spmm_layer(self, l: int, h: np.ndarray, pre) -> np.ndarray:
+        """SpMM(operand, pre(h)) for every row, one partition at a time
+        (a ``stream_partition`` span each; it closes after the result is
+        read back, so it covers the upload and the device work)."""
         nb_pad = self.pads[0]
         bm, bk = self.host.bm, self.host.bk
+        tracer = obs.get_tracer()
         out = None
-        for p in self.parts:
-            blocks, plan = self.upload(p)
-            res = spmm_apply(blocks, plan, self.gather(p, h, pre), nb_pad,
-                             bm, bk, self.cfg.backend)
-            res = res.cpu().numpy()
+        for i, p in enumerate(self.parts):
+            with tracer.span("stream_partition", layer=l, mode="exact",
+                             part=i):
+                blocks, plan = self.upload(p)
+                res = spmm_apply(blocks, plan, self.gather(p, h, pre),
+                                 nb_pad, bm, bk, self.cfg.backend)
+                res = res.cpu().numpy()
             if out is None:
                 out = np.zeros((self.host.n_rows, res.shape[1]), np.float32)
             out[p.out_rows] = res[: p.n_rows]
@@ -272,15 +279,17 @@ class StreamingInference:
         params = params if params is not None else self.params
         store = self.cfg.store_layers if store is None else store
         module = self.module
+        tracer = obs.get_tracer()
         with torch.inference_mode():
             h, ctx = module.infer_init(params, self.features)
             layers = [h.copy()] if store else None
             bn_stats: dict[int, tuple | None] = {}
             for l in range(self.n_layers):
-                pre = module.infer_pre(params, l)
-                p_out = self._spmm_layer(h, pre)
-                h, st = module.infer_post(params, l, p_out, h, ctx,
-                                          self.valid, None)
+                with tracer.span("stream_layer", layer=l, mode="exact"):
+                    pre = module.infer_pre(params, l)
+                    p_out = self._spmm_layer(l, h, pre)
+                    h, st = module.infer_post(params, l, p_out, h, ctx,
+                                              self.valid, None)
                 bn_stats[l] = st
                 if store:
                     layers.append(h.copy())
@@ -314,6 +323,7 @@ class StreamEvaluator:
         self.evals = 0
 
     def evaluate(self, params, mfn) -> tuple[float, float]:
+        t0 = time.perf_counter()
         if self.si is None:
             self.si = StreamingInference(self.graph, self.model, params,
                                          self.cfg)
@@ -322,4 +332,6 @@ class StreamEvaluator:
         val = mfn(logits, si.labels, si.val_mask & si.valid)
         test = mfn(logits, si.labels, si.test_mask & si.valid)
         self.evals += 1
+        obs.get_registry().observe("stream.eval_ms",
+                                   (time.perf_counter() - t0) * 1e3)
         return val, test

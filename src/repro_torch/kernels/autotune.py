@@ -84,6 +84,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 logger = logging.getLogger(__name__)
 
 ENV_VAR = "RSC_TORCH_AUTOTUNE_CACHE"
@@ -219,6 +221,7 @@ class AutotuneCache:
             return None
         if e.get("plain") and sig.split("|", 1)[0] == "kernel":
             self.stats.plain_served += 1
+            obs.get_registry().counter("autotune.plain_served")
             if sig not in self._warned:
                 self._warned.add(sig)
                 warnings.warn(
@@ -278,6 +281,7 @@ def lookup(sig: str, d: int | None = None) -> SpmmConfig:
         _cache.stats.hits += 1
         return cfg
     _cache.stats.defaults += 1
+    obs.get_registry().counter("autotune.miss", sig=sig)
     if sig not in _cache.missed:
         _cache.missed.add(sig)
         logger.info(
@@ -326,6 +330,11 @@ def get_or_tune(backend: str, *, bm: int, bk: int, d: int, s_pad: int,
                            device=_sweep_device(backend, device))
     _cache.stats.sweeps += 1
     _cache.put(sig, cfg, us, persist=persist, provenance=prov)
+    reg = obs.get_registry()
+    reg.counter("autotune.sweeps", backend=backend)
+    reg.observe("autotune.sweep_us", us, backend=backend)
+    obs.get_tracer().instant("autotune_sweep", sig=sig, us=round(us, 1),
+                             plain=bool(prov.get("plain")))
     return cfg
 
 
@@ -353,7 +362,9 @@ def get_or_tune_auto(*, bm: int, bk: int, d: int, s_pad: int,
     cfg = _cache.get(sig)
     if cfg is not None:
         _cache.stats.hits += 1
+        obs.get_ledger().note_backend(sig, cfg.backend)
         return cfg
+    reg = obs.get_registry()
     best: tuple[float, SpmmConfig, dict] | None = None
     for backend in (backends if backends is not None
                     else auto_backends(device)):
@@ -362,11 +373,16 @@ def get_or_tune_auto(*, bm: int, bk: int, d: int, s_pad: int,
                                 n_col_blocks=n_col_blocks,
                                 device=_sweep_device(backend, device))
         _cache.stats.sweeps += 1
+        reg.counter("autotune.sweeps", backend=backend)
+        reg.observe("autotune.sweep_us", us, backend=backend)
         if best is None or us < best[0]:
             best = (us, cand, prov)
     us, cfg, prov = best
     _cache.put(sig, cfg, us, persist=persist,
                provenance={**prov, "backend": cfg.backend})
+    obs.get_tracer().instant("autotune_auto", sig=sig, us=round(us, 1),
+                             backend=cfg.backend)
+    obs.get_ledger().note_backend(sig, cfg.backend)
     return cfg
 
 

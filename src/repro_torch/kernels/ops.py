@@ -18,6 +18,7 @@ from __future__ import annotations
 import logging
 import math
 
+from repro_torch import obs
 from repro_torch.kernels import bcoo_spmm as _bcoo
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gather_matmul as _gather
@@ -43,6 +44,7 @@ def resolve_bd(bd: int | None, d: int) -> int:
         # A requested bd that does not divide d falls back to the largest
         # common tile rather than failing dispatch; logged once per (bd, d).
         fell = math.gcd(bd, d)
+        obs.get_registry().counter("autotune.bd_fallback", bd=bd, d=d)
         if (bd, d) not in _bd_fallback_logged:
             _bd_fallback_logged.add((bd, d))
             logger.info("bd=%d does not divide d=%d; dispatching gcd tile "
@@ -74,11 +76,13 @@ def tuned_bd(h, s_pad: int, n_row_blocks: int, bm: int, bk: int) -> int:
     ``default_bd(d)`` on a miss."""
     from repro_torch.kernels import autotune
     d = h.shape[-1]
+    backend = "kernel" if h.device.type == "cuda" else "kernel_plain"
     sig = autotune.signature(
-        "kernel" if h.device.type == "cuda" else "kernel_plain",
-        bm=bm, bk=bk, d=d, s_pad=s_pad, n_row_blocks=n_row_blocks,
+        backend, bm=bm, bk=bk, d=d, s_pad=s_pad, n_row_blocks=n_row_blocks,
         n_col_blocks=h.shape[0] // bk)
-    return autotune.lookup(sig, d=d).bd
+    bd = autotune.lookup(sig, d=d).bd
+    obs.get_ledger().note_backend(sig, backend)
+    return bd
 
 
 def _bcoo_call(fn, blocks, sel, row_ids, col_ids, h, n_row_blocks, bm, bk,

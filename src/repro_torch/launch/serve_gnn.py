@@ -15,10 +15,16 @@ node-id queries from the cached logits:
 The flags are those of ``repro.launch.serve_gnn`` plus ``--device``
 (``cuda`` by default; ``cpu`` runs the kernels' plain versions). This
 port covers the bare-server path (``--replicas 0``, the default here).
-Flags of parts not yet ported raise ``NotImplementedError`` naming the
-ROADMAP.md Queue 1 item that ports them. With ``--train-epochs`` > 0 it
-prints a ``[serve] trained ...`` line first; the last line is one JSON
-object.
+``--ckpt-dir`` warm-starts the parameters from the latest checkpoint of a
+training run (either package's) instead of training here. The
+observability flags are the reference's (``--metrics``, whose snapshot
+lands under ``metrics``; ``--metrics-port``, ``--trace-out``,
+``--trace-jsonl``; ``--slo``/``--strict-slo``, whose report lands under
+``slo``). Flags of parts not yet ported (``--slow-log`` among them, whose
+tail log lives in the serving frontend) raise ``NotImplementedError``
+naming the ROADMAP.md Queue 1 item that ports them. It prints a ``[serve]
+trained ...`` or ``[serve] restored ...`` line first when it trains or
+restores; the last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -28,14 +34,17 @@ import time
 
 import numpy as np
 
+from repro_torch import obs
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.convert import gnn_state_tree, load_gnn_state
 from repro_torch.device import resolve_device
 from repro_torch.graphs.datasets import DATASETS, load_dataset
 from repro_torch.infer import NodeServer, StreamConfig
 from repro_torch.models.gnn import MODELS
+from repro_torch.obs import slo as slo_mod
 from repro_torch.train.loop import GNNTrainer, TrainConfig
+from repro_torch.train.optimizer import Adam
 
-_CKPT = "Queue 1 item 5 (checkpoint and resume)"
-_OBS = "Queue 1 item 6 (observability)"
 _SERVING = "Queue 1 item 7 (serving: updates, LRU/overlap, replicas)"
 
 
@@ -79,34 +88,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sampled-budget", type=float, default=0.0)
     ap.add_argument("--stream-resident-mb", type=float, default=0.0)
     ap.add_argument("--stream-overlap", action="store_true")
-    ap.add_argument("--slow-log", default=None, metavar="PATH")
-    ap.add_argument("--metrics", action="store_true")
-    ap.add_argument("--metrics-port", type=int, default=None)
-    ap.add_argument("--trace-out", default=None, metavar="PATH")
-    ap.add_argument("--trace-jsonl", default=None, metavar="PATH")
-    ap.add_argument("--slo", action="append", default=[],
-                    metavar="KEY=TARGET")
-    ap.add_argument("--strict-slo", action="store_true")
+    ap.add_argument("--slow-log", default=None, metavar="PATH",
+                    help="the serving frontend's slow-request log (not "
+                         "ported yet)")
     ap.add_argument("--seed", type=int, default=0)
+    obs.add_cli_flags(ap)
+    slo_mod.add_cli_flags(ap)
     return ap
 
 
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` for flags this port does not cover."""
     unported = [
-        (args.ckpt_dir is not None, "--ckpt-dir", _CKPT),
         (args.replicas > 0, "--replicas > 0", _SERVING),
         (args.update_edges > 0, "--update-edges", _SERVING),
         (args.sampled_budget > 0, "--sampled-budget", _SERVING),
         (args.stream_resident_mb > 0, "--stream-resident-mb", _SERVING),
         (args.stream_overlap, "--stream-overlap", _SERVING),
-        (args.slow_log is not None, "--slow-log", _OBS),
-        (args.metrics, "--metrics", _OBS),
-        (args.metrics_port is not None, "--metrics-port", _OBS),
-        (args.trace_out is not None, "--trace-out", _OBS),
-        (args.trace_jsonl is not None, "--trace-jsonl", _OBS),
-        (bool(args.slo), "--slo", _OBS),
-        (args.strict_slo, "--strict-slo", _OBS),
+        (args.slow_log is not None, "--slow-log", _SERVING),
     ]
     for hit, flag, item in unported:
         if hit:
@@ -116,13 +115,22 @@ def check_ported(args) -> None:
 
 
 def get_params(args, graph, device):
-    """The model to serve, on ``device``: trained for ``--train-epochs``
+    """The model to serve, on ``device``: restored from the latest
+    checkpoint in ``--ckpt-dir``, trained for ``--train-epochs``
     full-batch epochs (no RSC), as the reference's ``get_params`` does, or
     the seeded initial parameters (the trainer's own) without training."""
-    if args.train_epochs <= 0:
-        return MODELS[args.model].init(
+    if args.ckpt_dir or args.train_epochs <= 0:
+        net = MODELS[args.model].init(
             graph.features.shape[1], args.hidden, graph.num_classes,
             args.layers, not args.no_bn, seed=args.seed, device=device)
+        if not args.ckpt_dir:
+            return net
+        opt_state = Adam().init(dict(net.named_parameters()))
+        step, tree = Checkpointer(args.ckpt_dir).restore(
+            gnn_state_tree(net, opt_state), device=device)
+        load_gnn_state(net, opt_state, tree)
+        print(f"[serve] restored params from step {step}", flush=True)
+        return net
     cfg = TrainConfig(model=args.model, n_layers=args.layers,
                       hidden=args.hidden, epochs=args.train_epochs,
                       dropout=args.dropout, batchnorm=not args.no_bn,
@@ -141,6 +149,13 @@ def run(args) -> tuple[dict, NodeServer]:
     server."""
     check_ported(args)
     device = resolve_device(args.device)
+    ob = obs.setup_from_args(args)
+    monitor = slo_mod.monitor_from_args(args)
+    if monitor is not None:
+        monitor.start(period=0.25)
+        if ob.exporter is not None:
+            ob.exporter.attach(slo=monitor)
+            print(f"[obs] slo objectives at {ob.exporter.url}/slo")
     graph = load_dataset(args.dataset, scale=args.scale, seed=args.seed)
     params = get_params(args, graph, device)
     cfg = StreamConfig(
@@ -178,6 +193,14 @@ def run(args) -> tuple[dict, NodeServer]:
         "updates": [],
         "serve_stats": server.stats(),
     }
+    if monitor is not None:
+        monitor.stop()
+        out["slo"] = monitor.report()
+        # raises SLOError under --strict-slo
+        monitor.check(where="serve_gnn", hard_fail=args.strict_slo)
+    snap = obs.finalize_from_args(args)
+    if snap is not None:
+        out["metrics"] = snap
     return out, server
 
 

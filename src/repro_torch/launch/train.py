@@ -43,9 +43,13 @@ prints the reference's JSON keys (``model``, ``dataset``, ``rsc``,
 ``--minibatch`` also ``minibatch``, ``pool``, ``subgraphs``,
 ``n_buckets`` and ``plan_hit_rate``). The reference's ``compiles`` key
 counts jit compiles; the port runs eagerly and compiles nothing, so it has
-no such key. ``--dp``, ``--mesh``, ``--compress-grads`` and the
-observability flags raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+no such key (nor ``--strict-compiles``). The observability flags are the
+reference's: ``--metrics`` (the registry snapshot under ``metrics`` and the
+ledger summary under ``ledger``), ``--metrics-port``, ``--trace-out``,
+``--trace-jsonl``, ``--slo``/``--strict-slo`` (the report under ``slo``),
+``--strict-budget``, ``--probe-every`` and ``--probe-rows``. ``--dp``,
+``--mesh`` and ``--compress-grads`` raise ``NotImplementedError`` naming
+ROADMAP.md Queue 1 item 8.
 
 The ``lm`` flags are those of ``repro.launch.train lm`` plus ``--device``
 (``cuda`` by default, which raises without a card; ``cpu`` runs the
@@ -53,9 +57,11 @@ kernels' plain versions). Parameters come from a seeded random init, as in
 the reference, and step ``i`` trains on ``make_batch(cfg, "train_4k",
 batch, seq, seed=i)``. ``--rsc`` samples the MLP weight gradients through
 ``rsc_matmul``, whose dW runs on the ``gather_matmul`` kernel. Prints one
-JSON line with ``arch``, ``final_loss``, ``first_loss`` and ``steps``.
-``--ckpt-dir`` and the observability flags raise ``NotImplementedError``
-naming the ROADMAP.md item that ports them.
+JSON line with ``arch``, ``final_loss``, ``first_loss`` and ``steps``
+(and ``metrics`` with ``--metrics``). ``--ckpt-dir`` saves (params,
+optimizer state) every ``--ckpt-every`` steps and at the end, keeping the
+last two, in the reference's layout; a run whose directory holds a
+checkpoint resumes from it (``steps`` then counts the steps run here).
 """
 from __future__ import annotations
 
@@ -64,49 +70,30 @@ import json
 import math
 import time
 
+from repro_torch import obs
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_arch, make_batch, smoke_config
+from repro_torch.convert import load_lm_state, lm_state_tree
 from repro_torch.device import resolve_device
 from repro_torch.graphs.datasets import DATASETS, load_dataset
 from repro_torch.models.lm.backbone import init_params
+from repro_torch.obs import slo as slo_mod
 from repro_torch.pipeline.minibatch_loop import (MinibatchConfig,
                                                  MinibatchTrainer)
 from repro_torch.train.lm_steps import make_train_step
 from repro_torch.train.loop import GNNTrainer, TrainConfig
 from repro_torch.train.optimizer import Adam
 
-_CKPT = "Queue 1 item 5 (checkpoint and resume)"
-_OBS = "Queue 1 item 6 (observability)"
 _DP = "Queue 1 item 8 (data parallel)"
-
-
-def _unported(flag: str, item: str):
-    raise NotImplementedError(f"{flag} is not ported to repro_torch yet: see "
-                              f"ROADMAP.md {item}")
-
-
-def _check(unported) -> None:
-    for hit, flag, item in unported:
-        if hit:
-            _unported(flag, item)
-
-
-def _obs_flags(args) -> list:
-    return [
-        (args.metrics, "--metrics", _OBS),
-        (args.metrics_port is not None, "--metrics-port", _OBS),
-        (args.trace_out is not None, "--trace-out", _OBS),
-        (args.trace_jsonl is not None, "--trace-jsonl", _OBS),
-    ]
 
 
 def check_ported_gnn(args) -> None:
     """Raise ``NotImplementedError`` for ``gnn`` flags this port lacks."""
-    _check([
-        (args.dp > 1, "--dp", _DP),
-        (bool(args.mesh), "--mesh", _DP),
-        (args.compress_grads, "--compress-grads", _DP),
-        *_obs_flags(args),
-    ])
+    for hit, flag in ((args.dp > 1, "--dp"), (bool(args.mesh), "--mesh"),
+                      (args.compress_grads, "--compress-grads")):
+        if hit:
+            raise NotImplementedError(f"{flag} is not ported to repro_torch "
+                                      f"yet: see ROADMAP.md {_DP}")
 
 
 def run_gnn(args, *, graph=None, pool=None, **minibatch) -> dict:
@@ -117,9 +104,19 @@ def run_gnn(args, *, graph=None, pool=None, **minibatch) -> dict:
     ``graph`` (the loaded dataset), ``pool`` (a prebuilt ``SubgraphPool``
     of it) and ``minibatch`` (``MinibatchConfig`` fields the CLI has no
     flag for, such as ``resident``) are for callers that drive the path
-    in-process more than once."""
+    in-process more than once. With ``--metrics`` the report carries the
+    registry snapshot (``metrics``) and the ledger summary (``ledger``),
+    with ``--slo`` the monitor's report (``slo``)."""
     check_ported_gnn(args)
     device = resolve_device(args.device)
+    ob = obs.setup_from_args(args)
+    monitor = slo_mod.monitor_from_args(args)
+    if monitor is not None:
+        # p99_ms falls through to engine.step_ms when no serving tier
+        # publishes request latencies: the training-loop objective.
+        monitor.start(period=0.25)
+        if ob.exporter is not None:
+            ob.exporter.attach(slo=monitor)
     spec = DATASETS[args.dataset]
     t0 = time.perf_counter()
     g = graph if graph is not None else load_dataset(
@@ -132,7 +129,9 @@ def run_gnn(args, *, graph=None, pool=None, **minibatch) -> dict:
         strategy=args.strategy, block=args.block, seed=args.seed,
         backend=args.backend, eval_mode=args.eval_mode,
         stream_partitions=args.stream_partitions,
-        stream_budget_mb=args.stream_budget_mb, device=str(device))
+        stream_budget_mb=args.stream_budget_mb, device=str(device),
+        strict_budget=args.strict_budget, probe_every=args.probe_every,
+        probe_rows=args.probe_rows)
     if args.minibatch:
         cfg = MinibatchConfig(
             n_subgraphs=args.subgraphs, method=args.pool_method,
@@ -155,22 +154,26 @@ def run_gnn(args, *, graph=None, pool=None, **minibatch) -> dict:
                        "subgraphs": args.subgraphs,
                        "n_buckets": res["n_buckets"],
                        "plan_hit_rate": res["plan_hit_rate"]})
+    if monitor is not None:
+        monitor.stop()
+        report["slo"] = monitor.report()
+        monitor.check(where="train gnn", hard_fail=args.strict_slo)
+    snap = obs.finalize_from_args(args)
+    if snap is not None:
+        report["metrics"] = snap
+    if res.get("ledger") is not None:
+        report["ledger"] = res["ledger"]
     return {"report": report, "result": res, "trainer": tr, "graph": g,
             "setup_s": t1 - t0}
-
-
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for ``lm`` flags this port lacks."""
-    _check([(args.ckpt_dir is not None, "--ckpt-dir", _CKPT),
-            *_obs_flags(args)])
 
 
 def run_lm(args) -> dict:
     """Train; returns the JSON report (under ``report``), the losses, the
     per-step wall times (host clock; each step ends when its loss is read
-    back), the config and the trained parameters."""
-    check_ported(args)
+    back), the config, the trained parameters and the step it started
+    from (``start``: the checkpoint's, when ``--ckpt-dir`` holds one)."""
     device = resolve_device(args.device)
+    obs.setup_from_args(args)
     cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
     params = init_params(cfg, args.seed, device)
     opt = Adam(lr=args.lr, clip_norm=1.0)
@@ -178,9 +181,17 @@ def run_lm(args) -> dict:
     rsc = {"keep_frac": args.rsc_keep, "backend": "kernel"} \
         if args.rsc else None
     step = make_train_step(cfg, opt, args.microbatches, rsc=rsc)
+    ckpt = Checkpointer(args.ckpt_dir, keep=2) if args.ckpt_dir else None
+
+    start = 0
+    if ckpt and ckpt.latest_step() is not None:
+        start, tree = ckpt.restore(lm_state_tree(params, opt_state, cfg),
+                                   device=device)
+        opt_state = load_lm_state(params, opt_state, tree, cfg)
+        print(f"[train] resumed from step {start}")
 
     losses, step_s = [], []
-    for i in range(args.steps):
+    for i in range(start, args.steps):
         batch = make_batch(cfg, "train_4k", args.batch, args.seq, seed=i,
                            device=device)
         t0 = time.perf_counter()
@@ -190,19 +201,20 @@ def run_lm(args) -> dict:
         losses.append(loss)
         if args.verbose and i % 10 == 0:
             print(f"step {i:4d} loss {loss:.4f} ({step_s[-1]:.2f}s)")
+        if ckpt and (i + 1) % args.ckpt_every == 0:
+            ckpt.save(i + 1, lm_state_tree(params, opt_state, cfg))
+    if ckpt:
+        ckpt.save(args.steps, lm_state_tree(params, opt_state, cfg))
+        ckpt.wait()
     if not losses or not math.isfinite(losses[-1]):
         raise RuntimeError(f"training gave no finite loss: {losses}")
     report = {"arch": cfg.name, "final_loss": losses[-1],
               "first_loss": losses[0], "steps": len(losses)}
+    snap = obs.finalize_from_args(args)
+    if snap is not None:
+        report["metrics"] = snap
     return {"report": report, "losses": losses, "step_s": step_s,
-            "cfg": cfg, "params": params}
-
-
-def _add_obs_flags(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--metrics", action="store_true")
-    p.add_argument("--metrics-port", type=int, default=None)
-    p.add_argument("--trace-out", default=None, metavar="PATH")
-    p.add_argument("--trace-jsonl", default=None, metavar="PATH")
+            "cfg": cfg, "params": params, "start": start}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -261,7 +273,17 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--compress-grads", action="store_true")
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--verbose", action="store_true")
-    _add_obs_flags(g)
+    g.add_argument("--strict-budget", action="store_true",
+                   help="hard-fail (BudgetError) when an allocator run "
+                        "exceeds its FLOPs budget (the approximation "
+                        "ledger's conservation invariant)")
+    g.add_argument("--probe-every", type=int, default=1, metavar="N",
+                   help="run exact-vs-sampled error probes every N "
+                        "epochs when metrics/ledger are on (0 disables)")
+    g.add_argument("--probe-rows", type=int, default=8, metavar="R",
+                   help="row blocks per error probe")
+    obs.add_cli_flags(g)
+    slo_mod.add_cli_flags(g)
     g.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     g.set_defaults(fn=run_gnn)
@@ -280,7 +302,7 @@ def build_parser() -> argparse.ArgumentParser:
     l.add_argument("--ckpt-every", type=int, default=20)
     l.add_argument("--seed", type=int, default=0)
     l.add_argument("--verbose", action="store_true")
-    _add_obs_flags(l)
+    obs.add_cli_flags(l)
     l.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     l.set_defaults(fn=run_lm)

@@ -177,6 +177,18 @@ class PooledPlanner:
     def k_latest(self):
         return None
 
+    def publish(self, registry) -> None:
+        self.plan_pool.publish(registry)
+
+    def probe_entries(self):
+        return self.plan_pool.probe_entries()
+
+    def state_dict(self):
+        return self.plan_pool.state_dict()
+
+    def load_state_dict(self, state) -> None:
+        self.plan_pool.load_state_dict(state)
+
 
 class PooledSource:
     """Prefetched subgraph-pool batches: one subgraph per step."""
@@ -200,9 +212,12 @@ class PooledSource:
     def warmup(self, cfg, dims, n_classes) -> None:
         tune_buckets(self.pool, cfg, dims, n_classes, device=self.device)
 
-    def batches(self, epoch: int):
+    def batches(self, epoch: int, skip: int = 0):
         cfg = self.cfg
-        order = self._order_rng.permutation(len(self.pool))
+        # The whole permutation is always drawn (the order RNG advances the
+        # same whether or not a resume skips a prefix); ``skip`` only trims
+        # what is uploaded and yielded.
+        order = self._order_rng.permutation(len(self.pool))[skip:]
         fetch = Prefetcher(
             self.pool, order, device=self.device,
             depth=cfg.prefetch_depth, enabled=cfg.prefetch,
@@ -211,6 +226,15 @@ class PooledSource:
         self.fetchers.append(("train", fetch))
         for sid, ops in fetch:
             yield int(sid), ops
+
+    def state_dict(self):
+        """The order RNG's state (the epoch's cursor, with the engine's
+        batch index)."""
+        return {"order_rng": self._order_rng.bit_generator.state}
+
+    def load_state_dict(self, state) -> None:
+        if state is not None:
+            self._order_rng.bit_generator.state = state["order_rng"]
 
     def evaluate(self, eval_fn, mfn, params) -> tuple[float, float]:
         cfg = self.cfg

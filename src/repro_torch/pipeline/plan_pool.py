@@ -18,17 +18,22 @@ the device, uploaded once per refresh (``build_plan(..., device=)``), not
 the subgraph's tiles. A subgraph's last ∇H row norms stay on the device
 until its refresh is due, when they are read to the host once.
 
-Left out until their items: ``state_dict`` / ``load_state_dict`` (step-exact
-resume, ROADMAP.md Queue 1 item 5) and the error probes and registry
-gauges (item 6).
+``state_dict`` / ``load_state_dict`` carry the per-subgraph clocks and the
+norms each cache's current plans were refreshed from: the allocator is a
+pure function of them, so replaying them rebuilds bit-identical plans
+(step-exact resume). ``publish`` and the ``plan_pool.*`` counters and
+``plan_pool.refresh_ms`` timer feed the metrics registry; ``probe_entries``
+hands the most recently served subgraph to the error probes.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from repro_torch.core.cache import PlanCache
+from repro_torch import obs
+from repro_torch.core.cache import PlanCache, host_norms
 from repro_torch.core.plan import SamplePlan
 from repro_torch.pipeline.partition import HostSubgraph, SubgraphPool
 
@@ -75,8 +80,12 @@ class PlanCachePool:
         self.device = device
         self.caches: dict[int, PlanCache] = {}
         self.stats = PoolPlanStats()
+        self._last_sid: int | None = None   # most recently served subgraph
         self._visits_since_refresh: dict[int, int] = {}
         self._last_norms: dict[int, dict[str, torch.Tensor]] = {}
+        # norms each cache's current plans were refreshed from (None while
+        # still on the exact bootstrap plans)
+        self._refresh_norms: dict[int, dict[str, np.ndarray] | None] = {}
 
     # ------------------------------------------------------------------
     def _build(self, sub: HostSubgraph) -> PlanCache:
@@ -96,12 +105,15 @@ class PlanCachePool:
         """Plans for one RSC step on ``sub`` — building or refreshing first
         if this subgraph's clock says so."""
         sid = sub.sub_id
+        reg = obs.get_registry()
+        pool_label = self.label or "pool"
         cache = self.caches.get(sid)
         if cache is None:
             cache = self._build(sub)
             self.caches[sid] = cache
             self._visits_since_refresh[sid] = 0
             self.stats.cold += 1
+            reg.counter("plan_pool.cold", pool=pool_label)
         elif sid in self._last_norms and (
                 # Bootstrap: plans start exact (no gradient info at build),
                 # so run the allocator on the FIRST revisit — a subgraph only
@@ -110,20 +122,71 @@ class PlanCachePool:
                 # un-sampled. After that, the per-subgraph clock rules.
                 cache.stats.refreshes == 0
                 or self._visits_since_refresh[sid] >= self.refresh_every):
-            cache.refresh({k: v.cpu().numpy()
-                           for k, v in self._last_norms[sid].items()})
+            norms = host_norms(self._last_norms[sid])
+            with reg.timer("plan_pool.refresh_ms", pool=pool_label):
+                cache.refresh(norms)
+            self._refresh_norms[sid] = norms
             self._visits_since_refresh[sid] = 0
             self.stats.refreshes += 1
+            reg.counter("plan_pool.refreshes", pool=pool_label)
+            obs.get_tracer().instant("plan_refresh", pool=pool_label,
+                                     sub=int(sid))
         else:
             self.stats.hits += 1
+            reg.counter("plan_pool.hits", pool=pool_label)
         self._visits_since_refresh[sid] += 1
+        self._last_sid = sid
         return cache.plans()
+
+    def probe_entries(self):
+        """(name, at, meta, plan, d) of the most recently served subgraph:
+        the error probes sample the pool where training just was (host
+        operands, so the probes read no tile from the card)."""
+        cache = self.caches.get(self._last_sid)
+        if cache is None:
+            return []
+        return [(n, e.at, e.meta, e.plan, e.d)
+                for n, e in cache.ops.items()]
 
     def record_norms(self, sub_id: int,
                      norms: dict[str, torch.Tensor]) -> None:
         """Keep the ∇H row norms of this subgraph's latest step (on their
         device); the next clock expiry refreshes from them."""
         self._last_norms[sub_id] = dict(norms)
+
+    # ------------------------------------------------------------------
+    def state_dict(self) -> dict:
+        """Per-subgraph clocks + the norms behind the current plans (host
+        arrays; reading the last step's norms syncs with the card once)."""
+        return {
+            int(sid): {
+                "visits": self._visits_since_refresh.get(sid, 0),
+                "refreshes": self.caches[sid].stats.refreshes,
+                "refresh_norms": self._refresh_norms.get(sid),
+                "last_norms": (host_norms(self._last_norms[sid])
+                               if sid in self._last_norms else None),
+            }
+            for sid in self.caches
+        }
+
+    def load_state_dict(self, state: dict | None) -> None:
+        """Rebuild each saved subgraph's cache by replaying its refresh
+        norms (bit-identical plans) and restore its clock."""
+        if not state:
+            return
+        by_id = {s.sub_id: s for s in self.pool.subgraphs}
+        for sid, st in state.items():
+            sid = int(sid)
+            cache = self._build(by_id[sid])
+            if st.get("refresh_norms") is not None:
+                cache.refresh(st["refresh_norms"])
+                self._refresh_norms[sid] = st["refresh_norms"]
+            cache.stats.refreshes = st.get("refreshes",
+                                           cache.stats.refreshes)
+            self.caches[sid] = cache
+            self._visits_since_refresh[sid] = st.get("visits", 0)
+            if st.get("last_norms") is not None:
+                self._last_norms[sid] = st["last_norms"]
 
     # ------------------------------------------------------------------
     def flops_fraction(self) -> float:
@@ -144,6 +207,19 @@ class PlanCachePool:
 
     def host_seconds(self) -> float:
         return sum(c.stats.host_seconds for c in self.caches.values())
+
+    def publish(self, registry) -> None:
+        """Epoch-end snapshot of this pool's clock stats → registry
+        gauges."""
+        pool_label = self.label or "pool"
+        registry.gauge("plan_pool.hit_rate", self.stats.hit_rate,
+                       pool=pool_label)
+        registry.gauge("plan_pool.subgraphs", len(self.caches),
+                       pool=pool_label)
+        registry.gauge("plan_pool.flops_fraction", self.flops_fraction(),
+                       pool=pool_label)
+        registry.gauge("plan_pool.host_seconds", self.host_seconds(),
+                       pool=pool_label)
 
     def summary(self) -> dict:
         """JSON-ready plan-cache statistics of the pool."""

@@ -34,6 +34,15 @@ uploading anything twice.
 An optional resident cache keeps up to ``resident`` subgraphs' device
 operands alive across epochs — for when the whole pool fits in device
 memory and re-upload, not transfer overlap, is the bottleneck.
+
+Observability, as in the reference: each upload is an ``upload`` span on
+the uploading thread, in a trace context made per batch and left as the
+consumer's pending baton just before the batch is yielded (the engine
+adopts it, so a step's span and its upload's share one trace id);
+``prefetch.upload_ms`` (issue to arrival on the device: the worker's time
+around ``event.synchronize()``), ``prefetch.uploads``,
+``prefetch.resident_hits``, ``prefetch.stall_ms`` and
+``prefetch.queue_depth`` go to the metrics registry.
 """
 from __future__ import annotations
 
@@ -47,8 +56,10 @@ from typing import Iterable, Iterator, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn.common import GraphOperands
+from repro_torch.obs import context as trace_context
 from repro_torch.pipeline.partition import HostSubgraph, SubgraphPool
 from repro_torch.sparse.bcoo import BlockCOO, HostBlockCOO, host_row_ptr
 
@@ -178,31 +189,40 @@ class Prefetcher:
                                                   pin=True)
         return ts
 
-    def _get(self, sid):
+    def _get(self, sid, ctx: trace_context.TraceContext | None = None):
         """(operands, event) of ``sid``: a resident hit, or an upload on
         the side stream (``event`` marks its end) or, synchronously, on the
-        current stream (``event`` None)."""
+        current stream (``event`` None). ``ctx`` is the batch's trace
+        context (the ``upload`` span's)."""
+        reg = obs.get_registry()
         if self._cache is not None and sid in self._cache:
             self._cache.move_to_end(sid)
             self.resident_hits += 1
+            reg.counter("prefetch.resident_hits")
             return self._cache[sid]
         sub = self.pool.subgraphs[sid]
         ts = self._tensors(sid)
         t0 = time.perf_counter()
         event = None
-        if self.cuda and self._stream is not None:
-            with torch.cuda.device(self.device), \
-                    torch.cuda.stream(self._stream):
-                ops = device_operands(self.pool, sub, self.device, tensors=ts)
-                event = torch.cuda.Event()
-                event.record(self._stream)
-            event.synchronize()
-        else:
-            ops = device_operands(self.pool, sub, self.device, tensors=ts)
-            if self.cuda:
-                torch.cuda.current_stream(self.device).synchronize()
-        self.upload_seconds += time.perf_counter() - t0
+        with obs.get_tracer().span_in(ctx, "upload", sub=str(sid)):
+            if self.cuda and self._stream is not None:
+                with torch.cuda.device(self.device), \
+                        torch.cuda.stream(self._stream):
+                    ops = device_operands(self.pool, sub, self.device,
+                                          tensors=ts)
+                    event = torch.cuda.Event()
+                    event.record(self._stream)
+                event.synchronize()
+            else:
+                ops = device_operands(self.pool, sub, self.device,
+                                      tensors=ts)
+                if self.cuda:
+                    torch.cuda.current_stream(self.device).synchronize()
+        dt = time.perf_counter() - t0
+        self.upload_seconds += dt
         self.uploads += 1
+        reg.observe("prefetch.upload_ms", dt * 1e3)
+        reg.counter("prefetch.uploads")
         self.upload_bytes += sum(t.numel() * t.element_size()
                                  for t in ts.values())
         item = (ops, event)
@@ -224,9 +244,25 @@ class Prefetcher:
         return ops
 
     def __iter__(self) -> Iterator[tuple[int, GraphOperands]]:
+        # Per-batch trace contexts: each upload gets a child of whatever
+        # trace the consumer was in at iteration start (or a fresh root),
+        # and the same context is left as the consumer's pending baton just
+        # before the yield, so the step that uses the batch adopts it.
+        tracing = obs.get_tracer().enabled
+        parent = trace_context.current() if tracing else None
+
+        def item_ctx():
+            if not tracing:
+                return None
+            return (parent.child() if parent is not None
+                    else trace_context.new_trace())
+
         if not self.enabled:
             for sid in self.schedule:
-                yield sid, self._hand_over(self._get(sid))
+                ctx = item_ctx()
+                got = self._get(sid, ctx)
+                trace_context.set_pending(ctx)
+                yield sid, self._hand_over(got)
             return
 
         if self.cuda and self._stream is None:
@@ -249,7 +285,8 @@ class Prefetcher:
                 for sid in self.schedule:
                     if stop.is_set():
                         return
-                    if not put((sid, self._get(sid))):
+                    ctx = item_ctx()
+                    if not put((sid, self._get(sid, ctx), ctx)):
                         return
             except BaseException as e:  # propagate to the consumer
                 put(e)
@@ -259,16 +296,22 @@ class Prefetcher:
         t = threading.Thread(target=worker, daemon=True,
                              name="subgraph-prefetch")
         t.start()
+        reg = obs.get_registry()
         try:
             while True:
+                # Consumer-side stall: time blocked on the queue.
                 t0 = time.perf_counter()
                 item = q.get()
-                self.stall_seconds += time.perf_counter() - t0
+                stall = time.perf_counter() - t0
+                self.stall_seconds += stall
+                reg.observe("prefetch.stall_ms", stall * 1e3)
+                reg.observe("prefetch.queue_depth", q.qsize())
                 if item is _END:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                sid, got = item
+                sid, got, ctx = item
+                trace_context.set_pending(ctx)
                 yield sid, self._hand_over(got)
         finally:
             # Consumer done or aborted mid-epoch: unblock the worker and

@@ -5,7 +5,10 @@ at the edges of their tiles, each launch counted under its variant), the
 wrappers' refusals, and the streaming GCN forward, the LM
 prefill + decode, ``rsc_matmul``, LM training steps and full-batch GCN
 training with RSC on ``cuda`` against the same runs on the CPU; the
-training path's no-sync entry ``bcoo_spmm_in_range``.
+training path's no-sync entry ``bcoo_spmm_in_range``; a minibatch run
+restored from its step-9 checkpoint on the card against the uninterrupted
+run (bit for bit), and a full-batch run with observability on against the
+same run with it off (equal losses).
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor ``repro``, so it runs on a machine with only
@@ -665,3 +668,60 @@ def test_prefetcher_side_stream_matches_synchronous_upload(cuda, resident):
         assert fetch.uploads + fetch.resident_hits == len(schedule)
     assert len(pinned) == 4 and all(
         t.is_pinned() for ts in pinned.values() for t in ts.values())
+
+
+def _mb_resume_cfg(tmp_path):
+    """The small minibatch run of ``chip_smoke.py`` phase 8e (c): GCN 2 ×
+    48, block 32, a 4-subgraph random-walk pool in 2 buckets, RSC at
+    budget 0.3, dropout 0.5, prefetch on, a checkpoint every 9 steps."""
+    from repro_torch.pipeline import MinibatchConfig
+    return MinibatchConfig(
+        model="gcn", n_layers=2, hidden=48, block=32, batchnorm=True,
+        dropout=0.5, rsc=True, budget=0.3, epochs=6, n_subgraphs=4,
+        n_buckets=2, roots=100, walk_length=2, autotune=False,
+        refresh_every=2, ckpt_dir=str(tmp_path), ckpt_every=9,
+        device="cuda")
+
+
+def test_minibatch_resume_on_cuda_is_step_exact(cuda, tmp_path):
+    """Restored at step 9 (mid-epoch) on the card, the run continues with
+    the uninterrupted run's losses and final parameters, bit for bit (the
+    kernel is deterministic, and so is every other op of the step; the
+    dropout generator's state rides in the checkpoint)."""
+    from repro_torch.pipeline import MinibatchTrainer
+    graph = sbm_graph(n_nodes=700, n_clusters=7, avg_degree=12,
+                      feat_dim=32, seed=0)
+    a = MinibatchTrainer(_mb_resume_cfg(tmp_path), graph)
+    ra = a.train(eval_every=3)
+    b = MinibatchTrainer(_mb_resume_cfg(tmp_path), graph)
+    assert b.engine.restore(step=9) == 9
+    rb = b.train(eval_every=3)
+    assert rb["history"]["loss"] == ra["history"]["loss"][9:]
+    assert rb["history"]["sub_id"] == ra["history"]["sub_id"][9:]
+    for (k, x), (_, y) in zip(a.params.named_parameters(),
+                              b.params.named_parameters()):
+        assert torch.equal(x, y), k
+
+
+def test_gnn_train_obs_on_off_same_losses_on_cuda(cuda):
+    """Metrics, tracing, the ledger and the probes change no number of a
+    full-batch RSC run on the card (dropout on, so the generator's draws
+    are part of it)."""
+    from repro_torch import obs
+    graph = sbm_graph(n_nodes=700, n_clusters=7, avg_degree=12,
+                      feat_dim=32, seed=0)
+    cfg = TrainConfig(model="gcn", n_layers=2, hidden=48, block=32,
+                      dropout=0.5, rsc=True, budget=0.3, epochs=20,
+                      device="cuda")
+    losses = {}
+    try:
+        for on in (False, True):
+            ob = obs.reset(metrics=on, trace=on, ledger=on)
+            res = GNNTrainer(cfg, graph).train(eval_every=5)
+            losses[on] = res["history"]["loss"]
+        assert ob.registry.get_histogram("engine.step_ms", mode="rsc")[
+            "count"] == res["history"]["mode"].count("rsc")
+        assert res["ledger"]["probes"]
+    finally:
+        obs.reset()
+    assert losses[True] == losses[False]

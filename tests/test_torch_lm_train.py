@@ -338,11 +338,6 @@ def test_train_cli_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["lm", "--arch", "qwen3-1.7b", "--smoke", "--ckpt-dir", "x"],
-     "item 5"),
-    (["lm", "--arch", "qwen3-1.7b", "--smoke", "--metrics"], "item 6"),
-    (["lm", "--arch", "qwen3-1.7b", "--smoke", "--trace-out", "t.json"],
-     "item 6"),
     (["lm", "--arch", "deepseek-v2-lite-16b", "--smoke"], "item 9c"),
     # full-batch and minibatch training are ported for every model; the
     # data-parallel pools are item 8
