@@ -41,6 +41,30 @@ without the final ``{"ok": true, ...}`` line:
    layers of 256) the same way, with the same assertions (layers ×
    partitions launches, all ``tf32x3``, finite logits, query answers
    equal to the cached rows);
+5b. GCN serving behind the frontend: ``serve_gnn`` at phase 4's width
+   and graph with 2 replicas (r1 warm-started), a sampled replica (keep
+   0.3), 2 random edge insertions, the partition LRU (4,096 MB),
+   overlapped uploads and the slow log, 2,048 queries of 16 ids from one
+   client, launch counts set to 0 just
+   before and read just after: layers × partitions for r0's build and for
+   the sampled build plus every server's recompute chunks, all
+   ``tf32x3``; the update log drained in order with monotone versions;
+   both replicas against the CPU port after the same updates and against
+   the ``incremental=False`` oracle on the card (1e-4·max|logit|; the
+   oracle's clean rows bit-identical to its previous version at each
+   update); the sampled error and CI finite and a loose error budget
+   answered by the sampled replica; 2,048 more requests of 16 ids from 8
+   client threads at once (request latency p50 / p99 and requests per
+   dispatch under load); a third update on r0 with its
+   previous version pinned (clean rows bit-identical, version and
+   ``applied_seq`` one higher, one launch per chunk); the slow log
+   (at most K records with phases); kernel, plain version and BSR times
+   of a sampled partition and of recompute chunks with the card's bound;
+   and one stream's forward by stage without the LRU, with a cold and a
+   warm LRU (no miss, layers × partitions hits) and overlapped, each
+   equal to the serial forward bit for bit; build seconds, per-update
+   costs, queries/s, query p50 / p99 with their sample counts, host RSS
+   and device peak;
 6. GCN training with RSC (``bcoo_spmm`` in both directions): the small
    GCN of ``tests/test_torch_gnn_train.py`` (700 nodes, 2 layers of 48,
    block 32, RSC at budget 0.3, 30 epochs, dropout 0) on the card and on
@@ -169,12 +193,13 @@ without the final ``{"ok": true, ...}`` line:
     gate/up and down shapes, with the card's bound; report the warm step
     time, tokens/s and peak device memory;
 15. print each slice's JSON line (``slice``, ``bcoo_spmm_shapes``,
+    ``frontend_slice``,
     ``gnn_train_slice``, ``gnn_models_slice``, ``minibatch_slice``,
     ``obs_slice``, ``lm_slice``,
     ``lm_train_slice``), the build report, the kernel line (with the
     variant each kernel ran on its main path; ``bcoo_spmm``'s launches are
-    the three models' serving and RSC training runs', the minibatch
-    run's and phase 8e's), the card line and,
+    the three models' serving and RSC training runs', the frontend's, the
+    minibatch run's and phase 8e's), the card line and,
     last, the result line.
 
 Without a CUDA device it exits with code 2 and prints no result. It
@@ -313,6 +338,29 @@ MB_RESIDENT = 8
 OBS_PROBE_EVERY = 20
 OBS_PROBE_ROWS = 8
 OBS_SLO_P99_MS = 1000.0
+# Phase 5b: GCN serving behind the frontend at phase 4's width and graph:
+# 2 exact replicas (r1 warm-started from r0), a sampled replica keeping
+# 0.3 of each partition's tiles, 2 random edge insertions through the
+# update log (each dirties 82-89 % of layer 3's rows, so a third or a
+# fourth would exercise nothing new; a third update on r0 with its
+# previous version pinned follows the run), the partition LRU at 4,096 MB
+# (the 3 partitions' ~2.1 GB of tiles fit), overlapped uploads and the
+# slow log. Queries: FRONTEND_QUERIES ids in requests of
+# FRONTEND_QUERY_BATCH from serve_gnn's one client, then LOAD_CLIENTS
+# threads sending LOAD_REQUESTS requests of FRONTEND_QUERY_BATCH ids each
+# at once, enough requests for p99 to rest on ~20 samples. Replicas against the
+# CPU port after the same updates and against the incremental=False oracle
+# on the card: 1e-4·max|logit| (the kernel and the plain version sum the
+# same f32 products in other orders; the oracle re-plans the partitions).
+FRONTEND_UPDATES = 2
+FRONTEND_QUERIES = 32768
+FRONTEND_QUERY_BATCH = 16
+LOAD_CLIENTS = 8
+LOAD_REQUESTS = 256
+FRONTEND_RESIDENT_MB = 4096
+SLOW_LOG = ROOT / "chiprun_out" / "slow.json"
+SLOW_K = 16          # ServeFrontend's default reservoir
+FRONTEND_RTOL = 1e-4
 
 
 def train_argv(microbatches: int) -> list[str]:
@@ -664,12 +712,52 @@ def bsr_operand(blocks, plan, nb_pad, bm, n_cols):
         size=(nb_pad * bm, n_cols), check_invariants=True)
 
 
+def launch_timings(ops, kmod, bcoo_spmm_ref, blocks, plan, slab, ref,
+                   nb_pad: int, bm: int, bk: int, n_active: int,
+                   n_gather: int) -> dict:
+    """Times of one serving launch on its own inputs (kernel, plain
+    version, and BSR ``sparse.mm``, held against ``ref`` first) and the
+    card's bounds: on the FP32 pipes (FLOP at 67 TFLOP/s) and, for
+    ``tf32x3``, on the tensor cores (3 × FLOP at 495 TFLOP/s), each
+    against the bytes (tiles, gathered rows and output once, plus the id
+    lists)."""
+    args = (blocks, plan.sel, plan.row_ids, plan.col_ids, slab)
+    kw = dict(n_row_blocks=nb_pad, bm=bm, bk=bk)
+    d = slab.shape[1]
+    bd = ops.resolve_bd(None, d)
+    buf = torch.empty((nb_pad * bm, d), dtype=slab.dtype, device=slab.device)
+    ms = cuda_ms(lambda: kmod.launch(
+        blocks, plan.sel, plan.col_ids, plan.row_ptr, slab, None, None,
+        buf, bm=bm, bk=bk, bd=bd, relu=False), reps=20)
+    plain_ms = cuda_ms(lambda: bcoo_spmm_ref(*args, **kw), reps=3, warmup=1)
+    bsr = bsr_operand(blocks, plan, nb_pad, bm, slab.shape[0])
+    assert_close(torch.sparse.mm(bsr, slab), ref, torch.float32)
+    library_ms = cuda_ms(lambda: torch.sparse.mm(bsr, slab), reps=5,
+                         warmup=1)
+    es = blocks.element_size()
+    nbytes = (n_active * bm * bk * es + n_gather * bk * d * es
+              + nb_pad * bm * d * es + (2 * plan.s_pad + nb_pad + 1) * 4)
+    flops = 2 * n_active * bm * bk * d
+    variant = kmod.variant(blocks.dtype, bm, bk, d)
+    n_sm = torch.cuda.get_device_properties(slab.device) \
+        .multi_processor_count
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_fp32 = flops / PEAK_FLOPS[blocks.dtype] * 1e3
+    t_ops = 3 * flops / TF32_FLOPS * 1e3 if variant == "tf32x3" else t_fp32
+    return dict(d=d, bd=bd, bm=bm, bk=bk, nb_pad=nb_pad, s_pad=plan.s_pad,
+                n_active=n_active, n_gather=n_gather, variant=variant,
+                chunks=(kmod.chunks(nb_pad, plan.s_pad, d, bd, n_sm)
+                        if variant != "fma" else 1),
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_fp32_ms=max(t_bytes, t_fp32), tflops=flops / ms / 1e9)
+
+
 def layer_checks(server, ops, kmod, bcoo_spmm_ref, gcn) -> list[dict]:
     """Kernel vs plain version on the heaviest partition of every layer,
-    both against the plain version in f64, then timings of kernel, plain
-    version and BSR ``sparse.mm`` there, and the card's bounds: on the
-    FP32 pipes (FLOP at 67 TFLOP/s) and, for ``tf32x3``, on the tensor
-    cores (3 × FLOP at 495 TFLOP/s), each against the bytes."""
+    both against the plain version in f64, then the launch's timings and
+    the card's bounds there (``launch_timings``)."""
     si, params = server.si, server.si.params
     bm, bk = si.host.bm, si.host.bk
     p = max(si.parts, key=lambda q: q.n_active)
@@ -694,53 +782,20 @@ def layer_checks(server, ops, kmod, bcoo_spmm_ref, gcn) -> list[dict]:
                 torch.testing.assert_close(
                     torch.from_numpy(si.logits[p.out_rows]),
                     out[: p.n_rows].cpu(), rtol=1e-6, atol=1e-6)
-            d = slab.shape[1]
-            bd = ops.resolve_bd(None, d)
-            buf = torch.empty_like(out)
-            ms = cuda_ms(lambda: kmod.launch(
-                blocks, plan.sel, plan.col_ids, plan.row_ptr, slab, None,
-                None, buf, bm=bm, bk=bk, bd=bd, relu=False), reps=20)
-            plain_ms = cuda_ms(lambda: bcoo_spmm_ref(*args, **kw), reps=3,
-                               warmup=1)
-            bsr = bsr_operand(blocks, plan, nb_pad, bm, slab.shape[0])
-            lib_out = torch.sparse.mm(bsr, slab)
-            assert_close(lib_out, ref, torch.float32)
-            library_ms = cuda_ms(lambda: torch.sparse.mm(bsr, slab), reps=5,
-                                 warmup=1)
-        es = blocks.element_size()
-        n_active = p.n_active
-        nbytes = (n_active * bm * bk * es             # tiles, read once
-                  + p.n_gather * bk * d * es          # gathered h rows
-                  + nb_pad * bm * d * es              # output, written once
-                  + (2 * plan.s_pad + nb_pad + 1) * 4)  # sel, col_ids, ptr
-        flops = 2 * n_active * bm * bk * d
-        variant = kmod.variant(blocks.dtype, bm, bk, d)
-        n_sm = torch.cuda.get_device_properties(slab.device) \
-            .multi_processor_count
-        chunks = kmod.chunks(nb_pad, plan.s_pad, d, bd, n_sm) \
-            if variant != "fma" else 1
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_fp32 = flops / PEAK_FLOPS[blocks.dtype] * 1e3
-        t_ops = 3 * flops / TF32_FLOPS * 1e3 if variant == "tf32x3" \
-            else t_fp32
-        row = dict(layer=l, d=d, bd=bd, bm=bm, bk=bk, nb_pad=nb_pad,
-                   s_pad=plan.s_pad, n_active=n_active, n_gather=p.n_gather,
-                   variant=variant, chunks=chunks,
-                   max_abs_err=err, max_abs_err_vs_f64=err64,
-                   plain_max_abs_err_vs_f64=plain_err64, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
-                   flops=flops, bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bound_fp32_ms=max(t_bytes, t_fp32),
-                   tflops=flops / ms / 1e9)
+            row = dict(layer=l, max_abs_err=err, max_abs_err_vs_f64=err64,
+                       plain_max_abs_err_vs_f64=plain_err64,
+                       **launch_timings(ops, kmod, bcoo_spmm_ref, blocks,
+                                        plan, slab, ref, nb_pad, bm, bk,
+                                        p.n_active, p.n_gather))
         rows.append(row)
-        say(f"[layer {l}] d={d} n_active={n_active} s_pad={plan.s_pad} "
-            f"{variant} chunks={chunks} err={err:.3e} (vs f64 {err64:.3e}, "
-            f"plain f32 vs f64 {plain_err64:.3e}) kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bsr {library_ms:.3f} ms, bound "
-            f"{row['bound_ms']:.3f} ms ({row['bound_by']}; FP32 pipes "
+        say(f"[layer {l}] d={row['d']} n_active={row['n_active']} "
+            f"s_pad={row['s_pad']} {row['variant']} chunks={row['chunks']} "
+            f"err={err:.3e} (vs f64 {err64:.3e}, plain f32 vs f64 "
+            f"{plain_err64:.3e}) kernel {row['ms']:.3f} ms, plain "
+            f"{row['plain_ms']:.3f} ms, bsr {row['library_ms']:.3f} ms, "
+            f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}; FP32 pipes "
             f"{row['bound_fp32_ms']:.3f} ms), {row['tflops']:.2f} TFLOP/s")
-        del blocks, plan, slab, out, ref, buf, bsr, lib_out
+        del blocks, plan, slab, out, ref
         torch.cuda.empty_cache()
     return rows
 
@@ -794,6 +849,408 @@ def forward_stages(server, gcn) -> dict:
                                 if k != "device_share")
         + f", device share {stages['device_share']:.3f}")
     return stages
+
+
+# ------------------------------------------------- GNN serving frontend
+
+def frontend_argv(scale: float) -> list[str]:
+    layers, hidden = GNN_WIDTHS["gcn"]
+    return ["--dataset", "reddit", "--scale", str(scale), "--model", "gcn",
+            "--layers", str(layers), "--hidden", str(hidden), "--block",
+            "128", "--memory-budget-mb", "2048", "--train-epochs", "0",
+            "--replicas", "2", "--sampled-budget", "0.3", "--update-edges",
+            str(FRONTEND_UPDATES), "--stream-resident-mb",
+            str(FRONTEND_RESIDENT_MB), "--stream-overlap", "--slow-log",
+            str(SLOW_LOG), "--queries", str(FRONTEND_QUERIES),
+            "--query-batch", str(FRONTEND_QUERY_BATCH), "--metrics",
+            "--device", "cuda"]
+
+
+def host_rss_gib() -> tuple[float, float]:
+    """(resident, peak resident) host memory of this process, GiB: VmRSS
+    from /proc/self/status and getrusage's ru_maxrss (KiB on Linux)."""
+    import resource
+    rss = next(int(line.split()[1]) for line in
+               Path("/proc/self/status").read_text().splitlines()
+               if line.startswith("VmRSS:"))
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return rss / 2 ** 20, peak / 2 ** 20
+
+
+def shape_row(si, p, mode: str, l: int, pre, ops, kmod, bcoo_spmm_ref,
+              label: str) -> dict:
+    """One launch shape of the serving path on its own inputs (a
+    partition or a recompute chunk ``p`` at ``mode``'s padded shape, layer
+    ``l``'s stored activations): kernel against the plain version, two
+    launches bit-equal, then ``launch_timings``."""
+    bm, bk = si.host.bm, si.host.bk
+    nb_pad, s_pad, _ = si._pads[mode]
+    with torch.inference_mode():
+        blocks, plan = si.upload(p, mode)
+        slab = si.gather(p, si.layer_store[l], pre)
+        args = (blocks, plan.sel, plan.row_ids, plan.col_ids, slab)
+        kw = dict(n_row_blocks=nb_pad, bm=bm, bk=bk)
+        out = ops.bcoo_spmm(*args, row_ptr=plan.row_ptr, **kw)
+        torch.testing.assert_close(
+            ops.bcoo_spmm(*args, row_ptr=plan.row_ptr, **kw), out, rtol=0,
+            atol=0)
+        ref = bcoo_spmm_ref(*args, **kw)
+        err = assert_close(out, ref, torch.float32)
+        row = dict(label=label, mode=mode, layer=l, max_abs_err=err,
+                   row_blocks=len(p.rbs),
+                   sentinel_only_rows=int(nb_pad - np.unique(
+                       p.row_ids[p.sel != p.blocks.shape[0] - 1]).size),
+                   **launch_timings(ops, kmod, bcoo_spmm_ref, blocks, plan,
+                                    slab, ref, nb_pad, bm, bk, p.n_active,
+                                    p.n_gather))
+    say(f"[frontend launch {label}] layer {l} d={row['d']} n_active="
+        f"{row['n_active']} s_pad={s_pad} rows {row['row_blocks']}/{nb_pad} "
+        f"(sentinel-only {row['sentinel_only_rows']}) {row['variant']} "
+        f"err={err:.3e} kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.3f} ms, bsr {row['library_ms']:.3f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    del blocks, plan, slab, out, ref
+    return row
+
+
+QUERY_HISTS = ("serve.query_ms", "frontend.request_ms",
+               "frontend.queue_wait_ms", "frontend.batch_requests")
+
+
+def query_load(fe, reg, n_nodes: int, smi: str) -> dict:
+    """LOAD_CLIENTS threads each send LOAD_REQUESTS requests of
+    FRONTEND_QUERY_BATCH random ids to the open frontend at once, each
+    waiting for its answer before the next: requests/s and ids/s over the
+    wall time, each request's latency on the client's clock and its
+    queue wait (p50 / p99 over every request, n beside them), and requests
+    per dispatch from the frontend's ``frontend.batch_requests`` (its
+    registry ``reg``, before against after)."""
+    def counts():
+        h = reg.snapshot()["histograms"].get("frontend.batch_requests",
+                                             {"count": 0, "sum": 0.0})
+        return h["count"], h["sum"]
+
+    def client(c):
+        rng = np.random.default_rng(100 + c)
+        lat, queue = [], []
+        for _ in range(LOAD_REQUESTS):
+            ids = rng.integers(0, n_nodes, FRONTEND_QUERY_BATCH)
+            t = time.perf_counter()
+            res = fe.query(ids, timeout=60.0)
+            lat.append((time.perf_counter() - t) * 1e3)
+            queue.append(res.phases["queue_ms"])
+            if res.logits.shape[0] != ids.size or \
+                    not np.isfinite(res.logits).all():
+                raise AssertionError(f"load: answer {res.logits.shape}")
+        return lat, queue
+
+    d0, q0 = counts()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(LOAD_CLIENTS) as ex:
+        got = list(ex.map(client, range(LOAD_CLIENTS)))
+    wall = time.perf_counter() - t0
+    d1, q1 = counts()
+    lat = np.concatenate([g[0] for g in got])
+    queue = np.concatenate([g[1] for g in got])
+    n_req = LOAD_CLIENTS * LOAD_REQUESTS
+    out = {"clients": LOAD_CLIENTS, "requests": n_req,
+           "ids_per_request": FRONTEND_QUERY_BATCH, "wall_s": wall,
+           "requests_per_s": n_req / wall,
+           "ids_per_s": n_req * FRONTEND_QUERY_BATCH / wall,
+           "latency_ms": {"n": int(lat.size),
+                          "p50": float(np.percentile(lat, 50)),
+                          "p99": float(np.percentile(lat, 99)),
+                          "max": float(lat.max())},
+           "queue_ms": {"n": int(queue.size),
+                        "p50": float(np.percentile(queue, 50)),
+                        "p99": float(np.percentile(queue, 99))},
+           "dispatches": int(d1 - d0),
+           "requests_per_dispatch": (q1 - q0) / max(d1 - d0, 1)}
+    say(f"[frontend load] {LOAD_CLIENTS} clients x {LOAD_REQUESTS} "
+        f"requests of {FRONTEND_QUERY_BATCH} ids in {wall:.3f} s: "
+        f"{out['requests_per_s']:.1f} requests/s, {out['ids_per_s']:.1f} "
+        f"ids/s; latency n {lat.size} p50 {out['latency_ms']['p50']:.4f} "
+        f"p99 {out['latency_ms']['p99']:.4f} max "
+        f"{out['latency_ms']['max']:.4f} ms; queue p50 "
+        f"{out['queue_ms']['p50']:.4f} p99 {out['queue_ms']['p99']:.4f} "
+        f"ms; {out['dispatches']} dispatches, "
+        f"{out['requests_per_dispatch']:.2f} requests each; {smi}")
+    if out["dispatches"] <= 0 or q1 - q0 != n_req:
+        raise AssertionError(f"load: dispatches {out}")
+    return out
+
+
+def close_to(got, want, what: str) -> float:
+    atol = FRONTEND_RTOL * float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    if not err <= atol:
+        raise AssertionError(f"{what}: max abs err {err:.3e} > {atol:.3e}")
+    return err
+
+
+def serving_frontend(serve_gnn, ops, kmod, bcoo_spmm_ref, gcn, scale: float,
+                     smi: str) -> dict:
+    """Phase 5b: GCN serving through ``serve_gnn``'s frontend path (2
+    replicas, a sampled replica, FRONTEND_UPDATES edge updates, the
+    partition LRU, overlapped uploads, the slow log), launch counts set
+    to 0 just before and read just after; then the replicas against the
+    CPU port and the incremental=False oracle, the sampled routing, the
+    query load, the slow log, one more update on r0 with its previous
+    version pinned, the new launch
+    shapes, and one stream's forward without the LRU, with a cold and a
+    warm LRU, and overlapped."""
+    import gc
+    from repro_torch import obs
+    from repro_torch.graphs.datasets import load_dataset
+    from repro_torch.infer import NodeServer, StreamConfig, StreamingInference
+    from repro_torch.infer.stream import _DeviceLRU
+    from repro_torch.launch.profile_stream import timed_forward
+    obs.reset()
+    if SLOW_LOG.exists():
+        SLOW_LOG.unlink()
+    torch.cuda.reset_peak_memory_stats()
+    args = serve_gnn.build_parser().parse_args(frontend_argv(scale))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    report, fe = serve_gnn.run(args, keep_open=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    by_var = ops.launch_counts_by_variant()["bcoo_spmm"]
+    run_reg = obs.get_registry()   # the frontend's threads record here
+    obs.reset()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    rss_gib, rss_peak_gib = host_rss_gib()
+    r0, r1 = fe.replicas
+    ss = fe.sampled_server
+    servers = [r0, r1, ss]
+    layers, n_parts = args.layers, r0.si.n_partitions
+    updates = report["updates"]
+    chunks = {s.name: [u["servers"][s.name]["recompute_chunks"]
+                       for u in updates] for s in servers}
+    want = layers * n_parts + layers * ss.si.n_partitions + sum(
+        sum(map(sum, c)) for c in chunks.values())
+    say(f"[frontend] {report['n_nodes']} nodes, {n_parts} partitions; "
+        f"run {wall:.2f} s; builds r0 {r0.build_seconds:.2f} s, r1 (warm) "
+        f"{r1.build_seconds:.2f} s, sampled {ss.build_seconds:.2f} s; "
+        f"launches {counts['bcoo_spmm']} (expected {want}: {layers}x"
+        f"{n_parts} r0 build + {layers}x{ss.si.n_partitions} sampled build "
+        f"+ recompute chunks {chunks}), by variant {by_var}")
+    if counts["bcoo_spmm"] != want or by_var["tf32x3"] != want:
+        raise AssertionError(f"frontend launches {counts} {by_var}, "
+                             f"expected {want} tf32x3")
+    seqs = [u["seq"] for u in updates]
+    if seqs != list(range(1, FRONTEND_UPDATES + 1)) or any(
+            u["min_applied"] != u["seq"] for u in updates):
+        raise AssertionError(f"update log not drained in order: {updates}")
+    for s in servers:
+        vers = [u["servers"][s.name]["version"] for u in updates]
+        if vers != seqs or s.applied_seq != FRONTEND_UPDATES:
+            raise AssertionError(f"{s.name}: versions {vers}, applied "
+                                 f"{s.applied_seq}")
+    if fe.min_applied_seq() != fe.log.latest_seq:
+        raise AssertionError("update log not drained")
+    per_update = [{name: {
+        "dirty_per_layer": st["dirty_per_layer"],
+        "retile_ms": st["retile"]["seconds"] * 1e3,
+        "partitions_rebuilt": st["retile"]["partitions_rebuilt"],
+        "fallback": st["retile"]["fallback"],
+        "recompute_chunks": st["recompute_chunks"],
+        "recompute_ms": st["recompute_seconds"] * 1e3,
+        "update_ms": st["seconds"] * 1e3}
+        for name, st in u["servers"].items()} for u in updates]
+    for i, u in enumerate(per_update):
+        say(f"[frontend update {i + 1}] " + "; ".join(
+            f"{n}: dirty {v['dirty_per_layer']}, retile "
+            f"{v['retile_ms']:.1f} ms, rebuilt {v['partitions_rebuilt']}, "
+            f"chunks {v['recompute_chunks']}, recompute "
+            f"{v['recompute_ms']:.1f} ms, update {v['update_ms']:.1f} ms"
+            for n, v in u.items()))
+    hists = {k: v for k, v in report["metrics"]["histograms"].items()
+             if k.split("{")[0] in QUERY_HISTS}
+    say(f"[frontend queries] one client, {report['query_batches']} "
+        f"requests of {FRONTEND_QUERY_BATCH} ids: "
+        f"{report['queries_per_s']} ids/s; " + "; ".join(
+            f"{k}: n {v['count']} p50 {v['p50']:.4f} p99 {v['p99']:.4f} "
+            f"mean {v['mean']:.4f}" for k, v in sorted(hists.items()))
+        + f"; host RSS {rss_gib:.2f} GiB (peak {rss_peak_gib:.2f}), device "
+        f"peak {peak_gib:.2f} GiB; {smi}")
+
+    graph = load_dataset(args.dataset, scale=args.scale, seed=args.seed)
+    net = r0.si.params
+    cfg = StreamConfig(block=args.block,
+                       memory_budget_mb=args.memory_budget_mb,
+                       device=args.device)
+    log = fe.log.since(0)
+    # the incremental=False oracle on the card, and the CPU port
+    t1 = time.perf_counter()
+    oracle = NodeServer(graph, "gcn", net, cfg, incremental=False,
+                        name="oracle")
+    oracle_clean = []
+    for seq, add, remove, _ in log:
+        prev = oracle.si.logits
+        oracle.update_edges(add=add, remove=remove, seq=seq)
+        clean = np.setdiff1d(np.arange(prev.shape[0]), oracle.last_dirty)
+        oracle_clean.append(int(clean.size))
+        if not np.array_equal(oracle.si.logits[clean], prev[clean]) or \
+                (oracle.version, oracle.applied_seq) != (seq, seq):
+            raise AssertionError(f"oracle update {seq}: clean rows moved "
+                                 f"or version {oracle.version}")
+    t2 = time.perf_counter()
+    cpu = NodeServer(graph, "gcn", copy.deepcopy(net).to("cpu"),
+                     dataclasses.replace(cfg, device="cpu"), name="cpu")
+    for seq, add, remove, _ in log:
+        cpu.update_edges(add=add, remove=remove, seq=seq)
+    t3 = time.perf_counter()
+    n = graph.n
+    checks = {}
+    for s in (r0, r1):
+        checks[s.name] = {
+            "vs_cpu_max_abs_err": close_to(s.si.logits[:n],
+                                           cpu.si.logits[:n],
+                                           f"{s.name} against the CPU"),
+            "vs_oracle_max_abs_err": close_to(s.si.logits[:n],
+                                              oracle.si.logits[:n],
+                                              f"{s.name} against the "
+                                              "oracle"),
+            "oracle_bit_identical": bool(np.array_equal(s.si.logits,
+                                                        oracle.si.logits))}
+    replicas_bit_identical = bool(np.array_equal(r0.si.logits,
+                                                 r1.si.logits))
+    say(f"[frontend check] after {FRONTEND_UPDATES} updates: {checks}; "
+        f"r0 == r1 bit for bit: {replicas_bit_identical}; oracle "
+        f"{t2 - t1:.1f} s (clean rows per update, bit for bit: "
+        f"{oracle_clean}), CPU reference {t3 - t2:.1f} s")
+    del oracle, cpu
+    gc.collect()
+
+    # the sampled replica: its error, the CI and the routing
+    err, (lo, hi) = fe.sampled_rel_error, fe.sampled_rel_ci
+    if not (np.isfinite([err, lo, hi]).all() and lo <= err <= hi):
+        raise AssertionError(f"sampled error {err} CI {(lo, hi)}")
+    ids = np.random.default_rng(2).integers(0, n, 64)
+    loose = fe.query(ids, error_budget=2.0 * hi, timeout=60.0)
+    strict = fe.query(ids, timeout=60.0)
+    if not (loose.sampled and loose.replica == "sampled") or strict.sampled:
+        raise AssertionError(f"routing: budget {2 * hi} answered by "
+                             f"{loose.replica}, none by {strict.replica}")
+    load = query_load(fe, run_reg, n, smi)
+
+    # the new launch shapes: a sampled partition, recompute chunks
+    rows = []
+    sp = max(ss.si._parts["sampled"], key=lambda q: q.n_active)
+    for l in (1, 2):
+        rows.append(shape_row(ss.si, sp, "sampled", l,
+                              gcn.infer_pre(net, l), ops, kmod,
+                              bcoo_spmm_ref, "sampled partition"))
+    si0 = r0.si
+    edge = serve_gnn.random_edge_updates(graph, 1,
+                                         np.random.default_rng(5))
+    dirty = r0._dirty_sets(si0.adj, si0.adj, si0.pos[np.asarray(edge[0])])
+    for l in (0, 2):
+        rbs = np.unique(dirty[l] // si0.host.bm)
+        chunk = si0._chunk_blocks(rbs, "exact")[0]
+        cp = si0._build_one(chunk, si0._raw_partition(chunk),
+                            *si0._pads["exact"], compact=True)
+        rows.append(shape_row(si0, cp, "exact", l, gcn.infer_pre(net, l),
+                              ops, kmod, bcoo_spmm_ref,
+                              f"recompute chunk ({len(rbs)} dirty row "
+                              "blocks)"))
+    fe.close()
+    slow = json.loads(SLOW_LOG.read_text())
+    if not (0 < slow["kept"] <= SLOW_K) or any(
+            "phases" not in r for r in slow["slow"]):
+        raise AssertionError(f"slow log: {slow}")
+    build = {s.name: s.build_seconds for s in servers}
+    lru_on_build = {s.name: (s.si.lru.hits, s.si.lru.misses)
+                    for s in servers}
+
+    # one more update on r0, its previous version pinned: clean rows keep
+    # their bits, version and applied_seq rise, one launch per chunk
+    old = r0.acquire_snapshot()
+    ops.reset_launch_counts()
+    st_p = r0.update_edges(add=edge, seq=FRONTEND_UPDATES + 1)
+    n_p = ops.launch_counts()["bcoo_spmm"]
+    clean = np.setdiff1d(np.arange(old.logits.shape[0]), r0.last_dirty)
+    snap = r0.acquire_snapshot()
+    pinned = {"edge": edge, "clean_rows": int(clean.size),
+              "clean_bit_identical": bool(np.array_equal(
+                  snap.logits[clean], old.logits[clean])),
+              "version": snap.version, "applied_seq": snap.applied_seq,
+              "chunks": st_p["recompute_chunks"], "launches": n_p,
+              "update_ms": st_p["seconds"] * 1e3}
+    r0.release_snapshot(snap)
+    r0.release_snapshot(old)
+    say(f"[frontend pinned update] r0: {pinned}")
+    if not pinned["clean_bit_identical"] or \
+            (snap.version, snap.applied_seq) != (old.version + 1,
+                                                 FRONTEND_UPDATES + 1) or \
+            n_p != sum(st_p["recompute_chunks"]):
+        raise AssertionError(f"pinned update: {pinned}")
+    del fe, r0, r1, ss, servers, si0, snap, old
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one stream of the same graph: no LRU, cold LRU, warm LRU, overlap
+    si = StreamingInference(graph, "gcn", net, cfg)
+    base, st_none = timed_forward(si)
+    si.lru = _DeviceLRU(FRONTEND_RESIDENT_MB * 2 ** 20)
+    cold, st_cold = timed_forward(si)
+    warm, st_warm = timed_forward(si)
+    d_hits = st_warm["lru"]["hits"] - st_cold["lru"]["hits"]
+    d_miss = st_warm["lru"]["misses"] - st_cold["lru"]["misses"]
+    si.cfg = dataclasses.replace(si.cfg, overlap=True)
+    si.lru = None
+    ovl, st_ovl = timed_forward(si)
+    si.lru = _DeviceLRU(FRONTEND_RESIDENT_MB * 2 ** 20)
+    timed_forward(si)
+    ovl_warm, st_ovl_warm = timed_forward(si)
+    stages = {"no_lru": st_none, "cold_lru": st_cold, "warm_lru": st_warm,
+              "overlap": st_ovl, "overlap_warm_lru": st_ovl_warm}
+    for k, v in stages.items():
+        say(f"[frontend stages {k}] " + ", ".join(
+            f"{a} {b:.1f}" for a, b in v.items() if a != "lru")
+            + f"; {smi}")
+    same = {k: bool(np.array_equal(v, base)) for k, v in
+            (("cold_lru", cold), ("warm_lru", warm), ("overlap", ovl),
+             ("overlap_warm_lru", ovl_warm))}
+    if not all(same.values()) or d_miss != 0 or \
+            d_hits != layers * si.n_partitions:
+        raise AssertionError(f"LRU / overlap forwards: bit-identical "
+                             f"{same}; warm pass hits {d_hits}, misses "
+                             f"{d_miss} (expected {layers * n_parts}, 0)")
+    # every row recomputed through recompute_rows' chunks against the
+    # full forward (batchnorm frozen at its statistics)
+    full = si.forward(store=True).copy()
+    every = np.arange(si.host.n_rows)
+    si.logits[:] = 0.0
+    for a in si.layer_store[1:]:
+        a[:] = 0.0
+    rec_chunks = si.recompute_rows([every] * layers)
+    chunks_bit_identical = bool(np.array_equal(si.logits, full))
+    chunk_err = close_to(si.logits, full, "recompute chunks")
+    say(f"[frontend chunks] every row through recompute_rows' chunks "
+        f"{rec_chunks} against the full forward: bit-identical "
+        f"{chunks_bit_identical} (max abs err {chunk_err:.3e})")
+    del si
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"argv": frontend_argv(scale), "run_s": wall,
+            "launches": counts["bcoo_spmm"], "launches_by_variant": by_var,
+            "build_s": build, "lru_hits_misses_after_run": lru_on_build,
+            "updates": per_update, "pinned_update": pinned,
+            "oracle_clean_rows": oracle_clean,
+            "queries_per_s": report["queries_per_s"], "query_ms": hists,
+            "query_load": load,
+            "host_rss_gib": rss_gib, "host_rss_peak_gib": rss_peak_gib,
+            "device_peak_gib": peak_gib, "checks": checks,
+            "replicas_bit_identical": replicas_bit_identical,
+            "sampled_rel_error": err, "sampled_rel_ci": [lo, hi],
+            "slow_log_kept": slow["kept"], "slow_log_offered":
+            slow["offered"], "stages_ms": stages,
+            "forwards_bit_identical": same, "launch_rows": rows,
+            "recompute_chunks_bit_identical": chunks_bit_identical,
+            "card": smi}
 
 
 # ------------------------------------------------------ GNN training phases
@@ -2581,6 +3038,8 @@ def main(argv=None) -> int:
                               srv.si.params, srv.si.features.shape[1])}
         del srv
         torch.cuda.empty_cache()
+    frontend = serving_frontend(serve_gnn, ops, kmod, bcoo_spmm_ref, gcn,
+                                args.scale, smi)
     gnn_ref = gnn_train_small_reference(GNNTrainer, TrainConfig, sbm_graph,
                                         gcn, GNN_SMALL, ops, dev)
     gnn_out, gnn_slice = gnn_train_main_path(train, ops, args.scale)
@@ -2664,7 +3123,8 @@ def main(argv=None) -> int:
             models_slice[m]["launches"] + serving[m]["launches"]
             for m in serving) + obs_gnn["launches"]
         + obs_slice["minibatch"]["launches"]
-        + obs_slice["save_serve"]["serve_launches"],
+        + obs_slice["save_serve"]["serve_launches"]
+        + frontend["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": hidden["ms"], "plain_ms": hidden["plain_ms"],
         "bound_ms": hidden["bound_ms"], "bound_by": hidden["bound_by"],
@@ -2696,6 +3156,7 @@ def main(argv=None) -> int:
         "sweep": sweep_res, "small_reference_max_abs_err": ref_err,
         "stages_ms": stages}}))
     say(json.dumps({"bcoo_spmm_shapes": rows}))
+    say(json.dumps({"frontend_slice": frontend}))
     say(json.dumps({"gnn_train_slice": gnn_slice}))
     say(json.dumps({"gnn_models_slice": models_slice}))
     say(json.dumps({"minibatch_slice": mb_slice}))

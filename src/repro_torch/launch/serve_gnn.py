@@ -1,30 +1,35 @@
-"""GNN node-serving entry point: streaming full-graph forward + batched
+"""GNN node-serving entry point: replicated snapshot frontend + batched
 queries.
 
 Builds a GCN, GraphSAGE or GCNII (trained for ``--train-epochs`` full-batch
-epochs with ``GNNTrainer``, or seeded random weights with
-``--train-epochs 0``), precomputes full-graph activations by partitioned
-streaming inference through the CUDA SpMM kernel, and answers batched
-node-id queries from the cached logits:
+epochs with ``GNNTrainer``, restored from ``--ckpt-dir``, or seeded random
+weights with ``--train-epochs 0``), precomputes full-graph activations by
+partitioned streaming inference through the CUDA SpMM kernel, then stands
+up a :class:`ServeFrontend` (``--replicas`` NodeServers behind a
+write-ahead update log and a query-batching dispatcher) and drives queries
+while ``--update-edges`` random edge insertions rebuild the replicas one at
+a time off the read path:
 
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn --dataset reddit \
         --scale 0.1 --model gcn --layers 3 --hidden 256 --block 128 \
-        --memory-budget-mb 2048 --replicas 0 --train-epochs 0 \
-        --queries 256 --query-batch 64
+        --memory-budget-mb 2048 --train-epochs 0 --replicas 2 \
+        --sampled-budget 0.3 --update-edges 2 --stream-resident-mb 4096 \
+        --stream-overlap --queries 32768 --query-batch 16
 
 The flags are those of ``repro.launch.serve_gnn`` plus ``--device``
-(``cuda`` by default; ``cpu`` runs the kernels' plain versions). This
-port covers the bare-server path (``--replicas 0``, the default here).
-``--ckpt-dir`` warm-starts the parameters from the latest checkpoint of a
-training run (either package's) instead of training here. The
-observability flags are the reference's (``--metrics``, whose snapshot
-lands under ``metrics``; ``--metrics-port``, ``--trace-out``,
-``--trace-jsonl``; ``--slo``/``--strict-slo``, whose report lands under
-``slo``). Flags of parts not yet ported (``--slow-log`` among them, whose
-tail log lives in the serving frontend) raise ``NotImplementedError``
-naming the ROADMAP.md Queue 1 item that ports them. It prints a ``[serve]
-trained ...`` or ``[serve] restored ...`` line first when it trains or
-restores; the last line is one JSON object.
+(``cuda`` by default; ``cpu`` runs the kernels' plain versions) and
+``--backend``. ``--replicas 0`` serves from a single bare NodeServer (no
+frontend threads). ``--sampled-budget`` < 1 adds an RSC-sampled replica
+that queries opt into with an error budget; ``--stream-resident-mb`` keeps
+partitions' tiles on the card in an LRU; ``--stream-overlap``
+double-buffers the partition uploads against the SpMM; ``--slow-log``
+writes the frontend's slowest-K request reservoir (``/debug/slow``) to a
+JSON file. The observability flags are the reference's (``--metrics``,
+whose snapshot lands under ``metrics``; ``--metrics-port``,
+``--trace-out``, ``--trace-jsonl``; ``--slo``/``--strict-slo``, whose
+report lands under ``slo``). It prints a ``[serve] trained ...`` or
+``[serve] restored ...`` line first when it trains or restores; the last
+line is one JSON object with the reference's keys.
 """
 from __future__ import annotations
 
@@ -39,13 +44,11 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.convert import gnn_state_tree, load_gnn_state
 from repro_torch.device import resolve_device
 from repro_torch.graphs.datasets import DATASETS, load_dataset
-from repro_torch.infer import NodeServer, StreamConfig
+from repro_torch.infer import NodeServer, ServeFrontend, StreamConfig
 from repro_torch.models.gnn import MODELS
 from repro_torch.obs import slo as slo_mod
 from repro_torch.train.loop import GNNTrainer, TrainConfig
 from repro_torch.train.optimizer import Adam
-
-_SERVING = "Queue 1 item 7 (serving: updates, LRU/overlap, replicas)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -80,38 +83,30 @@ def build_parser() -> argparse.ArgumentParser:
                     help="explicit partition count (overrides the budget)")
     ap.add_argument("--queries", type=int, default=256)
     ap.add_argument("--query-batch", type=int, default=32)
-    ap.add_argument("--update-edges", type=int, default=0)
-    ap.add_argument("--replicas", type=int, default=0,
-                    help="0 = bare single server (the only mode ported)")
+    ap.add_argument("--update-edges", type=int, default=0,
+                    help="insert N random edges and recompute dirty sets")
+    ap.add_argument("--replicas", type=int, default=2,
+                    help="exact NodeServer replicas behind the frontend "
+                         "(0 = bare single server, no frontend threads)")
     ap.add_argument("--max-batch", type=int, default=256,
-                    help="frontend batching (no effect with --replicas 0)")
-    ap.add_argument("--sampled-budget", type=float, default=0.0)
-    ap.add_argument("--stream-resident-mb", type=float, default=0.0)
-    ap.add_argument("--stream-overlap", action="store_true")
+                    help="max node ids coalesced into one dispatch")
+    ap.add_argument("--sampled-budget", type=float, default=0.0,
+                    help="add an RSC-sampled replica with this column "
+                         "keep-fraction (<1); queries opt in via an "
+                         "error budget (0 = exact replicas only)")
+    ap.add_argument("--stream-resident-mb", type=float, default=0.0,
+                    help="device-resident partition LRU budget for the "
+                         "streaming forward (0 = re-upload every layer)")
+    ap.add_argument("--stream-overlap", action="store_true",
+                    help="double-buffer partition uploads against the "
+                         "device SpMM during cache builds")
     ap.add_argument("--slow-log", default=None, metavar="PATH",
-                    help="the serving frontend's slow-request log (not "
-                         "ported yet)")
+                    help="write the slowest-K request reservoir "
+                         "(/debug/slow content) to this JSON file at exit")
     ap.add_argument("--seed", type=int, default=0)
     obs.add_cli_flags(ap)
     slo_mod.add_cli_flags(ap)
     return ap
-
-
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for flags this port does not cover."""
-    unported = [
-        (args.replicas > 0, "--replicas > 0", _SERVING),
-        (args.update_edges > 0, "--update-edges", _SERVING),
-        (args.sampled_budget > 0, "--sampled-budget", _SERVING),
-        (args.stream_resident_mb > 0, "--stream-resident-mb", _SERVING),
-        (args.stream_overlap, "--stream-overlap", _SERVING),
-        (args.slow_log is not None, "--slow-log", _SERVING),
-    ]
-    for hit, flag, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{flag} is not ported to repro_torch yet: see ROADMAP.md "
-                f"{item}")
 
 
 def get_params(args, graph, device):
@@ -144,10 +139,32 @@ def get_params(args, graph, device):
     return tr.params
 
 
-def run(args) -> tuple[dict, NodeServer]:
-    """Build the server and answer the queries; returns the report and the
-    server."""
-    check_ported(args)
+def random_edge_updates(graph, n: int, rng) -> list[tuple[int, int]]:
+    """n random non-edges to insert (original-id pairs)."""
+    adj, out = graph.adj, []
+    while len(out) < n:
+        u, v = (int(x) for x in rng.integers(0, graph.n, 2))
+        if u == v:
+            continue
+        if v in adj.col[adj.rowptr[u]: adj.rowptr[u + 1]]:
+            continue
+        out.append((u, v))
+    return out
+
+
+def _rounded(stats: dict) -> dict:
+    return {k: (round(v, 6) if isinstance(v, float) else
+                _rounded(v) if isinstance(v, dict) else v)
+            for k, v in stats.items()}
+
+
+def run(args, *, keep_open: bool = False
+        ) -> tuple[dict, NodeServer | ServeFrontend]:
+    """Build the server (``--replicas 0``) or the frontend, answer the
+    queries and apply the edge updates; returns the report and the server,
+    or the frontend: closed (its servers stay readable), or still serving
+    with ``keep_open`` (the caller closes it). A frontend update's entry
+    also holds each server's update statistics under ``servers``."""
     device = resolve_device(args.device)
     ob = obs.setup_from_args(args)
     monitor = slo_mod.monitor_from_args(args)
@@ -163,35 +180,85 @@ def run(args) -> tuple[dict, NodeServer]:
         n_partitions=args.partitions or None,
         memory_budget_mb=(None if args.partitions
                           else args.memory_budget_mb),
-        backend=args.backend, device=str(device))
-    server = NodeServer(graph, args.model, params, cfg)
+        backend=args.backend,
+        resident_mb=args.stream_resident_mb or None,
+        overlap=args.stream_overlap, device=str(device))
 
     rng = np.random.default_rng(args.seed)
-    t0 = time.perf_counter()
-    n_batches = 0
-    for start in range(0, args.queries, args.query_batch):
-        ids = rng.integers(0, graph.n,
-                           min(args.query_batch, args.queries - start))
-        logits = server.query(ids)
-        if not graph.multilabel and logits.shape != (ids.shape[0],
-                                                     graph.num_classes):
-            raise RuntimeError(f"query answered {logits.shape} for "
-                               f"{ids.shape[0]} ids")
-        n_batches += 1
-    query_s = time.perf_counter() - t0
+    updates: list[dict] = []
+
+    def run_queries(query_fn) -> tuple[int, float]:
+        t0 = time.perf_counter()
+        n_batches = 0
+        for start in range(0, args.queries, args.query_batch):
+            ids = rng.integers(0, graph.n,
+                               min(args.query_batch, args.queries - start))
+            logits = query_fn(ids)
+            if not graph.multilabel and logits.shape != (
+                    ids.shape[0], graph.num_classes):
+                raise RuntimeError(f"query answered {logits.shape} for "
+                                   f"{ids.shape[0]} ids")
+            n_batches += 1
+        return n_batches, time.perf_counter() - t0
+
+    if args.replicas <= 0:
+        served = server = NodeServer(graph, args.model, params, cfg)
+        n_batches, query_s = run_queries(server.query)
+        if args.update_edges > 0:
+            for e in random_edge_updates(graph, args.update_edges, rng):
+                stats = server.update_edges(add=[e])
+                updates.append(_rounded({k: v for k, v in stats.items()
+                                         if k != "retile"}))
+        n_parts = server.si.n_partitions
+        build_s = server.build_seconds
+        serve_stats = server.stats()
+    else:
+        served = frontend = ServeFrontend(
+            graph, args.model, params, cfg, replicas=args.replicas,
+            max_batch=args.max_batch,
+            sampled_budget=(args.sampled_budget
+                            if 0 < args.sampled_budget < 1 else None))
+        try:
+            if ob.exporter is not None and frontend.taillog is not None:
+                ob.exporter.attach(taillog=frontend.taillog)
+            n_batches, query_s = run_queries(
+                lambda ids: frontend.query(ids).logits)
+            servers = frontend.replicas + (
+                [frontend.sampled_server] if frontend.sampled_server
+                else [])
+            if args.update_edges > 0:
+                for e in random_edge_updates(graph, args.update_edges, rng):
+                    seq = frontend.update_edges(add=[e], wait=True)
+                    updates.append({
+                        "seq": seq,
+                        "min_applied": frontend.min_applied_seq(),
+                        "servers": {s.name: _rounded(s.last_update)
+                                    for s in servers}})
+            n_parts = frontend.replicas[0].si.n_partitions
+            build_s = frontend.replicas[0].build_seconds
+            serve_stats = frontend.stats()
+            if args.slow_log and frontend.taillog is not None:
+                with open(args.slow_log, "w") as f:
+                    json.dump(frontend.taillog.snapshot(), f, indent=1)
+                print(f"[serve] slow-request log → {args.slow_log}")
+        except BaseException:
+            frontend.close()
+            raise
+        if not keep_open:
+            frontend.close()
 
     out = {
         "dataset": args.dataset, "model": args.model,
         "device": str(device), "backend": args.backend,
         "n_nodes": graph.n,
-        "replicas": 0,
-        "n_partitions": server.si.n_partitions,
-        "cache_build_s": round(server.build_seconds, 4),
+        "replicas": max(args.replicas, 0),
+        "n_partitions": n_parts,
+        "cache_build_s": round(build_s, 4),
         "queries": int(args.queries),
         "query_batches": n_batches,
         "queries_per_s": round(args.queries / max(query_s, 1e-9), 1),
-        "updates": [],
-        "serve_stats": server.stats(),
+        "updates": updates,
+        "serve_stats": serve_stats,
     }
     if monitor is not None:
         monitor.stop()
@@ -201,7 +268,7 @@ def run(args) -> tuple[dict, NodeServer]:
     snap = obs.finalize_from_args(args)
     if snap is not None:
         out["metrics"] = snap
-    return out, server
+    return out, served
 
 
 def main(argv=None) -> dict:

@@ -37,7 +37,10 @@ decision per signature) and ``--device``. ``--minibatch`` trains over a
 subgraph pool (``--subgraphs``, ``--pool-method``, ``--roots``,
 ``--walk-length``, ``--buckets``, ``--no-prefetch``, ``--no-autotune``,
 ``--no-saint-norm``, the reference's defaults); ``--eval-mode stream``
-evaluates with the exact streaming full-graph forward, in either mode. It
+evaluates with the exact streaming full-graph forward, in either mode
+(``--stream-partitions``, ``--stream-budget-mb``, and
+``--stream-resident-mb`` / ``--stream-overlap`` for its partition LRU
+and double-buffered uploads). It
 prints the reference's JSON keys (``model``, ``dataset``, ``rsc``,
 ``budget``, ``best_test``, ``wall_s``, ``flops_fraction``; with
 ``--minibatch`` also ``minibatch``, ``pool``, ``subgraphs``,
@@ -129,7 +132,9 @@ def run_gnn(args, *, graph=None, pool=None, **minibatch) -> dict:
         strategy=args.strategy, block=args.block, seed=args.seed,
         backend=args.backend, eval_mode=args.eval_mode,
         stream_partitions=args.stream_partitions,
-        stream_budget_mb=args.stream_budget_mb, device=str(device),
+        stream_budget_mb=args.stream_budget_mb,
+        stream_resident_mb=args.stream_resident_mb,
+        stream_overlap=args.stream_overlap, device=str(device),
         strict_budget=args.strict_budget, probe_every=args.probe_every,
         probe_rows=args.probe_rows)
     if args.minibatch:
@@ -254,6 +259,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "--stream-budget-mb)")
     g.add_argument("--stream-budget-mb", type=float, default=256.0,
                    help="device-memory budget per streaming-eval partition")
+    g.add_argument("--stream-resident-mb", type=float, default=0.0,
+                   help="device-resident partition LRU budget for the "
+                        "streaming eval (0 = re-upload tiles every layer)")
+    g.add_argument("--stream-overlap", action="store_true",
+                   help="double-buffer streaming-eval partition uploads "
+                        "against the device SpMM")
     g.add_argument("--minibatch", action="store_true",
                    help="GraphSAINT subgraph-pool training (pipeline/)")
     g.add_argument("--subgraphs", type=int, default=8)

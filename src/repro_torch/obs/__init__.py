@@ -25,8 +25,9 @@ run is in flight; it implies ``--metrics`` and enables the ledger.
 
 The reference's compile sentinel (``obs.sentinel``, ``--strict-compiles``)
 has no counterpart: the port runs eagerly and builds its kernels once, so
-there is no recompile to count. The slow-request ``TailLog`` comes with
-the serving frontend (ROADMAP.md Queue 1 item 7).
+there is no recompile to count. The slow-request reservoir
+(:class:`~repro_torch.obs.taillog.TailLog`) is fed by the serving frontend
+(``infer.frontend``) and served at ``/debug/slow``.
 """
 from __future__ import annotations
 
@@ -35,14 +36,15 @@ from repro_torch.obs.context import TraceContext, new_trace
 from repro_torch.obs.ledger import ApproxLedger, BudgetError
 from repro_torch.obs.registry import MetricsRegistry, snapshot_delta
 from repro_torch.obs.slo import SLOError, SLOMonitor
+from repro_torch.obs.taillog import TailLog
 from repro_torch.obs.trace import Tracer
 
 __all__ = [
     "ApproxLedger", "BudgetError", "GuardedClock", "MetricsRegistry",
-    "Observability", "SLOError", "SLOMonitor", "TraceContext", "Tracer",
-    "add_cli_flags", "configure", "finalize_from_args", "get_ledger",
-    "get_obs", "get_registry", "get_tracer", "new_trace", "perf_now",
-    "reset", "setup_from_args", "snapshot_delta",
+    "Observability", "SLOError", "SLOMonitor", "TailLog", "TraceContext",
+    "Tracer", "add_cli_flags", "configure", "finalize_from_args",
+    "get_ledger", "get_obs", "get_registry", "get_tracer", "new_trace",
+    "perf_now", "reset", "setup_from_args", "snapshot_delta",
 ]
 
 

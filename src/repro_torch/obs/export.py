@@ -17,9 +17,9 @@ in flight (``--metrics-port``):
 * ``GET /slo`` — the attached :class:`~repro_torch.obs.slo.SLOMonitor`'s
   report: per-objective value/target/burn-rates/alert plus the
   injected-violation self-test verdict (404 when none attached).
-* ``GET /debug/slow`` — the attached tail log's (anything with a
-  ``snapshot()``; the serving frontend's ``TailLog``, ROADMAP.md Queue 1
-  item 7): the K slowest requests with phase breakdowns and span trees
+* ``GET /debug/slow`` — the attached
+  :class:`~repro_torch.obs.taillog.TailLog` reservoir (the serving
+  frontend's): the K slowest requests with phase breakdowns and span trees
   (404 when none attached).
 * ``GET /healthz`` — liveness.
 

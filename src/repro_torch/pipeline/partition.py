@@ -19,9 +19,9 @@ Operands stay on the HOST (``HostBlockCOO``) — the prefetcher owns the
 device uploads.
 
 ``contiguous_block_partition`` splits an operand's row blocks for the
-streaming forward (``infer/stream.py``). The tile-connectivity LDG split
-of row blocks (``ldg_block_partition``) serves streaming serving and is
-still to be ported (ROADMAP.md Queue 1 item 7).
+streaming forward (``infer/stream.py``) by a device-memory budget;
+``ldg_block_partition`` groups them by tile connectivity instead (the
+streaming engine's ``partition_method="ldg"``).
 """
 from __future__ import annotations
 
@@ -181,6 +181,34 @@ def contiguous_block_partition(
         acc += cost[r]
     parts.append(np.arange(start, n_rb, dtype=np.int64))
     return parts
+
+
+def ldg_block_partition(row_ids: np.ndarray, col_ids: np.ndarray,
+                        n_blocks: int, n_parts: int,
+                        seed: int = 0) -> list[np.ndarray]:
+    """LDG partition of ROW BLOCKS by tile connectivity.
+
+    Builds the block-level connectivity graph (row block r ~ col block c
+    whenever a tile (r, c) exists, symmetrized) and reuses
+    :func:`ldg_partition` on it, so row blocks that share column blocks land
+    in the same partition — fewer distinct column blocks to gather per
+    streaming-inference partition. Partitions come back sorted.
+    """
+    if n_parts <= 1 or n_blocks <= 1:
+        return [np.arange(n_blocks, dtype=np.int64)]
+    rows = np.concatenate([row_ids.astype(np.int64),
+                           col_ids.astype(np.int64)])
+    cols = np.concatenate([col_ids.astype(np.int64),
+                           row_ids.astype(np.int64)])
+    keep = rows != cols            # self-edges carry no grouping signal
+    key = rows * n_blocks + cols
+    _, idx = np.unique(key, return_index=True)
+    idx = idx[keep[idx]]
+    adj = CSR.from_coo(rows[idx], cols[idx],
+                       np.ones(idx.shape[0], np.float32),
+                       (n_blocks, n_blocks))
+    parts = ldg_partition(adj, n_parts, np.random.default_rng(seed))
+    return [np.sort(p) for p in parts]
 
 
 def make_buckets(shapes: list[tuple[int, int]],

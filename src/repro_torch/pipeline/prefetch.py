@@ -35,6 +35,12 @@ An optional resident cache keeps up to ``resident`` subgraphs' device
 operands alive across epochs — for when the whole pool fits in device
 memory and re-upload, not transfer overlap, is the bottleneck.
 
+A ``fetch(item)`` callable makes the same double buffering serve other
+loaders, as in the reference: it runs on the worker thread, on the side
+stream, and returns a tuple of device tensors (the streaming forward's
+partition operands, ``infer/stream.py``); the event, the wait and
+``record_stream`` cover every tensor of the tuple.
+
 Observability, as in the reference: each upload is an ``upload`` span on
 the uploading thread, in a trace context made per batch and left as the
 consumer's pending baton just before the batch is yielded (the engine
@@ -131,8 +137,17 @@ def operand_tensors(ops: GraphOperands) -> list[torch.Tensor]:
     return out
 
 
+def _tensors_of(ops) -> list[torch.Tensor]:
+    """The tensors of an upload: a subgraph's ``GraphOperands`` or a
+    ``fetch`` callable's tuple."""
+    if isinstance(ops, GraphOperands):
+        return operand_tensors(ops)
+    return [t for t in ops if isinstance(t, torch.Tensor)]
+
+
 class Prefetcher:
-    """Iterate ``(item, operands)`` over a schedule of pool indices.
+    """Iterate ``(item, operands)`` over a schedule of pool indices, or
+    of any items a ``fetch`` callable uploads (``pool`` may then be None).
 
     enabled=True: a daemon thread stays ``depth`` uploads ahead of the
     consumer (on CUDA, on a stream of its own). enabled=False: one
@@ -158,6 +173,7 @@ class Prefetcher:
         resident: int = 0,
         cache: OrderedDict | None = None,
         pinned: dict | None = None,
+        fetch=None,
     ):
         self.pool = pool
         self.schedule = list(schedule)
@@ -175,6 +191,7 @@ class Prefetcher:
             else (OrderedDict() if resident > 0 else None))
         self._resident = resident
         self._pinned = pinned if pinned is not None else {}
+        self._fetch = fetch
         self._stream: torch.cuda.Stream | None = None
 
     # ------------------------------------------------------------------
@@ -200,22 +217,28 @@ class Prefetcher:
             self.resident_hits += 1
             reg.counter("prefetch.resident_hits")
             return self._cache[sid]
-        sub = self.pool.subgraphs[sid]
-        ts = self._tensors(sid)
+        if self._fetch is not None:
+            def upload():
+                return self._fetch(sid)
+        else:
+            sub = self.pool.subgraphs[sid]
+            ts = self._tensors(sid)
+
+            def upload():
+                return device_operands(self.pool, sub, self.device,
+                                       tensors=ts)
         t0 = time.perf_counter()
         event = None
         with obs.get_tracer().span_in(ctx, "upload", sub=str(sid)):
             if self.cuda and self._stream is not None:
                 with torch.cuda.device(self.device), \
                         torch.cuda.stream(self._stream):
-                    ops = device_operands(self.pool, sub, self.device,
-                                          tensors=ts)
+                    ops = upload()
                     event = torch.cuda.Event()
                     event.record(self._stream)
                 event.synchronize()
             else:
-                ops = device_operands(self.pool, sub, self.device,
-                                      tensors=ts)
+                ops = upload()
                 if self.cuda:
                     torch.cuda.current_stream(self.device).synchronize()
         dt = time.perf_counter() - t0
@@ -224,7 +247,7 @@ class Prefetcher:
         reg.observe("prefetch.upload_ms", dt * 1e3)
         reg.counter("prefetch.uploads")
         self.upload_bytes += sum(t.numel() * t.element_size()
-                                 for t in ts.values())
+                                 for t in _tensors_of(ops))
         item = (ops, event)
         if self._cache is not None:
             self._cache[sid] = item
@@ -239,7 +262,7 @@ class Prefetcher:
         if event is not None:
             cur = torch.cuda.current_stream(self.device)
             cur.wait_event(event)
-            for t in operand_tensors(ops):
+            for t in _tensors_of(ops):
                 t.record_stream(cur)
         return ops
 

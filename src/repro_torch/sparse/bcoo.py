@@ -10,9 +10,9 @@ Sampling never moves tile data: a sampled operand is a new index list into
 ``blocks`` (a ``SamplePlan``), with padding entries pointing at the sentinel.
 
 The host side (``host_row_ptr``, ``BlockMeta``, ``HostBlockCOO`` with
-``pad_to``, ``pad_block_meta``, ``csr_to_bcoo_host``,
-``degree_sort_permutation``) is a copy of
-``repro.sparse.bcoo`` and yields bit-identical arrays. The device operand
+``pad_to`` and ``replace_row_blocks``, ``pad_block_meta``,
+``csr_to_bcoo_host``, ``retile_rows``, ``degree_sort_permutation``) is a
+copy of ``repro.sparse.bcoo`` and yields bit-identical arrays. The device operand
 ``BlockCOO`` is a dataclass of torch tensors; ``csr_to_bcoo`` builds one on
 the host, uploads it and keeps only the planner's ``BlockMeta``.
 """
@@ -143,6 +143,56 @@ class HostBlockCOO:
             s_total=s_pad,
             row_ptr=host_row_ptr(row_ids, n_blocks))
 
+    def replace_row_blocks(self, rbs: np.ndarray, row_ids: np.ndarray,
+                           col_ids: np.ndarray, blocks: np.ndarray,
+                           in_place: bool = True) -> "HostBlockCOO":
+        """Splice replacement tiles for the row blocks ``rbs`` into the
+        tile lists, leaving every other row block's tiles untouched.
+
+        ``row_ids``/``col_ids``/``blocks`` are the NEW tiles of exactly
+        those row blocks, sorted by (row block, col block) — the order
+        ``csr_to_bcoo_host`` produces. When every replaced block keeps its
+        tile count, the swap is a dirty-bounded in-place write into this
+        object's arrays (callers sharing the arrays must hold their own
+        copies); when counts change, a new ``HostBlockCOO`` is built by a
+        splice that re-sorts the tile lists (O(s_total) memcpy, still far
+        cheaper than the O(nnz) scatter of a full re-tile).
+        """
+        rbs = np.asarray(rbs, dtype=np.int64)
+        ptr = (self.row_ptr if self.row_ptr is not None
+               else host_row_ptr(self.row_ids, self.n_row_blocks))
+        old_idx = _expand_ranges(ptr[rbs], ptr[rbs + 1])
+        old_counts = (ptr[rbs + 1] - ptr[rbs]).astype(np.int64)
+        new_counts = (np.searchsorted(row_ids, rbs + 1)
+                      - np.searchsorted(row_ids, rbs))
+        if new_counts.sum() != row_ids.shape[0]:
+            raise ValueError("replacement tiles reference row blocks "
+                             "outside the replaced set")
+        if in_place and np.array_equal(old_counts, new_counts):
+            # value/column rewrite only: positions and row ids unchanged
+            self.blocks[old_idx] = blocks
+            self.col_ids[old_idx] = col_ids
+            return self
+        keep = np.ones(self.s_total, dtype=bool)
+        keep[old_idx] = False
+        all_rows = np.concatenate([self.row_ids[keep],
+                                   row_ids.astype(np.int32)])
+        all_cols = np.concatenate([self.col_ids[keep],
+                                   col_ids.astype(np.int32)])
+        order = np.lexsort((all_cols, all_rows))
+        s_new = int(all_rows.shape[0])
+        out = np.zeros((s_new + 1, self.bm, self.bk), dtype=np.float32)
+        out[:s_new] = np.concatenate(
+            [self.blocks[: self.s_total][keep], blocks], axis=0)[order]
+        row_ids2 = all_rows[order]
+        return HostBlockCOO(
+            blocks=out, row_ids=row_ids2, col_ids=all_cols[order],
+            bm=self.bm, bk=self.bk,
+            n_rows=self.n_rows, n_cols=self.n_cols,
+            n_row_blocks=self.n_row_blocks, n_col_blocks=self.n_col_blocks,
+            s_total=s_new,
+            row_ptr=host_row_ptr(row_ids2, self.n_row_blocks))
+
     def to_device(self, device: str | torch.device,
                   dtype: torch.dtype = torch.float32) -> BlockCOO:
         row_ptr = (self.row_ptr if self.row_ptr is not None
@@ -242,6 +292,88 @@ def csr_to_bcoo_host(
         col_block_norm=col_block_norm.astype(np.float32),
         col_nnz=col_nnz, col_norm=col_norm,
     )
+    return host, meta
+
+
+def retile_rows(
+    host: HostBlockCOO,
+    meta: BlockMeta,
+    csr: CSR,
+    dirty_rows: np.ndarray,
+    in_place: bool = True,
+) -> tuple[HostBlockCOO, BlockMeta]:
+    """Dirty-bounded incremental re-tile: rebuild only the row blocks
+    touched by ``dirty_rows`` from the (already updated) ``csr``.
+
+    ``host``/``meta`` must have been built (by ``csr_to_bcoo_host`` or a
+    previous ``retile_rows``) from a CSR that differs from ``csr`` ONLY in
+    rows covered by ``dirty_rows`` — rows outside the dirty row blocks are
+    trusted unchanged and their tiles are not reread. The scatter into
+    tiles, the dominant cost of a full re-tile, runs over the dirty rows'
+    nnz only; the result is bit-identical to ``csr_to_bcoo_host(csr)`` for
+    the tile arrays (planner norms drift by float addition order in the
+    touched columns, and ``col_nnz`` is exact provided the CSR carries no
+    duplicate entries or explicit zeros — true of the normalized
+    propagation operands).
+
+    With ``in_place`` (default), count-preserving updates write straight
+    into ``host``'s arrays — callers sharing those arrays across replicas
+    must pass copies or ``in_place=False``.
+    """
+    bm, bk = host.bm, host.bk
+    n_cb = host.n_col_blocks
+    rbs = np.unique(np.asarray(dirty_rows, dtype=np.int64) // bm)
+    if rbs.size == 0:
+        return host, meta
+
+    # new tiles of the dirty row blocks, from the updated CSR
+    rows = (rbs[:, None] * bm + np.arange(bm)[None, :]).reshape(-1)
+    rows = rows[rows < csr.n_rows]
+    idx = _expand_ranges(csr.rowptr[rows], csr.rowptr[rows + 1])
+    e_rows = np.repeat(rows, (csr.rowptr[rows + 1]
+                              - csr.rowptr[rows]).astype(np.int64))
+    e_cols = csr.col[idx].astype(np.int64)
+    e_vals = csr.val[idx]
+    key = (e_rows // bm) * n_cb + (e_cols // bk)
+    uniq, inverse = np.unique(key, return_inverse=True)
+    k = int(uniq.shape[0])
+    new_blocks = np.zeros((k, bm, bk), dtype=np.float32)
+    np.add.at(new_blocks, (inverse, e_rows % bm, e_cols % bk), e_vals)
+    new_rb = (uniq // n_cb).astype(np.int32)
+    new_cb = (uniq % n_cb).astype(np.int32)
+
+    # planner-metadata deltas: subtract the replaced tiles' per-column
+    # contributions (tile granularity), add the new CSR entries'
+    ptr = (host.row_ptr if host.row_ptr is not None
+           else host_row_ptr(host.row_ids, host.n_row_blocks))
+    old_idx = _expand_ranges(ptr[rbs], ptr[rbs + 1])
+    n_cols_u = meta.col_norm.shape[0]
+    sq = meta.col_norm.astype(np.float64) ** 2
+    nnz = meta.col_nnz.copy()
+    if old_idx.size:
+        contrib = (host.blocks[old_idx].astype(np.float64) ** 2).sum(axis=1)
+        cnt = (host.blocks[old_idx] != 0).sum(axis=1)
+        cols_of = (host.col_ids[old_idx].astype(np.int64)[:, None] * bk
+                   + np.arange(bk)[None, :]).reshape(-1)
+        m = cols_of < n_cols_u
+        np.subtract.at(sq, cols_of[m], contrib.reshape(-1)[m])
+        np.subtract.at(nnz, cols_of[m], cnt.reshape(-1)[m])
+    if e_cols.size:
+        np.add.at(sq, e_cols, e_vals.astype(np.float64) ** 2)
+        np.add.at(nnz, e_cols, 1)
+    col_norm = np.sqrt(np.maximum(sq, 0.0)).astype(np.float32)
+
+    host = host.replace_row_blocks(rbs, new_rb, new_cb, new_blocks,
+                                   in_place=in_place)
+    cb_norm = np.zeros(n_cb, dtype=np.float64)
+    np.add.at(cb_norm, np.arange(n_cols_u) // bk,
+              col_norm.astype(np.float64))
+    meta = BlockMeta(
+        row_ids=host.row_ids, col_ids=host.col_ids,
+        col_block_tiles=np.bincount(host.col_ids,
+                                    minlength=n_cb).astype(np.int64),
+        col_block_norm=cb_norm.astype(np.float32),
+        col_nnz=nnz, col_norm=col_norm)
     return host, meta
 
 

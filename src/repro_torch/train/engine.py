@@ -96,6 +96,8 @@ class TrainConfig:
     eval_mode: str = "auto"
     stream_partitions: int = 0       # 0 = size by stream_budget_mb
     stream_budget_mb: float = 256.0
+    stream_resident_mb: float = 0.0  # >0: device partition LRU budget
+    stream_overlap: bool = False     # double-buffer partition uploads
     device: str = "cuda"         # "cpu" runs the kernels' plain versions
     # Checkpointing: save (params, opt_state) + engine state every
     # ``ckpt_every`` global steps and at the end; ``Engine.restore``
@@ -340,7 +342,10 @@ class Engine:
                     n_partitions=cfg.stream_partitions or None,
                     memory_budget_mb=(None if cfg.stream_partitions
                                       else cfg.stream_budget_mb),
-                    backend=cfg.backend, device=str(source.device)))
+                    backend=cfg.backend, degree_sort=cfg.degree_sort,
+                    resident_mb=cfg.stream_resident_mb or None,
+                    overlap=cfg.stream_overlap,
+                    device=str(source.device)))
         elif cfg.eval_mode != "auto":
             raise ValueError(f"unknown eval_mode {cfg.eval_mode!r} "
                              "(expected 'auto' or 'stream')")

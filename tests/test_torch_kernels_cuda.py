@@ -2,7 +2,8 @@
 ``gather_matmul`` and ``flash_attention`` against their plain PyTorch
 versions (the wgmma variants and ``bcoo_spmm``'s tensor-core variants also
 at the edges of their tiles, each launch counted under its variant), the
-wrappers' refusals, and the streaming GCN forward, the LM
+wrappers' refusals, and the streaming GCN forward (exact, sampled, with
+the partition LRU and overlapped uploads, and after an edge update), the LM
 prefill + decode, ``rsc_matmul``, LM training steps and full-batch GCN
 training with RSC on ``cuda`` against the same runs on the CPU; the
 training path's no-sync entry ``bcoo_spmm_in_range``; a minibatch run
@@ -302,6 +303,106 @@ def test_stream_forward_on_cuda_matches_cpu(cuda, batchnorm):
     ref = cpu.forward()
     np.testing.assert_allclose(logits, ref, rtol=0,
                                atol=1e-4 * float(np.abs(ref).max()))
+
+
+SERVE_GRAPH = dict(n_nodes=600, n_clusters=5, avg_degree=10, feat_dim=24,
+                   seed=2)
+SERVE_CFG = dict(block=32, n_partitions=3, memory_budget_mb=None)
+
+
+def _serve_pair(cuda, batchnorm=True, **cfg):
+    """The serving stream of ``SERVE_GRAPH`` on the card and on the CPU
+    (3 layers of 48, the same seeded parameters)."""
+    g = sbm_graph(**SERVE_GRAPH)
+    kw = dict(SERVE_CFG, store_layers=True, **cfg)
+    out = []
+    for device in ("cpu", cuda):
+        net = gcn.init(24, 48, 5, 3, batchnorm, seed=1, device=device)
+        out.append(StreamingInference(g, "gcn", net, StreamConfig(
+            device=str(device), **kw)))
+    return g, out[0], out[1]
+
+
+def _logits_close(ours, ref):
+    np.testing.assert_allclose(ours, ref, rtol=0,
+                               atol=1e-4 * float(np.abs(ref).max()))
+
+
+def test_sampled_stream_forward_on_cuda_matches_cpu(cuda):
+    """The RSC-sampled partitions (sentinel-only row segments among them)
+    through the kernel == the plain version on the CPU, one launch per
+    layer and partition, all ``tf32x3``."""
+    _, cpu, dev = _serve_pair(cuda, sample_budget=0.3)
+    sentinel = dev._pads["sampled"][1]
+    assert any((p.sel[p.row_ptr[:-1].clip(max=len(p.sel) - 1)]
+                == sentinel).any() for p in dev._parts["sampled"])
+    ops.reset_launch_counts()
+    logits = dev.forward(sampled=True)
+    assert ops.launch_counts()["bcoo_spmm"] == 3 * dev.n_partitions
+    assert ops.launch_counts_by_variant()["bcoo_spmm"]["tf32x3"] == \
+        3 * dev.n_partitions
+    _logits_close(logits, cpu.forward(sampled=True))
+
+
+def test_recompute_rows_on_cuda_matches_cpu(cuda):
+    """One edge update served on the card (``update_operand`` +
+    ``recompute_rows``, batchnorm frozen) == the same update on the CPU,
+    one launch per recompute chunk; clean rows keep their bits."""
+    from repro_torch.infer.serve import NodeServer
+    g = sbm_graph(**SERVE_GRAPH)
+    cfg = dict(SERVE_CFG)
+    srvs = [NodeServer(g, "gcn", gcn.init(24, 48, 5, 3, True, seed=1,
+                                          device=device),
+                       StreamConfig(device=str(device), **cfg))
+            for device in ("cpu", cuda)]
+    before = srvs[1].si.logits.copy()
+    u = 11
+    nbrs = set(g.adj.col[g.adj.rowptr[u]: g.adj.rowptr[u + 1]].tolist())
+    v = next(x for x in range(g.n) if x != u and x not in nbrs)
+    ops.reset_launch_counts()
+    st = srvs[1].update_edges(add=[(u, v)])
+    assert ops.launch_counts()["bcoo_spmm"] == sum(st["recompute_chunks"])
+    srvs[0].update_edges(add=[(u, v)])
+    _logits_close(srvs[1].si.logits, srvs[0].si.logits)
+    clean = np.setdiff1d(np.arange(before.shape[0]), srvs[1].last_dirty)
+    np.testing.assert_array_equal(srvs[1].si.logits[clean], before[clean])
+
+
+def test_recompute_chunks_on_cuda_match_full_partitions(cuda):
+    """Every row recomputed through ``recompute_rows``' chunks (their own
+    tiles only, the mode's plan length) matches the full forward on the
+    card, one launch per chunk. Each row sums the same tiles, but where
+    the kernel cuts a row's segment into pieces (``bcoo_spmm.chunks`` >
+    1) it cuts the segment with its padding, which differs between a
+    chunk and a partition, so the last bits may differ: f32 tolerance."""
+    _, _, dev = _serve_pair(cuda)
+    full = dev.forward().copy()
+    every = np.arange(dev.host.n_rows)
+    dev.logits[:] = 0.0
+    for a in dev.layer_store[1:]:
+        a[:] = 0.0
+    ops.reset_launch_counts()
+    chunks = dev.recompute_rows([every] * 3)
+    assert ops.launch_counts()["bcoo_spmm"] == sum(chunks)
+    _logits_close(dev.logits, full)
+
+
+@pytest.mark.parametrize("overlap,resident_mb", [(False, 64.0),
+                                                 (True, None),
+                                                 (True, 64.0)])
+def test_stream_lru_and_overlap_on_cuda_bit_identical(cuda, overlap,
+                                                      resident_mb):
+    """The LRU forward (cold and warm) and the overlapped forward
+    (side-stream uploads) equal the serial forward on the card bit for
+    bit: the same launches on the same inputs."""
+    _, _, base = _serve_pair(cuda)
+    _, _, dev = _serve_pair(cuda, overlap=overlap, resident_mb=resident_mb)
+    want = base.forward()
+    for _ in range(2):
+        np.testing.assert_array_equal(dev.forward(), want)
+    if resident_mb:
+        assert dev.lru.misses == dev.n_partitions
+        assert dev.lru.hits == 5 * dev.n_partitions
 
 
 # (b, tq, tk, nq, nkv, hd, causal, window, q_offset): one token, odd

@@ -1174,7 +1174,7 @@ def test_serve_gnn_cli_ckpt_metrics_and_slo(tmp_path, capsys):
     argv = ["--dataset", "reddit", "--scale", "0.003", "--layers", "2",
             "--hidden", "24", "--block", "32", "--device", "cpu",
             "--queries", "40", "--query-batch", "16", "--ckpt-dir", str(d),
-            "--metrics", "--slo", "p99_ms=1e6"]
+            "--metrics", "--slo", "p99_ms=1e6", "--replicas", "0"]
     out, server = serve_gnn.run(serve_gnn.build_parser().parse_args(argv))
     assert "[serve] restored params from step 6" in capsys.readouterr().out
     for (n, a), (_, b) in zip(tr.params.named_parameters(),

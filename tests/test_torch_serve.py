@@ -5,6 +5,8 @@ forward and node queries from parameters carried across with
 Tolerance: logits at atol 1e-4·max|logit| (rtol 0) — the two packages sum
 the same f32 products of the pre-map and the SpMM in different orders.
 """
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -176,7 +178,8 @@ def test_cuda_request_without_card_raises(monkeypatch):
 def test_serve_gnn_main_on_cpu(capsys):
     argv = ["--dataset", "reddit", "--scale", "0.002", "--layers", "3",
             "--hidden", "32", "--block", "32", "--memory-budget-mb", "0.5",
-            "--queries", "40", "--query-batch", "16", "--device", "cpu"]
+            "--queries", "40", "--query-batch", "16", "--device", "cpu",
+            "--replicas", "0"]
     ops.reset_launch_counts()
     out = serve_gnn.main(argv)
     printed = capsys.readouterr().out.strip().splitlines()[-1]
@@ -194,7 +197,7 @@ def test_serve_gnn_main_on_cpu(capsys):
 
 SERVE_ARGV = ["--dataset", "reddit", "--scale", "0.002", "--layers", "3",
               "--hidden", "32", "--block", "32", "--queries", "40",
-              "--query-batch", "16", "--device", "cpu"]
+              "--query-batch", "16", "--device", "cpu", "--replicas", "0"]
 
 
 @pytest.mark.parametrize("model", ["graphsage", "gcnii"])
@@ -245,6 +248,38 @@ def test_serve_gnn_serves_the_trained_model(model):
     ["--update-edges", "3"], ["--sampled-budget", "0.5"],
     ["--stream-resident-mb", "8"], ["--stream-overlap"],
     ["--slow-log", "s.json"]])
-def test_serve_gnn_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        serve_gnn.main(["--device", "cpu", *flag])
+def test_serve_gnn_flags_on_cpu(tmp_path, capsys, flag):
+    """Each serving flag of the reference runs on the CPU behind the
+    default frontend (2 replicas) and gives the reference's result keys;
+    the served answers are the first replica's cached logits."""
+    if flag[0] == "--slow-log":
+        flag = [flag[0], str(tmp_path / flag[1])]
+    argv = ["--dataset", "reddit", "--scale", "0.002", "--layers", "2",
+            "--hidden", "16", "--block", "32", "--train-epochs", "0",
+            "--queries", "24", "--query-batch", "8", "--device", "cpu",
+            *flag]
+    out, fe = serve_gnn.run(serve_gnn.build_parser().parse_args(argv))
+    assert {"dataset", "model", "n_nodes", "replicas", "n_partitions",
+            "cache_build_s", "queries", "query_batches", "queries_per_s",
+            "updates", "serve_stats"} <= set(out)
+    assert out["replicas"] == 2 and out["query_batches"] == 3
+    st = out["serve_stats"]
+    assert st["replicas"] == 2 and st["log_seq"] == len(out["updates"])
+    assert st["min_applied_seq"] == st["log_seq"]
+    assert sum(s["queries"] for s in st["servers"]) == 24
+    n_upd = int(flag[1]) if flag[0] == "--update-edges" else 0
+    assert [u["seq"] for u in out["updates"]] == list(range(1, n_upd + 1))
+    sampled = flag[0] == "--sampled-budget"
+    assert (fe.sampled_server is not None) == sampled
+    assert (st["sampled_rel_error"] is not None) == sampled
+    r0, r1 = fe.replicas
+    np.testing.assert_array_equal(r0.si.logits, r1.si.logits)
+    assert all(s["version"] == n_upd for s in st["servers"])
+    if flag[0] == "--stream-resident-mb":
+        assert r0.si.lru is not None and r0.si.lru.misses > 0
+    if flag[0] == "--slow-log":
+        rec = json.loads(open(flag[1]).read())
+        assert rec["kept"] == rec["offered"] == 3
+        assert all("phases" in r for r in rec["slow"])
+        assert "[serve] slow-request log" in capsys.readouterr().out
+    assert not fe._dispatcher.is_alive() and not fe._updater.is_alive()
