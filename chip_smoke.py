@@ -150,6 +150,31 @@ without the final ``{"ok": true, ...}`` line:
    every 9 steps, uninterrupted and restored at step 9: the same losses
    and final parameters bit for bit, and the same directory restored
    into a full-batch engine of the model;
+8f. data-parallel GraphSAINT training on 2 gloo ranks sharing the card
+   (NCCL refuses two ranks on one GPU, so the all-reduce goes through the
+   host: a functional check, not an NCCL figure): (a) phase 8d's small
+   GCN and pool on the ranks, the all-reduce int8-compressed with error
+   feedback and bucketed during the backward, against a one-process
+   simulation of the same schedule on the card (each rank's gradients
+   with the run's own plans, compressed as the run's steps say, averaged
+   on the host, Adam applied): the same subgraph tuples and modes,
+   ``compress`` exactly on the RSC steps, plans identical to a plan pool
+   per shard fed that rank's norms, losses within GNN_LOSS_RTOL, each
+   parameter's change within TRAIN_DP_REL; then the full-width GCN's
+   gradients all-reduced per leaf and in 4 buckets, timed; (b) ``launch.train
+   gnn --minibatch --dp 2 --force-host-devices 2 --compress-grads
+   --overlap-allreduce`` at 8d's width, 10 epochs (4 global steps each;
+   cut from 8d's 40 for time), autotuned afresh (rank 0 sweeps, rank 1
+   reads its decisions): each rank's launch counts start at 0 in its own
+   process and come back by variant, this process launches nothing; 6
+   ``bcoo_spmm`` launches per step per rank, 3 per subgraph per
+   evaluation plus the sweeps' on rank 0, all ``tf32x3``; flops fraction
+   within the budget; a finite, falling loss; ``compress`` exactly on the
+   RSC steps; every shard's hit rate above 0; no autotune miss; each
+   rank's step medians, all-reduce ms after the backward, f32 bytes per
+   step and what int8 codes and scales would take, upload, stall,
+   planner ms per refresh, peak device memory and host RSS at the end of
+   its run;
 9. LM serving (``flash_attention``): sweep the kernel against its plain
    version over b ∈ {1, 2}, (nq, nkv) ∈ {(16, 8), (14, 2), (4, 4), (8, 1)}
    (GQA ratios 2, 7, 1, 8), hd ∈ {64, 128}, f32 (variant ``fma``) and
@@ -195,11 +220,12 @@ without the final ``{"ok": true, ...}`` line:
 15. print each slice's JSON line (``slice``, ``bcoo_spmm_shapes``,
     ``frontend_slice``,
     ``gnn_train_slice``, ``gnn_models_slice``, ``minibatch_slice``,
-    ``obs_slice``, ``lm_slice``,
+    ``obs_slice``, ``dp_slice``, ``lm_slice``,
     ``lm_train_slice``), the build report, the kernel line (with the
     variant each kernel ran on its main path; ``bcoo_spmm``'s launches are
     the three models' serving and RSC training runs', the frontend's, the
-    minibatch run's and phase 8e's), the card line and,
+    minibatch run's, phase 8e's and both ranks' of phase 8f (b)), the card
+    line and,
     last, the result line.
 
 Without a CUDA device it exits with code 2 and prints no result. It
@@ -211,6 +237,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -337,6 +364,23 @@ MB_RESIDENT = 8
 # serving run's SLO is a p99 no query here comes near.
 OBS_PROBE_EVERY = 20
 OBS_PROBE_ROWS = 8
+# Phase 8f: data-parallel GraphSAINT training on DP_RANKS gloo ranks sharing
+# the one card (NCCL refuses two ranks on one GPU): a functional check whose
+# all-reduce goes through the host, not an NCCL figure. (a) MB_SMALL's
+# graph, pool and model on the ranks, the all-reduce compressed (int8 error
+# feedback) and bucketed during the backward, held against a one-process
+# simulation of the same schedule on the card; the all-reduce of the
+# full-width GCN's gradients (ogbn-products widths) timed per leaf and in
+# DP_BUCKETS buckets over DP_REPS rounds. (b) 8d's full-width run on the
+# ranks with --compress-grads --overlap-allreduce, cut from 8d's 40 epochs
+# to DP_EPOCHS (4 global steps each) for time, tuned afresh into its own
+# cache file (rank 0 sweeps, rank 1 reads its decisions).
+DP_RANKS = 2
+DP_SMALL = dict(MB_SMALL, compress_grads=True, overlap_allreduce=True)
+DP_EPOCHS = 10
+DP_BUCKETS = 4
+DP_REPS = 20
+DP_AUTOTUNE_CACHE = ROOT / "chiprun_out" / "spmm_autotune_dp.json"
 OBS_SLO_P99_MS = 1000.0
 # Phase 5b: GCN serving behind the frontend at phase 4's width and graph:
 # 2 exact replicas (r1 warm-started from r0), a sampled replica keeping
@@ -2159,6 +2203,376 @@ def mb_main_path(train, ops, kmod, bcoo_spmm_ref, autotune, kernel_table,
         "modes": modes, "launch_rows": rows}, graph, pool
 
 
+# --------------------------------------------------- data-parallel training
+
+def dp_small_pool():
+    """MB_SMALL's graph and pool (8d's small run's)."""
+    from repro_torch.graphs.synthetic import sbm_graph
+    from repro_torch.pipeline import PoolConfig, build_pool
+    g = sbm_graph(**GNN_GRAPH)
+    return g, build_pool(g, PoolConfig(
+        n_subgraphs=DP_SMALL["n_subgraphs"], roots=DP_SMALL["roots"],
+        walk_length=DP_SMALL["walk_length"],
+        n_buckets=DP_SMALL["n_buckets"], block=DP_SMALL["block"]))
+
+
+def dp_allreduce_timings(group) -> dict:
+    """The full-width GCN's gradient leaves (ogbn-products widths)
+    all-reduced over the group per leaf and in DP_BUCKETS buckets, in
+    turns, DP_REPS rounds each (host clock, the card synchronised on both
+    sides); medians in ms."""
+    from repro_torch.graphs.datasets import DATASETS
+    from repro_torch.models.gnn import gcn
+    from repro_torch.train.steps import GradReducer, bucketed_all_reduce
+    spec = DATASETS["ogbn-products"]
+    layers, hidden = GNN_WIDTHS["gcn"]
+    net = gcn.init(spec.feat_dim, hidden, spec.classes, layers, True, seed=0,
+                   device=group.device)
+    red = GradReducer(net, group, overlap_buckets=DP_BUCKETS)
+    gen = torch.Generator(device=group.device)
+    gen.manual_seed(group.rank)
+    grads = {n: torch.randn(dict(net.named_parameters())[n].shape,
+                            generator=gen, device=group.device)
+             for n in red.names}
+    sync = (torch.cuda.synchronize if group.device.type == "cuda"
+            else (lambda: None))
+    times: dict[str, list[float]] = {"per_leaf": [], "bucketed": []}
+    for _ in range(DP_REPS):
+        for mode in times:
+            group.barrier()
+            sync()
+            t0 = time.perf_counter()
+            if mode == "per_leaf":
+                for n in red.names:
+                    group.mean_(grads[n].clone())
+            else:
+                bucketed_all_reduce(grads, group, DP_BUCKETS)
+            sync()
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+    return {"leaves": len(red.names), "buckets": len(red.buckets),
+            "f32_bytes": red.f32_bytes, "int8_bytes": red.int8_bytes,
+            **{f"{m}_ms": float(np.median(t)) for m, t in times.items()},
+            **{f"{m}_ms_all": t for m, t in times.items()}}
+
+
+def dp_small_rank(group, start: dict) -> dict:
+    """Phase 8f (a), one rank: DP_SMALL from the parent's parameters
+    (``start``, host arrays by name), each RSC step's plans and norms, the
+    final parameters and the rank's launches; then the all-reduce timings
+    (``dp_allreduce_timings``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.gnn import gcn
+    from repro_torch.pipeline import MinibatchConfig, MinibatchTrainer
+    ops.reset_launch_counts()
+    dev = group.device
+    g, pool = dp_small_pool()
+    net = gcn.init(GNN_GRAPH["feat_dim"], DP_SMALL["hidden"], 7,
+                   DP_SMALL["n_layers"], True, seed=0, device=dev)
+    with torch.no_grad():
+        for n, p in net.named_parameters():
+            p.copy_(torch.from_numpy(start[n]))
+    tr = MinibatchTrainer(MinibatchConfig(**DP_SMALL, dp=DP_RANKS,
+                                          device=str(dev)), g, pool,
+                          model=net, group=group)
+    plans, norms = capture_planner(tr.engine.planner)
+    res = tr.train(eval_every=2)
+    h = res["history"]
+    return {"rank": group.rank,
+            "history": {k: h[k] for k in ("loss", "sub_id", "mode",
+                                          "compress", "val", "test")},
+            "plans": plans,
+            "norms": [{k: v.numpy() for k, v in n.items()} for n in norms],
+            "final": {n: p.detach().cpu().numpy()
+                      for n, p in net.named_parameters()},
+            "launches": ops.launch_counts()["bcoo_spmm"],
+            "n_partitions": (tr.engine.stream_eval.si.n_partitions
+                             if tr.engine.stream_eval.si is not None
+                             else None),
+            "reduce_ms": tr.engine.runner.reducer.reduce_ms,
+            "allreduce": dp_allreduce_timings(group)}
+
+
+def dp_small_reference(ops, dev) -> dict:
+    """Phase 8f (a): DP_SMALL on DP_RANKS gloo ranks on the card against a
+    one-process simulation of the same schedule on the card: each rank's
+    ``rsc_grads`` / ``exact_grads`` on its subgraph with the DP run's own
+    plans, compressed per leaf with each rank's error feedback as the
+    run's steps say, averaged on the host, Adam applied. The same tuples
+    (and the schedule drawn here) and modes, ``compress`` exactly on the
+    RSC steps, plans identical to a ``PlanCachePool`` per shard fed that
+    rank's norms, losses within GNN_LOSS_RTOL, each parameter's change
+    within TRAIN_DP_REL; launches 2 per layer per step on each rank and
+    layers × partitions per evaluation on rank 0, none in this process."""
+    from repro_torch.core.plan import SamplePlan
+    from repro_torch.distributed import launch, plan_group
+    from repro_torch.models.gnn import MODELS, gcn
+    from repro_torch.pipeline import (MinibatchConfig, PlanCachePool,
+                                      ShardedPoolSource, device_operands)
+    from repro_torch.train.optimizer import Adam, apply_updates
+    from repro_torch.train.steps import (GradReducer, init_error_feedback,
+                                         make_gnn_grads)
+    _, pool = dp_small_pool()
+    layers = DP_SMALL["n_layers"]
+    net = gcn.init(GNN_GRAPH["feat_dim"], DP_SMALL["hidden"], 7, layers,
+                   True, seed=0, device="cpu")
+    start = {n: p.detach().numpy().copy() for n, p in net.named_parameters()}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ranks = launch(dp_small_rank, (start,), plan=plan_group(
+        DP_RANKS, force_host_devices=DP_RANKS, device=str(dev)))
+    run_s = time.perf_counter() - t0
+    here = ops.launch_counts()
+    hs = [r["history"] for r in ranks]
+    cfg = MinibatchConfig(**DP_SMALL, dp=DP_RANKS, device=str(dev))
+    src = ShardedPoolSource(pool, cfg, SimpleNamespace(
+        rank=0, world_size=DP_RANKS, device=dev))
+    tags = [t for e in range(cfg.epochs) for t in src.epoch_schedule(e)]
+    if any(h["sub_id"] != tags or h["mode"] != hs[0]["mode"]
+           or h["loss"] != hs[0]["loss"] for h in hs):
+        raise AssertionError("the ranks' subgraph tuples, modes or losses "
+                             "differ from each other or from the schedule")
+    if hs[0]["compress"] != [m == "rsc" for m in hs[0]["mode"]]:
+        raise AssertionError(f"compress {hs[0]['compress']} is not on "
+                             "exactly the RSC steps")
+    parts = ranks[0]["n_partitions"]
+    steps, evals = len(hs[0]["loss"]), len(hs[0]["val"])
+    want = [2 * layers * steps + layers * parts * evals, 2 * layers * steps]
+    got = [r["launches"] for r in ranks]
+    module = MODELS["gcn"]
+    names = module.spmm_names(layers)
+    dims = module.spmm_dims(layers, DP_SMALL["hidden"], pool.num_classes)
+    rsc_tags = [t for t, m in zip(tags, hs[0]["mode"]) if m == "rsc"]
+    n_sampled = 0
+    for r, rk in enumerate(ranks):
+        pp = PlanCachePool(pool, names, dims, budget_frac=cfg.budget,
+                           step_frac=cfg.step_frac, strategy=cfg.strategy,
+                           refresh_every=cfg.refresh_every,
+                           label=f"shard{r}", device="cpu")
+        if len(rk["plans"]) != len(rsc_tags):
+            raise AssertionError(f"rank {r} planned {len(rk['plans'])} "
+                                 f"steps, expected {len(rsc_tags)}")
+        for tag, got_p, nm in zip(rsc_tags, rk["plans"], rk["norms"]):
+            want_p = pp.plans_for(pool.subgraphs[tag[r]])
+            for k, p in want_p.items():
+                arrays = (p.sel, p.row_ids, p.col_ids, p.row_ptr)
+                if not (all(np.array_equal(a, b.numpy()) for a, b in
+                            zip(got_p[k][0], arrays))
+                        and got_p[k][1:] == (p.n_active, p.s_pad)):
+                    raise AssertionError(f"rank {r}'s plan for {k} at "
+                                         f"{tag} differs from shard{r}'s")
+                n_sampled += p.n_active < len(
+                    pool.subgraphs[tag[r]].meta.row_ids)
+            pp.record_norms(tag[r], {k: torch.from_numpy(v)
+                                     for k, v in nm.items()})
+    # the simulation, on the card
+    card = copy.deepcopy(net).to(dev)
+    params = dict(card.named_parameters())
+    opt = Adam(lr=cfg.lr)
+    state = opt.init(params)
+    rsc_grads, exact_grads, _ = make_gnn_grads(
+        module, dims, names, dropout=0.0, backend="kernel")
+    red = GradReducer(card, None, compress_block=cfg.compress_block)
+    errs = [init_error_feedback(card) for _ in ranks]
+    gen = torch.Generator(device=dev)
+    plan_it = [iter(r["plans"]) for r in ranks]
+    sim_loss = []
+    for tag, mode, comp in zip(tags, hs[0]["mode"], hs[0]["compress"]):
+        per = []
+        for r in range(DP_RANKS):
+            ops_r = device_operands(pool, pool.subgraphs[tag[r]], dev)
+            if mode == "rsc":
+                plans = {k: SamplePlan(
+                    *(torch.from_numpy(a).to(dev) for a in v[0][:3]),
+                    n_active=v[1], s_pad=v[2],
+                    row_ptr=torch.from_numpy(v[0][3]).to(dev))
+                    for k, v in next(plan_it[r]).items()}
+                loss, grads, _ = rsc_grads(card, ops_r, plans, gen)
+            else:
+                loss, grads = exact_grads(card, ops_r, gen)
+            if comp:
+                for n in grads:
+                    grads[n], errs[r][n] = red.compress_leaf(n, grads[n],
+                                                             errs[r][n])
+            per.append((loss.cpu(), {n: t.cpu() for n, t in grads.items()}))
+        mean = {n: ((per[0][1][n] + per[1][1][n]) / DP_RANKS).to(dev)
+                for n in params}
+        sim_loss.append(float((per[0][0] + per[1][0]) / DP_RANKS))
+        upd, state = opt.update(mean, state, params)
+        apply_updates(params, upd)
+    loss_err = float(np.max(np.abs(np.subtract(hs[0]["loss"], sim_loss))
+                            / np.abs(sim_loss)))
+    rel = {}
+    for n, p in params.items():
+        sim = p.detach().cpu().numpy()
+        moved = np.linalg.norm(sim - start[n])
+        rel[n] = float(np.linalg.norm(ranks[0]["final"][n] - sim)
+                       / max(moved, 1e-30))
+    worst = max(rel, key=rel.get)
+    ar = [r["allreduce"] for r in ranks]
+    say(f"[dp reference] gcn {layers}x{DP_SMALL['hidden']} on {DP_RANKS} "
+        f"gloo ranks sharing the card, compressed and bucketed all-reduce: "
+        f"{steps} steps ({len(rsc_tags)} rsc), tuples {tags[:4]}...; plans "
+        f"identical to shard0/shard1's at every RSC step ({n_sampled} "
+        f"sampled op plans); launches by rank {got}, here 0; largest loss "
+        f"error against the simulation {loss_err:.3e} (limit "
+        f"{GNN_LOSS_RTOL:.0e}), parameter change {rel[worst]:.3e} ({worst}, "
+        f"limit {TRAIN_DP_REL:.0e}); run {run_s:.2f} s; all-reduce of the "
+        f"full-width GCN's {ar[0]['leaves']} leaves ({ar[0]['f32_bytes']} "
+        f"f32 bytes, int8 codes + scales {ar[0]['int8_bytes']}): per leaf "
+        f"{[round(a['per_leaf_ms'], 3) for a in ar]} ms, in "
+        f"{ar[0]['buckets']} buckets {[round(a['bucketed_ms'], 3) for a in ar]}"
+        f" ms by rank (gloo through the host, median of {DP_REPS})")
+    np.testing.assert_allclose(hs[0]["loss"], sim_loss, rtol=GNN_LOSS_RTOL)
+    if rel[worst] > TRAIN_DP_REL:
+        raise AssertionError(f"{worst}'s change differs from the simulation"
+                             f"'s by {rel[worst]:.3e} of its norm")
+    if not n_sampled:
+        raise AssertionError("no sampled plan in the small DP run")
+    if got != want or any(here.values()):
+        raise AssertionError(f"bcoo_spmm launches by rank {got}, expected "
+                             f"{want}; in this process {here}")
+    return {"steps": steps, "rsc_steps": len(rsc_tags), "launches": got,
+            "sampled_op_plans": int(n_sampled), "run_s": run_s,
+            "max_loss_rel_err": loss_err, "max_param_change_err": rel[worst],
+            "reduce_ms_median": [float(np.median(r["reduce_ms"]))
+                                 for r in ranks],
+            "allreduce_full_width": ar}
+
+
+def dp_argv() -> list[str]:
+    """8d's full-width run cut to DP_EPOCHS, on DP_RANKS gloo ranks of the
+    one card, compressed and bucketed."""
+    argv = mb_argv()
+    argv[argv.index("--epochs") + 1] = str(DP_EPOCHS)
+    return argv + ["--dp", str(DP_RANKS), "--force-host-devices",
+                   str(DP_RANKS), "--compress-grads", "--overlap-allreduce"]
+
+
+def dp_main_path(train, ops, autotune, smi: str) -> tuple[int, dict]:
+    """Phase 8f (b): ``launch.train gnn --minibatch --dp 2
+    --force-host-devices 2 --compress-grads --overlap-allreduce`` at full
+    width. Each rank's launch counts start at 0 in its own process and
+    come back by variant; this process launches nothing. 6 ``bcoo_spmm``
+    launches per step on each rank, and 3 per subgraph per evaluation plus
+    the sweeps' on rank 0, all ``tf32x3``; flops fraction within the
+    budget; a finite, falling loss; ``compress`` exactly on the RSC steps;
+    every shard's hit rate above 0; no autotune miss on either rank.
+    Returns both ranks' launches and the slice's report."""
+    if DP_AUTOTUNE_CACHE.exists():
+        DP_AUTOTUNE_CACHE.unlink()
+    argv = dp_argv()
+    env_before = os.environ.get(autotune.ENV_VAR)
+    os.environ[autotune.ENV_VAR] = str(DP_AUTOTUNE_CACHE)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        out = train.main(argv)
+    finally:
+        if env_before is None:
+            os.environ.pop(autotune.ENV_VAR, None)
+        else:
+            os.environ[autotune.ENV_VAR] = env_before
+    wall = time.perf_counter() - t0
+    here = ops.launch_counts()
+    report, ranks = out["report"], out["ranks"]
+    hist = ranks[0]["result"]["history"]
+    steps, evals = len(hist["loss"]), len(hist["val"])
+    n_sub = report["subgraphs"]
+    losses = np.asarray(hist["loss"])
+    rows, problems = [], []
+    for rk in ranks:
+        h = rk["result"]["history"]
+        sweeps = rk["autotune"]["stats"]["sweep_launches"]
+        want = 6 * steps + (3 * n_sub * evals if rk["rank"] == 0 else 0) \
+            + sweeps
+        by_var = rk["launches_by_variant"]["bcoo_spmm"]
+        if (rk["launches"]["bcoo_spmm"] != want
+                or by_var.get("tf32x3", 0) != want
+                or rk["launches"]["flash_attention"]
+                or rk["launches"]["gather_matmul"]):
+            problems.append(f"rank {rk['rank']}: launches {rk['launches']} "
+                            f"by variant {by_var}, expected {want} tf32x3 "
+                            f"bcoo_spmm ({sweeps} by the sweeps)")
+        if h["loss"] != hist["loss"] or h["sub_id"] != hist["sub_id"]:
+            problems.append(f"rank {rk['rank']}: losses or tuples differ "
+                            "from rank 0's")
+        if h["compress"] != [m == "rsc" for m in h["mode"]]:
+            problems.append(f"rank {rk['rank']}: compress not exactly on "
+                            "the RSC steps")
+        at = rk["autotune"]
+        if at["stats"]["defaults"] or at["missed"]:
+            problems.append(f"rank {rk['rank']}: autotune missed "
+                            f"{at['missed']} ({at['stats']})")
+        modes = np.asarray(h["mode"])
+        step_ms = np.asarray(h["step_time"]) * 1e3
+        rsc_ms = step_ms[modes == "rsc"][n_sub // DP_RANKS:]  # past epoch 0
+        exact_ms = step_ms[modes == "exact"][1:]
+        t = rk["transfer"]["train"]
+        pl = rk["planner"]
+        red = rk["allreduce"]
+        rows.append({
+            "rank": rk["rank"], "launches": rk["launches"]["bcoo_spmm"],
+            "sweep_launches": sweeps,
+            "rsc_step_ms_median": float(np.median(rsc_ms)),
+            "exact_step_ms_median": float(np.median(exact_ms)),
+            "allreduce_ms_median": float(np.median(red["reduce_ms"])),
+            "allreduce_ms_median_rsc": float(np.median(
+                np.asarray(red["reduce_ms"])[modes == "rsc"])),
+            "f32_bytes_per_step": red["f32_bytes"],
+            "int8_bytes_per_step": red["int8_bytes"],
+            "buckets": len(red["buckets"]),
+            "uploads": t["uploads"],
+            "upload_ms_per_step": t["upload_seconds"] * 1e3 / steps,
+            "stall_ms_per_step": t["stall_seconds"] * 1e3 / steps,
+            "bytes_per_upload": t["upload_bytes"] / max(t["uploads"], 1),
+            "planner_ms_per_refresh": pl["host_seconds"] * 1e3
+            / max(pl["refreshes"], 1),
+            "plan_hit_rate": pl["hit_rate"],
+            "peak_mem_gib": (None if rk["peak_mem_bytes"] is None
+                             else rk["peak_mem_bytes"] / 2 ** 30),
+            "rss_gib_at_end": (None if rk["rss_bytes"] is None
+                               else rk["rss_bytes"] / 2 ** 30),
+            "setup_s": rk["setup_s"], "run_s": rk["wall_s"]})
+    hit = [s["hit_rate"] for s in report["shards"]]
+    say(f"[dp train] {argv[1:]}: {steps} global steps "
+        f"({int((np.asarray(hist['mode']) == 'rsc').sum())} rsc, compress on "
+        f"those), {evals} pooled evaluations on rank 0, wall {wall:.2f} s; "
+        f"launches by rank {[r['launches'] for r in rows]} (sweeps "
+        f"{[r['sweep_launches'] for r in rows]}), here {here}; flops "
+        f"fraction {report['flops_fraction']:.4f}, shard hit rates {hit}, "
+        f"best test {report['best_test']:.4f}, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; by rank (gloo through the host on one card, "
+        f"{smi}): " + "; ".join(
+            f"r{r['rank']}: step median rsc {r['rsc_step_ms_median']:.3f} / "
+            f"exact {r['exact_step_ms_median']:.3f} ms, all-reduce after the "
+            f"backward {r['allreduce_ms_median']:.3f} ms ({r['buckets']} "
+            f"buckets, {r['f32_bytes_per_step']} f32 bytes per step, int8 "
+            f"codes + scales {r['int8_bytes_per_step']}), upload "
+            f"{r['upload_ms_per_step']:.2f} ms and stall "
+            f"{r['stall_ms_per_step']:.2f} ms per step, planner "
+            f"{r['planner_ms_per_refresh']:.2f} ms per refresh, peak "
+            f"{r['peak_mem_gib']} GiB, RSS at the end {r['rss_gib_at_end']} "
+            f"GiB, "
+            f"setup {r['setup_s']:.1f} s" for r in rows))
+    if any(here.values()):
+        problems.append(f"this process launched {here}")
+    if not report["flops_fraction"] <= 0.1 + 1e-9:
+        problems.append(f"flops fraction {report['flops_fraction']}")
+    per_epoch = steps // DP_EPOCHS
+    if not np.isfinite(losses).all() or \
+            not losses[-per_epoch:].mean() < losses[:per_epoch].mean():
+        problems.append(f"loss not finite or not falling: {losses}")
+    if not all(h > 0 for h in hit):
+        problems.append(f"shard hit rates {hit}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return sum(r["launches"] for r in rows), {
+        "card": smi, "allreduce_route": "gloo through the host, one card",
+        "argv": argv, "report": report, "run_s": wall, "steps": steps,
+        "evaluations": evals, "ranks": rows,
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
+
+
 # ------------------------------------------- observability and checkpoints
 
 def _spans(events, kind_key: str) -> dict[str, list]:
@@ -3088,6 +3502,9 @@ def main(argv=None) -> int:
     del mb_graph, mb_pool
     obs_slice["resume"] = obs_resume(dev)
     torch.cuda.empty_cache()
+    dp_small = dp_small_reference(ops, dev)
+    dp_launches, dp_slice = dp_main_path(train, ops, autotune, smi)
+    dp_slice["small_reference"] = dp_small
     flash_res = flash_sweep(ops, fmod, flash_attention_ref, dev)
     lm_ref_err = lm_small_reference(serve, smoke_config, make_batch,
                                     init_params, dev)
@@ -3124,7 +3541,7 @@ def main(argv=None) -> int:
             for m in serving) + obs_gnn["launches"]
         + obs_slice["minibatch"]["launches"]
         + obs_slice["save_serve"]["serve_launches"]
-        + frontend["launches"],
+        + frontend["launches"] + dp_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": hidden["ms"], "plain_ms": hidden["plain_ms"],
         "bound_ms": hidden["bound_ms"], "bound_by": hidden["bound_by"],
@@ -3161,6 +3578,7 @@ def main(argv=None) -> int:
     say(json.dumps({"gnn_models_slice": models_slice}))
     say(json.dumps({"minibatch_slice": mb_slice}))
     say(json.dumps({"obs_slice": obs_slice}))
+    say(json.dumps({"dp_slice": dp_slice}))
     say(json.dumps({"lm_slice": {
         "report": lm_report, "run_s": lm_run_s,
         "launches": lm_launches, "warm": lm_warm,

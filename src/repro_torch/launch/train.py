@@ -22,6 +22,13 @@ the LM stack.
         --device cpu --scale 0.004 --block 32 --hidden 48 --layers 2 \
         --subgraphs 4 --roots 50 --walk-length 2 --epochs 4 --rsc
 
+    # data parallel: 2 gloo ranks on the CPU (on cards: --dp N alone runs
+    # N NCCL ranks, one card each)
+    PYTHONPATH=src python -m repro_torch.launch.train gnn --minibatch \
+        --device cpu --scale 0.004 --block 32 --hidden 48 --layers 2 \
+        --subgraphs 4 --roots 50 --walk-length 2 --epochs 4 --rsc \
+        --dp 2 --force-host-devices 2 --compress-grads --overlap-allreduce
+
     PYTHONPATH=src python -m repro_torch.launch.train lm --arch qwen3-1.7b \
         --batch 4 --seq 4096 --microbatches 2 --rsc --rsc-keep 0.5 --steps 3
 
@@ -50,9 +57,21 @@ no such key (nor ``--strict-compiles``). The observability flags are the
 reference's: ``--metrics`` (the registry snapshot under ``metrics`` and the
 ledger summary under ``ledger``), ``--metrics-port``, ``--trace-out``,
 ``--trace-jsonl``, ``--slo``/``--strict-slo`` (the report under ``slo``),
-``--strict-budget``, ``--probe-every`` and ``--probe-rows``. ``--dp``,
-``--mesh`` and ``--compress-grads`` raise ``NotImplementedError`` naming
-ROADMAP.md Queue 1 item 8.
+``--strict-budget``, ``--probe-every`` and ``--probe-rows``.
+
+Data parallel (``--minibatch`` only): ``--dp N`` (or ``--mesh data:N``)
+trains on N ranks, one process each (``distributed/group.py``): NCCL with
+one card per rank when N cards are visible, or with ``--force-host-devices
+N`` N gloo ranks sharing the ``--device`` (the CPU, or one card as a
+functional check); anything else raises. ``--compress-grads`` (int8
+error feedback on the all-reduce) and ``--overlap-allreduce`` (bucketed,
+issued during the backward) need DP, as in the reference. Rank 0 writes
+the checkpoints, traces and metrics and prints the report, which adds the
+reference's ``dp``, ``compress_grads``, ``overlap_allreduce`` and
+``shards`` (per-shard plan-cache statistics). ``run_gnn`` then also
+returns every rank's summary under ``ranks`` (launch counts by variant,
+history, all-reduce times and bytes, transfers, autotune counters, peak
+memory and RSS).
 
 The ``lm`` flags are those of ``repro.launch.train lm`` plus ``--device``
 (``cuda`` by default, which raises without a card; ``cpu`` runs the
@@ -69,15 +88,20 @@ checkpoint resumes from it (``steps`` then counts the steps run here).
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
 import math
 import time
+
+import torch
 
 from repro_torch import obs
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_arch, make_batch, smoke_config
 from repro_torch.convert import load_lm_state, lm_state_tree
 from repro_torch.device import resolve_device
+from repro_torch.distributed import group as dp_group
 from repro_torch.graphs.datasets import DATASETS, load_dataset
 from repro_torch.models.lm.backbone import init_params
 from repro_torch.obs import slo as slo_mod
@@ -87,44 +111,31 @@ from repro_torch.train.lm_steps import make_train_step
 from repro_torch.train.loop import GNNTrainer, TrainConfig
 from repro_torch.train.optimizer import Adam
 
-_DP = "Queue 1 item 8 (data parallel)"
+def check_dp_flags(args) -> int:
+    """The reference's checks of the data-parallel flags (``SystemExit``);
+    returns the degree (``--mesh`` sets it)."""
+    dp_asked = args.dp > 1 or bool(args.mesh)
+    if dp_asked and not args.minibatch:
+        raise SystemExit("--dp/--mesh require --minibatch (the sharded "
+                         "source partitions the subgraph pool)")
+    if args.compress_grads and not dp_asked:
+        raise SystemExit("--compress-grads compresses the data-parallel "
+                         "all-reduce; it needs --dp N (or --mesh)")
+    if args.overlap_allreduce and not dp_asked:
+        raise SystemExit("--overlap-allreduce buckets the data-parallel "
+                         "all-reduce; it needs --dp N (or --mesh)")
+    dp = args.dp
+    if args.mesh:
+        mesh_dp = dp_group.parse_mesh_spec(args.mesh)
+        if args.dp and args.dp != mesh_dp:
+            raise SystemExit(f"--dp {args.dp} contradicts --mesh "
+                             f"{args.mesh!r} (data axis = {mesh_dp})")
+        dp = mesh_dp
+    return dp
 
 
-def check_ported_gnn(args) -> None:
-    """Raise ``NotImplementedError`` for ``gnn`` flags this port lacks."""
-    for hit, flag in ((args.dp > 1, "--dp"), (bool(args.mesh), "--mesh"),
-                      (args.compress_grads, "--compress-grads")):
-        if hit:
-            raise NotImplementedError(f"{flag} is not ported to repro_torch "
-                                      f"yet: see ROADMAP.md {_DP}")
-
-
-def run_gnn(args, *, graph=None, pool=None, **minibatch) -> dict:
-    """GNN training, full batch or (``--minibatch``) over a subgraph pool;
-    returns the JSON report (under ``report``), the engine's result, the
-    trainer, the graph and the set-up seconds (graph, operands or pool,
-    planner, autotune sweeps and parameters, before the first step).
-    ``graph`` (the loaded dataset), ``pool`` (a prebuilt ``SubgraphPool``
-    of it) and ``minibatch`` (``MinibatchConfig`` fields the CLI has no
-    flag for, such as ``resident``) are for callers that drive the path
-    in-process more than once. With ``--metrics`` the report carries the
-    registry snapshot (``metrics``) and the ledger summary (``ledger``),
-    with ``--slo`` the monitor's report (``slo``)."""
-    check_ported_gnn(args)
-    device = resolve_device(args.device)
-    ob = obs.setup_from_args(args)
-    monitor = slo_mod.monitor_from_args(args)
-    if monitor is not None:
-        # p99_ms falls through to engine.step_ms when no serving tier
-        # publishes request latencies: the training-loop objective.
-        monitor.start(period=0.25)
-        if ob.exporter is not None:
-            ob.exporter.attach(slo=monitor)
-    spec = DATASETS[args.dataset]
-    t0 = time.perf_counter()
-    g = graph if graph is not None else load_dataset(
-        args.dataset, scale=args.scale, seed=args.seed)
-    common = dict(
+def _common_cfg(args, spec, device) -> dict:
+    return dict(
         model=args.model, n_layers=args.layers, hidden=args.hidden,
         epochs=args.epochs, lr=args.lr, dropout=args.dropout,
         metric=spec.metric, rsc=args.rsc, budget=args.budget,
@@ -137,19 +148,18 @@ def run_gnn(args, *, graph=None, pool=None, **minibatch) -> dict:
         stream_overlap=args.stream_overlap, device=str(device),
         strict_budget=args.strict_budget, probe_every=args.probe_every,
         probe_rows=args.probe_rows)
-    if args.minibatch:
-        cfg = MinibatchConfig(
-            n_subgraphs=args.subgraphs, method=args.pool_method,
-            roots=args.roots, walk_length=args.walk_length,
-            n_buckets=args.buckets, prefetch=not args.no_prefetch,
-            autotune=not args.no_autotune,
-            saint_norm=not args.no_saint_norm, **common, **minibatch)
-        tr = MinibatchTrainer(cfg, g, pool)
-    else:
-        tr = GNNTrainer(TrainConfig(**common), g)
-    t1 = time.perf_counter()
-    res = tr.train(verbose=args.verbose)
-    wall = time.perf_counter() - t1
+
+
+def _minibatch_cfg(args, common: dict, **extra) -> MinibatchConfig:
+    return MinibatchConfig(
+        n_subgraphs=args.subgraphs, method=args.pool_method,
+        roots=args.roots, walk_length=args.walk_length,
+        n_buckets=args.buckets, prefetch=not args.no_prefetch,
+        autotune=not args.no_autotune,
+        saint_norm=not args.no_saint_norm, **common, **extra)
+
+
+def _report(args, res: dict, wall: float) -> dict:
     report = {"model": args.model, "dataset": args.dataset,
               "rsc": args.rsc, "budget": args.budget,
               "best_test": res["best_test"], "wall_s": round(wall, 2),
@@ -159,6 +169,10 @@ def run_gnn(args, *, graph=None, pool=None, **minibatch) -> dict:
                        "subgraphs": args.subgraphs,
                        "n_buckets": res["n_buckets"],
                        "plan_hit_rate": res["plan_hit_rate"]})
+    return report
+
+
+def _finish(args, report: dict, res: dict, monitor) -> dict:
     if monitor is not None:
         monitor.stop()
         report["slo"] = monitor.report()
@@ -168,8 +182,154 @@ def run_gnn(args, *, graph=None, pool=None, **minibatch) -> dict:
         report["metrics"] = snap
     if res.get("ledger") is not None:
         report["ledger"] = res["ledger"]
+    return report
+
+
+def _start_obs(args):
+    """The registry, tracer and ledger as the flags ask; the SLO monitor,
+    started (or None)."""
+    ob = obs.setup_from_args(args)
+    monitor = slo_mod.monitor_from_args(args)
+    if monitor is not None:
+        # p99_ms falls through to engine.step_ms when no serving tier
+        # publishes request latencies: the training-loop objective.
+        monitor.start(period=0.25)
+        if ob.exporter is not None:
+            ob.exporter.attach(slo=monitor)
+    return monitor
+
+
+def run_gnn(args, *, graph=None, pool=None, **minibatch) -> dict:
+    """GNN training, full batch or (``--minibatch``) over a subgraph pool;
+    returns the JSON report (under ``report``), the engine's result, the
+    trainer, the graph and the set-up seconds (graph, operands or pool,
+    planner, autotune sweeps and parameters, before the first step).
+    ``graph`` (the loaded dataset), ``pool`` (a prebuilt ``SubgraphPool``
+    of it) and ``minibatch`` (``MinibatchConfig`` fields the CLI has no
+    flag for, such as ``resident``) are for callers that drive the path
+    in-process more than once. With ``--metrics`` the report carries the
+    registry snapshot (``metrics``) and the ledger summary (``ledger``),
+    with ``--slo`` the monitor's report (``slo``). With ``--dp N`` the
+    ranks run in their own processes (:func:`run_gnn_dp`)."""
+    dp = check_dp_flags(args)
+    if dp > 1:
+        if graph is not None or pool is not None:
+            raise ValueError("--dp ranks build their own graph and pool")
+        return run_gnn_dp(args, dp, **minibatch)
+    device = resolve_device(args.device)
+    monitor = _start_obs(args)
+    spec = DATASETS[args.dataset]
+    t0 = time.perf_counter()
+    g = graph if graph is not None else load_dataset(
+        args.dataset, scale=args.scale, seed=args.seed)
+    common = _common_cfg(args, spec, device)
+    if args.minibatch:
+        tr = MinibatchTrainer(_minibatch_cfg(args, common, **minibatch), g,
+                              pool)
+    else:
+        tr = GNNTrainer(TrainConfig(**common), g)
+    t1 = time.perf_counter()
+    res = tr.train(verbose=args.verbose)
+    wall = time.perf_counter() - t1
+    report = _finish(args, _report(args, res, wall), res, monitor)
     return {"report": report, "result": res, "trainer": tr, "graph": g,
             "setup_s": t1 - t0}
+
+
+def run_gnn_dp(args, dp: int, **minibatch) -> dict:
+    """``--dp N``: N ranks, each in its own process
+    (``distributed.group.launch``), each running :func:`gnn_rank`.
+    Returns rank 0's report, result and set-up seconds, and every rank's
+    summary under ``ranks`` (under ``torchrun``: this process's; the
+    report only on rank 0). The caller's process launches nothing."""
+    plan = dp_group.plan_group(dp, force_host_devices=args.force_host_devices,
+                               device=args.device)
+    args = copy.copy(args)
+    args.dp = dp
+    ranks = dp_group.launch(gnn_rank, (args, minibatch), plan=plan)
+    main = next((r for r in ranks if r["rank"] == 0), None)
+    return {"report": main["report"] if main else None,
+            "result": main["result"] if main else None,
+            "setup_s": main["setup_s"] if main else None, "ranks": ranks}
+
+
+def gnn_rank(group, args, minibatch: dict) -> dict:
+    """One rank of ``train gnn --minibatch --dp N``: build the graph and
+    the whole pool from the seed, train this rank's shard in step with the
+    others, and return the rank's summary (rank 0's carries the report).
+    Launch counts start at 0 in the rank's fresh process. Every rank turns
+    on the registry, tracer and ledger alike (collectives run where they
+    are on); only rank 0 exports, writes trace files and checkpoints."""
+    from repro_torch.kernels import autotune, ops
+    ops.reset_launch_counts()
+    device = group.device
+    if group.is_main:
+        monitor = _start_obs(args)
+    else:
+        monitor = None
+        obs.configure(metrics=bool(args.metrics or args.metrics_port
+                                   is not None),
+                      trace=bool(args.trace_out or args.trace_jsonl),
+                      ledger=bool(args.metrics or args.metrics_port
+                                  is not None))
+    spec = DATASETS[args.dataset]
+    t0 = time.perf_counter()
+    g = load_dataset(args.dataset, scale=args.scale, seed=args.seed)
+    cfg = _minibatch_cfg(
+        args, _common_cfg(args, spec, device), dp=args.dp,
+        compress_grads=args.compress_grads,
+        overlap_allreduce=args.overlap_allreduce, **minibatch)
+    tr = MinibatchTrainer(cfg, g, group=group)
+    t1 = time.perf_counter()
+    res = tr.train(verbose=args.verbose)
+    wall = time.perf_counter() - t1
+    eng = tr.engine
+    shards = (eng.planner.per_shard_summary()
+              if hasattr(eng.planner, "per_shard_summary") else None)
+    report = None
+    if group.is_main:
+        report = _report(args, res, wall)
+        report.update({"dp": args.dp, "compress_grads": args.compress_grads,
+                       "overlap_allreduce": args.overlap_allreduce})
+        if shards is not None:
+            report["shards"] = shards
+        report = _finish(args, report, res, monitor)
+    red = eng.runner.reducer
+    cache = autotune.get_cache()
+    return {
+        "rank": group.rank, "device": str(device), "report": report,
+        "result": res, "setup_s": t1 - t0,
+        "wall_s": wall,
+        "launches": ops.launch_counts(),
+        "launches_by_variant": ops.launch_counts_by_variant(),
+        "allreduce": {"overlap": red.overlap, "reduce_ms": red.reduce_ms,
+                      "f32_bytes": red.f32_bytes,
+                      "int8_bytes": red.int8_bytes,
+                      "buckets": red.buckets},
+        "transfer": {k: eng.source.transfer_stats(k)
+                     for k in ("train", "eval")},
+        "planner": (eng.planner.local.summary()
+                    if hasattr(eng.planner, "local") else None),
+        "autotune": {"stats": dataclasses.asdict(cache.stats),
+                     "missed": sorted(cache.missed)},
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
+                           if device.type == "cuda" else None),
+        "rss_bytes": _rss_bytes(),       # at the end of the rank's run
+    }
+
+
+def _rss_bytes() -> int | None:
+    """This process's resident host memory now (Linux ``VmRSS``); None
+    where ``/proc`` does not say. Not ``ru_maxrss``: a spawned rank's
+    counts its parent's peak as of the spawn."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        return None
+    return None
 
 
 def run_lm(args) -> dict:
@@ -279,9 +439,23 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--no-saint-norm", action="store_true",
                    help="disable GraphSAINT loss/aggregator bias "
                         "correction on sampled pools")
-    g.add_argument("--dp", type=int, default=0)
-    g.add_argument("--mesh", default="")
-    g.add_argument("--compress-grads", action="store_true")
+    g.add_argument("--dp", type=int, default=0,
+                   help="data-parallel degree: shard the subgraph pool "
+                        "over N ranks (one process each)")
+    g.add_argument("--mesh", default="",
+                   help="explicit mesh spec, 'data:N' or 'N' (default: "
+                        "--dp ranks)")
+    g.add_argument("--compress-grads", action="store_true",
+                   help="int8 error-feedback compression on the DP "
+                        "gradient all-reduce (switch-back applies)")
+    g.add_argument("--overlap-allreduce", action="store_true",
+                   help="bucket the DP gradient all-reduce (one all-reduce "
+                        "per bucket, issued during the backward) so "
+                        "communication overlaps the backward tail; "
+                        "trajectory-identical")
+    g.add_argument("--force-host-devices", type=int, default=0,
+                   help="run the N ranks over gloo, all on the --device "
+                        "(the CPU, or one card as a functional check)")
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--verbose", action="store_true")
     g.add_argument("--strict-budget", action="store_true",
@@ -323,7 +497,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     out = args.fn(args)
-    print(json.dumps(out["report"]))
+    if out["report"] is not None:     # under torchrun: rank 0's only
+        print(json.dumps(out["report"]))
     return out
 
 

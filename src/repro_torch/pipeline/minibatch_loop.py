@@ -24,8 +24,15 @@ One epoch = one pass over the pool in a seeded random order. With the
 ``ldg`` partitioner the parts are disjoint and cover the graph, so an epoch
 touches every training node exactly once, like classic minibatch SGD.
 
-Data parallelism (``dp > 1``: the mesh-sharded pool, gradient all-reduce
-and its compression) is ROADMAP.md Queue 1 item 8 and raises here.
+Data parallelism (``dp > 1``): every rank of a ``DPGroup`` builds the same
+pool and trains its own shard of it (``pipeline.sharding``), one
+same-bucket subgraph per rank per step, the gradients all-reduced over the
+group (``compress_grads``: through the int8 error-feedback compressor;
+``overlap_allreduce``: in ``overlap_buckets`` buckets issued during the
+backward). An epoch is then ``len(pool) / dp`` global steps. Every bucket
+must split evenly across the shards: a pool built here whose buckets do
+not is rebuilt with a single bucket, as the reference does; a prebuilt
+pool raises, naming the bucket (:func:`dp_pool`).
 """
 from __future__ import annotations
 
@@ -43,18 +50,19 @@ from repro_torch.pipeline.plan_pool import PlanCachePool
 from repro_torch.pipeline.prefetch import Prefetcher
 from repro_torch.train.engine import Engine, TrainConfig
 
-_DP = ("data-parallel pools (dp > 1) are not ported to repro_torch yet: "
-       "see ROADMAP.md Queue 1 item 8 (data parallel)")
-
 
 @dataclasses.dataclass
 class MinibatchConfig(TrainConfig):
-    """TrainConfig + pool / prefetch knobs.
+    """TrainConfig + pool / prefetch / data-parallel knobs.
 
     ``epochs`` = passes over the pool. ``resident`` keeps that many
     subgraphs' device operands alive across epochs (an LRU shared by
-    training and evaluation). ``dp > 1`` raises (ROADMAP.md Queue 1 item
-    8).
+    training and evaluation; per rank under data parallelism). ``dp > 1``
+    shards the pool over that many ranks of a ``DPGroup`` and all-reduces
+    the gradients every step; ``compress_grads`` routes the all-reduce
+    through the int8 error-feedback compressor (blocks of
+    ``compress_block``), ``overlap_allreduce`` cuts it into
+    ``overlap_buckets`` buckets issued during the backward.
     """
 
     n_subgraphs: int = 8
@@ -67,7 +75,12 @@ class MinibatchConfig(TrainConfig):
     resident: int = 0                # device-resident subgraph cache size
     autotune: bool = True            # sweep the SpMM per bucket signature
     saint_norm: bool = True          # GraphSAINT λ/α bias correction
-    dp: int = 0                      # 0/1 = single device
+    # Data-parallel
+    dp: int = 0                      # 0/1 = single device; N = shards
+    compress_grads: bool = False     # int8 EF compression on the all-reduce
+    compress_block: int = 128
+    overlap_allreduce: bool = False  # bucketed all-reduce during backward
+    overlap_buckets: int = 4
 
 
 def tune_buckets(pool: SubgraphPool, cfg, dims: dict[str, int],
@@ -252,32 +265,55 @@ class PooledSource:
                        if kind is None or kd == kind) for k in keys}
 
 
-def _build_default_pool(cfg: MinibatchConfig, graph: GraphData) -> SubgraphPool:
+def _build_default_pool(cfg: MinibatchConfig, graph: GraphData,
+                        n_buckets: int | None = None) -> SubgraphPool:
     return build_pool(
         graph,
         PoolConfig(n_subgraphs=cfg.n_subgraphs, method=cfg.method,
                    roots=cfg.roots, walk_length=cfg.walk_length,
-                   n_buckets=cfg.n_buckets, block=cfg.block,
-                   degree_sort=cfg.degree_sort, seed=cfg.seed,
-                   saint_norm=cfg.saint_norm),
+                   n_buckets=(cfg.n_buckets if n_buckets is None
+                              else n_buckets),
+                   block=cfg.block, degree_sort=cfg.degree_sort,
+                   seed=cfg.seed, saint_norm=cfg.saint_norm),
         mean_agg=MODELS[cfg.model].uses_mean_agg())
 
 
-def minibatch_engine(cfg: MinibatchConfig, graph: GraphData | None = None,
-                     pool: SubgraphPool | None = None, *,
-                     model=None) -> Engine:
-    """Assemble the single-device minibatch Engine. ``model`` replaces the
-    seeded initial parameters (see ``Engine``)."""
-    if cfg.model not in MODELS:
-        raise ValueError(f"unknown model {cfg.model!r} (expected one of "
-                         f"{sorted(MODELS)})")
-    if int(cfg.dp or 0) > 1:
-        raise NotImplementedError(_DP)
-    module = MODELS[cfg.model]
+def dp_pool(cfg: MinibatchConfig, graph: GraphData | None = None,
+            pool: SubgraphPool | None = None) -> SubgraphPool:
+    """The pool a run trains on: ``pool`` as given, or built from
+    ``graph``. With ``dp > 1`` every bucket must split evenly across the
+    shards: a pool built here that does not is rebuilt with one bucket (a
+    pool size not divisible by ``dp`` is left for ``shard_pool_ids`` to
+    report); a prebuilt pool must comply."""
+    from repro_torch.pipeline.sharding import shard_pool_ids
+    dp = int(cfg.dp or 0)
     if pool is None:
         if graph is None:
             raise ValueError("need a graph or a prebuilt pool")
         pool = _build_default_pool(cfg, graph)
+        if dp > 1 and cfg.n_buckets > 1 and len(pool) % dp == 0:
+            try:
+                shard_pool_ids(pool, dp)
+            except ValueError:
+                pool = _build_default_pool(cfg, graph, n_buckets=1)
+    if dp > 1:
+        shard_pool_ids(pool, dp)
+    return pool
+
+
+def minibatch_engine(cfg: MinibatchConfig, graph: GraphData | None = None,
+                     pool: SubgraphPool | None = None, *,
+                     model=None, group=None) -> Engine:
+    """Assemble the minibatch Engine: pooled, or with ``cfg.dp > 1`` this
+    rank's sharded one (``group``: the rank's ``DPGroup``, of ``dp``
+    ranks). ``model`` replaces the seeded initial parameters (see
+    ``Engine``; under data parallelism rank 0's are broadcast)."""
+    if cfg.model not in MODELS:
+        raise ValueError(f"unknown model {cfg.model!r} (expected one of "
+                         f"{sorted(MODELS)})")
+    module = MODELS[cfg.model]
+    dp = int(cfg.dp or 0)
+    pool = dp_pool(cfg, graph, pool)
     if module.uses_mean_agg() != pool.mean_agg:
         raise ValueError(
             f"pool built with mean_agg={pool.mean_agg} but model "
@@ -286,6 +322,29 @@ def minibatch_engine(cfg: MinibatchConfig, graph: GraphData | None = None,
     names = module.spmm_names(cfg.n_layers)
     dims = module.spmm_dims(cfg.n_layers, cfg.hidden, pool.num_classes)
     refresh = cfg.refresh_every if cfg.caching else 1
+    if dp > 1:
+        from repro_torch.pipeline.sharding import (ShardedPlanner,
+                                                   ShardedPoolSource)
+        if group is None or group.world_size != dp:
+            raise ValueError(
+                f"dp={dp} trains on {dp} ranks: pass this rank's DPGroup "
+                "(group=) of that size, e.g. from "
+                "repro_torch.distributed.launch or the CLI's --dp")
+        if resolve_device(cfg.device) != group.device:
+            raise ValueError(f"cfg.device {cfg.device!r} is not the rank's "
+                             f"device {group.device}")
+        source = ShardedPoolSource(pool, cfg, group)
+        planner = ShardedPlanner(
+            pool, source.shards, names, dims, budget_frac=cfg.budget,
+            step_frac=cfg.step_frac, strategy=cfg.strategy,
+            refresh_every=refresh, group=group) if cfg.rsc else None
+        return Engine(cfg, source, planner=planner, model=model,
+                      graph=graph, group=group,
+                      compress_grads=cfg.compress_grads,
+                      compress_block=cfg.compress_block,
+                      overlap_allreduce=cfg.overlap_allreduce,
+                      overlap_buckets=cfg.overlap_buckets)
+
     source = PooledSource(pool, cfg)
     planner = PooledPlanner(
         pool, names, dims, budget_frac=cfg.budget,
@@ -299,9 +358,11 @@ class MinibatchTrainer:
     a named configuration of :class:`repro_torch.train.engine.Engine`."""
 
     def __init__(self, cfg: MinibatchConfig, graph: GraphData | None = None,
-                 pool: SubgraphPool | None = None, *, model=None):
+                 pool: SubgraphPool | None = None, *, model=None,
+                 group=None):
         self.cfg = cfg
-        self.engine: Engine = minibatch_engine(cfg, graph, pool, model=model)
+        self.engine: Engine = minibatch_engine(cfg, graph, pool, model=model,
+                                               group=group)
         self.pool: SubgraphPool = self.engine.source.pool
         self.module = MODELS[cfg.model]
 

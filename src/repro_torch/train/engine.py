@@ -1,18 +1,22 @@
-"""RSC training engine (single device): full batch or a subgraph pool.
+"""RSC training engine: full batch, a subgraph pool, or a sharded pool over
+a data-parallel group.
 
-The port of ``repro.train.engine``'s single-device parts. The
-:class:`Engine` owns
+The port of ``repro.train.engine``. The :class:`Engine` owns
 
 * the :class:`~repro_torch.core.schedule.RSCSchedule` (switch-back §3.3.2
   on the global step counter),
 * the plan cache and its refresh clock (§3.3.1) behind a planner
   (:class:`FullGraphPlanner`, or :class:`NullPlanner` without RSC),
-* the steps (``rsc_step``, ``exact_step``, ``eval_logits`` from
-  :func:`~repro_torch.train.steps.make_gnn_steps`; the reference's
-  ``SingleDeviceRunner`` holds them, and the port has no other runner yet),
+* the steps behind a runner: :class:`SingleDeviceRunner`
+  (:func:`~repro_torch.train.steps.make_gnn_steps`), or with a group
+  :class:`DataParallelRunner` (one process per rank, gradients
+  all-reduced over the group, optionally through the int8 error-feedback
+  compressor, per leaf or in overlapped buckets:
+  :func:`~repro_torch.train.steps.make_dp_gnn_steps`),
 * the SpMM autotune warmup (``cfg.autotune``: delegated to the source,
   which knows its shape buckets), before the first step,
-* the history (loss, step time, mode, kept blocks, subgraph id) and
+* the history (loss, step time, mode, kept blocks, subgraph id, whether
+  the step's all-reduce was compressed) and
   evaluation: the source's own, or with ``eval_mode="stream"`` the exact
   streaming full-graph forward (``infer.stream.StreamEvaluator``),
 * checkpoints (``cfg.ckpt_dir``: every ``ckpt_every`` steps and at the
@@ -25,9 +29,21 @@ A data source yields ``(tag, operands)`` batches per epoch — the tag is the
 plan-cache identity (``None`` for the full graph, a subgraph id for a
 pool) — says how many steps an epoch has and how many shape buckets it
 holds, and knows how to evaluate; :class:`FullGraphSource` is the whole
-graph as one batch resident on the device, and
+graph as one batch resident on the device,
 ``pipeline.minibatch_loop.PooledSource`` a prefetched GraphSAINT subgraph
-pool. Data parallelism is ROADMAP.md Queue 1 item 8.
+pool, and ``pipeline.sharding.ShardedPoolSource`` one rank's shard of it
+(its tag: the tuple of every rank's subgraph id).
+
+Data parallel (``group``): every rank runs this loop in its own process,
+in step. Rank 0's parameters are broadcast at the start; every rank then
+applies the same mean gradient. ``compress`` follows the reference: on
+when ``compress_grads`` and, with switching, only on the RSC steps (the
+§3.3.2 switch-back applies to the compressor too). Evaluation runs on rank
+0 and its ``(val, test)`` is broadcast, so every rank agrees on ``best``.
+Rank 0 alone writes checkpoints, traces and metrics; the planner's and
+runner's state is gathered to it first (collectives every rank enters at
+the same step). Rank ``r``'s dropout generator is seeded ``seed + 1 +
+r``.
 
 Device reads per step: the loss (its value ends the step, and the
 ``device_step`` span). The ∇H row norms stay on the device until a refresh
@@ -37,8 +53,11 @@ reads their means for the ``rsc.grad_row_norm`` gauges.
 
 A checkpoint holds ``(params, opt_state)`` as the reference's tree
 (``convert.gnn_state_tree``) and an aux dict: the step cursor, the
-planner's refresh norms and clocks, the source's order-RNG state, and the
-dropout ``torch.Generator``'s state under ``torch_generator``. The
+planner's refresh norms and clocks (under data parallelism a list over
+shards), the runner's error-feedback state (``(n_shards, ...)`` per
+leaf, or None), the source's order-RNG state, and the dropout
+``torch.Generator``'s state under ``torch_generator`` (one row per rank
+under data parallelism). The
 reference's aux carries its PRNG key under ``key``; the port cannot
 continue a JAX key stream, so a checkpoint without ``torch_generator``
 (one ``repro`` wrote) restores everything else and leaves the generator
@@ -62,7 +81,8 @@ from repro_torch.models.gnn.common import build_operands, valid_rows
 from repro_torch.obs import context as trace_context
 from repro_torch.train.metrics import metric_fn
 from repro_torch.train.optimizer import Adam
-from repro_torch.train.steps import make_gnn_steps
+from repro_torch.train.steps import (GradReducer, init_error_feedback,
+                                     make_dp_gnn_steps, make_gnn_steps)
 
 
 @dataclasses.dataclass
@@ -233,6 +253,106 @@ class FullGraphPlanner:
 
 
 # ---------------------------------------------------------------------------
+# Runners: execute one optimizer step (single device / data parallel).
+# ---------------------------------------------------------------------------
+
+class SingleDeviceRunner:
+    """The single-device steps (full batch and minibatch)."""
+
+    supports_compression = False
+
+    def __init__(self, module, opt, dims, names, *, dropout: float,
+                 backend: str):
+        self._rsc, self._exact, self.eval_logits = make_gnn_steps(
+            module, opt, dims, names, dropout=dropout, backend=backend)
+
+    def rsc_step(self, model, opt_state, ops, plans, gen,
+                 compress: bool = False):
+        return self._rsc(model, opt_state, ops, plans, gen)
+
+    def exact_step(self, model, opt_state, ops, gen, compress: bool = False):
+        return self._exact(model, opt_state, ops, gen)
+
+    def state_dict(self):
+        return None
+
+    def load_state_dict(self, state) -> None:
+        pass
+
+
+class DataParallelRunner:
+    """Data-parallel steps over a ``DPGroup``: this rank's subgraph, the
+    gradients all-reduced (optionally int8-compressed with error feedback
+    first). Holds this rank's error-feedback accumulators, allocated on
+    the first compressed step; uncompressed steps pass an empty dict."""
+
+    supports_compression = True
+
+    def __init__(self, module, opt, dims, names, *, dropout: float,
+                 backend: str, group, model, compress_block: int = 128,
+                 overlap_allreduce: bool = False, overlap_buckets: int = 4):
+        from repro_torch.convert import gnn_param_paths
+        self.group = group
+        self.reducer = GradReducer(
+            model, group, compress_block=compress_block,
+            overlap_allreduce=overlap_allreduce,
+            overlap_buckets=overlap_buckets)
+        self._rsc, self._exact, self.eval_logits = make_dp_gnn_steps(
+            module, opt, dims, names, dropout=dropout, backend=backend,
+            reducer=self.reducer)
+        self._paths = gnn_param_paths(model)
+        self._err: dict[str, torch.Tensor] | None = None
+
+    def _err_state(self, model, compress: bool) -> dict:
+        if not compress:
+            return {}
+        if self._err is None:
+            self._err = init_error_feedback(model)
+        return self._err
+
+    def rsc_step(self, model, opt_state, ops, plans, gen,
+                 compress: bool = False):
+        compress = bool(compress)
+        model, opt_state, loss, norms, err = self._rsc(
+            model, opt_state, self._err_state(model, compress), ops, plans,
+            gen, compress)
+        if compress:
+            self._err = err
+        return model, opt_state, loss, norms
+
+    def exact_step(self, model, opt_state, ops, gen, compress: bool = False):
+        compress = bool(compress)
+        model, opt_state, loss, err = self._exact(
+            model, opt_state, self._err_state(model, compress), ops, gen,
+            compress)
+        if compress:
+            self._err = err
+        return model, opt_state, loss
+
+    def state_dict(self):
+        """The error-feedback accumulators in the reference's layout:
+        its params tree, each leaf ``(n_shards, ...)`` (host arrays), or
+        None before the first compressed step. A collective."""
+        if self._err is None:
+            return None
+        from repro_torch.convert import _nest
+        rows = self.group.gather_objects(
+            {n: t.cpu().numpy() for n, t in self._err.items()})
+        return _nest({self._paths[n][0]: np.stack([r[n] for r in rows])
+                      for n in self._err})
+
+    def load_state_dict(self, state) -> None:
+        """This rank's row of a saved error-feedback state."""
+        if state is None:
+            return
+        from repro_torch.convert import _get
+        self._err = {
+            n: torch.tensor(np.asarray(_get(state, path))[self.group.rank],
+                            device=self.group.device)
+            for n, (path, _) in self._paths.items()}
+
+
+# ---------------------------------------------------------------------------
 # Full-graph data source.
 # ---------------------------------------------------------------------------
 
@@ -292,19 +412,32 @@ class Engine:
     ``model`` (an ``nn.Module`` of ``cfg.model`` on the source's device)
     replaces the seeded initial parameters, e.g. with the reference's
     carried across by ``convert.gnn_params_from_numpy``. ``graph`` (the
-    full graph) is what ``eval_mode="stream"`` evaluates on.
+    full graph) is what ``eval_mode="stream"`` evaluates on. ``group`` (a
+    ``distributed.group.DPGroup``) makes this rank's engine data parallel:
+    the source must then be a sharded one, and ``compress_grads``,
+    ``compress_block``, ``overlap_allreduce`` and ``overlap_buckets``
+    shape the all-reduce.
     """
 
     def __init__(self, cfg: TrainConfig, source, *, planner=None,
-                 model=None, graph=None):
+                 model=None, graph=None, group=None,
+                 compress_grads: bool = False, compress_block: int = 128,
+                 overlap_allreduce: bool = False, overlap_buckets: int = 4):
         self.cfg = cfg
         self.source = source
         self.module = MODELS[cfg.model]
         self.planner = planner if planner is not None else NullPlanner()
+        self.group = group
+        self.rank = group.rank if group is not None else 0
+        self.compress_grads = compress_grads
         self.n_classes = source.num_classes
         self.model = model if model is not None else self.module.init(
             source.feat_dim, cfg.hidden, self.n_classes, cfg.n_layers,
             cfg.batchnorm, seed=cfg.seed, device=source.device)
+        if group is not None:
+            with torch.no_grad():
+                for p in self.model.parameters():
+                    group.broadcast_(p.data, src=0)
         self.opt = Adam(lr=cfg.lr)
         self.opt_state = self.opt.init(dict(self.model.named_parameters()))
 
@@ -322,9 +455,20 @@ class Engine:
         # configs from the process-wide cache at every launch.
         if cfg.autotune:
             source.warmup(cfg, dims, self.n_classes)
-        self.rsc_step, self.exact_step, self.eval_logits = make_gnn_steps(
-            self.module, self.opt, dims, names,
-            dropout=cfg.dropout, backend=cfg.backend)
+        if group is not None:
+            self.runner = DataParallelRunner(
+                self.module, self.opt, dims, names, dropout=cfg.dropout,
+                backend=cfg.backend, group=group, model=self.model,
+                compress_block=compress_block,
+                overlap_allreduce=overlap_allreduce,
+                overlap_buckets=overlap_buckets)
+        else:
+            self.runner = SingleDeviceRunner(
+                self.module, self.opt, dims, names, dropout=cfg.dropout,
+                backend=cfg.backend)
+        self.rsc_step = self.runner.rsc_step
+        self.exact_step = self.runner.exact_step
+        self.eval_logits = self.runner.eval_logits
 
         # Streaming full-graph evaluator: exact accuracy even when the
         # source's own evaluator only covers pooled nodes.
@@ -364,27 +508,33 @@ class Engine:
             self.ckpt = Checkpointer(cfg.ckpt_dir)
         self.history: dict[str, list] = {
             "loss": [], "val": [], "test": [], "step_time": [],
-            "mode": [], "k": [], "sub_id": []}
+            "mode": [], "k": [], "sub_id": [], "compress": []}
 
     # ------------------------------------------------------------------
     def _capture_state(self, epoch: int, batch_idx: int, gstep: int, gen,
                        best: tuple[float, float]) -> dict:
         """Engine state beside a (params, opt_state) snapshot: enough to
         make restore step-exact (planner clocks and refresh norms, the
-        source's epoch-start order-RNG state, the dropout generator).
-        Python and numpy values only, so ``repro`` can unpickle it."""
+        runner's error feedback, the source's epoch-start order-RNG state,
+        the dropout generator). Python and numpy values only, so ``repro``
+        can unpickle it. Under data parallelism every rank calls it (the
+        planner's, runner's and generators' states are gathered)."""
+        gen_state = gen.get_state().numpy().copy()
+        if self.group is not None:
+            gen_state = np.stack(self.group.gather_objects(gen_state))
         return {
             "gstep": gstep, "epoch": epoch, "batch_idx": batch_idx,
             "key": _seeded_key(self.cfg.seed + 1), "best": best,
             "source": self._epoch_src_state,
             "planner": self.planner.state_dict(),
-            "runner": None,
-            "torch_generator": gen.get_state().numpy().copy(),
+            "runner": self.runner.state_dict(),
+            "torch_generator": gen_state,
         }
 
     def _save(self, step: int, aux: dict) -> None:
-        self.ckpt.save(step, gnn_state_tree(self.model, self.opt_state),
-                       aux=aux)
+        if self.rank == 0:
+            self.ckpt.save(step, gnn_state_tree(self.model, self.opt_state),
+                           aux=aux)
 
     def restore(self, step: int | None = None) -> int | None:
         """Restore (params, opt_state) from a checkpoint (the latest, or
@@ -407,6 +557,7 @@ class Engine:
         aux = self.ckpt.load_aux(step)
         if aux is not None:
             self.planner.load_state_dict(aux.get("planner"))
+            self.runner.load_state_dict(aux.get("runner"))
             self.source.load_state_dict(aux.get("source"))
             self._resume = aux
             self._ckpt_base = step - aux["gstep"]
@@ -426,7 +577,7 @@ class Engine:
             self.schedule = dataclasses.replace(
                 self.schedule, total_steps=total)
         gen = torch.Generator(device=self.source.device)
-        gen.manual_seed(cfg.seed + 1)
+        gen.manual_seed(cfg.seed + 1 + self.rank)
         mfn = metric_fn(cfg.metric)
         best_val, best_test = -1.0, -1.0
         gstep = 0
@@ -441,8 +592,10 @@ class Engine:
             start_epoch, skip = r["epoch"], r["batch_idx"]
             gstep = r["gstep"]
             if r.get("torch_generator") is not None:
-                gen.set_state(torch.from_numpy(
-                    np.asarray(r["torch_generator"], np.uint8)))
+                state = np.asarray(r["torch_generator"], np.uint8)
+                if state.ndim == 2:          # one row per rank
+                    state = state[self.rank]
+                gen.set_state(torch.from_numpy(state.copy()))
             best_val, best_test = r["best"]
 
         reg, tracer = self.obs.registry, self.obs.tracer
@@ -471,7 +624,11 @@ class Engine:
                             if tracer.enabled else None)
                 reg.observe("engine.sample_ms",
                             (time.perf_counter() - t_fetch) * 1e3)
-                use_rsc = cfg.rsc and self.schedule.use_rsc(gstep)
+                approx = self.schedule.use_rsc(gstep)
+                use_rsc = cfg.rsc and approx
+                compress = (self.compress_grads
+                            and self.runner.supports_compression
+                            and (approx if cfg.switching else True))
                 mode = "rsc" if use_rsc else "exact"
                 t0 = time.perf_counter()
                 with tracer.span_in(step_ctx, "step", step=gstep,
@@ -483,12 +640,15 @@ class Engine:
                         with tracer.span("device_step", mode=mode):
                             self.model, self.opt_state, lv, norms = \
                                 self.rsc_step(self.model, self.opt_state,
-                                              ops, plans, gen)
+                                              ops, plans, gen, compress)
                             loss = float(lv)   # the step's one read
                         self.planner.record(tag, norms)
                         if ledger.enabled:
-                            ledger.note_step(mode="rsc", tiles_by_op={
-                                n: p.n_active for n, p in plans.items()})
+                            tiles = {n: p.n_active for n, p in plans.items()}
+                            if self.group is not None:   # every rank's
+                                tiles = dict(zip(tiles, self.group.sum_ints(
+                                    list(tiles.values()))))
+                            ledger.note_step(mode="rsc", tiles_by_op=tiles)
                         # Every 16th step: the gauges are last-write-wins,
                         # and reading the norms' means syncs with the card.
                         if reg.enabled and gstep % 16 == 0:
@@ -497,7 +657,7 @@ class Engine:
                         with tracer.span("device_step", mode=mode):
                             self.model, self.opt_state, lv = \
                                 self.exact_step(self.model, self.opt_state,
-                                                ops, gen)
+                                                ops, gen, compress)
                             loss = float(lv)
                         if ledger.enabled:
                             ledger.note_step(mode="exact")
@@ -509,8 +669,10 @@ class Engine:
                 self.history["step_time"].append(dt)
                 self.history["loss"].append(loss)
                 self.history["mode"].append(mode)
+                self.history["compress"].append(bool(compress))
                 if tag is not None:
-                    self.history["sub_id"].append(tag)
+                    self.history["sub_id"].append(
+                        tag if isinstance(tag, int) else tuple(tag))
                 if use_rsc:
                     k = self.planner.k_latest()
                     if k is not None:
@@ -541,7 +703,7 @@ class Engine:
                 self.history["test"].append((epoch, test))
                 if val > best_val:
                     best_val, best_test = val, test
-                if verbose:
+                if verbose and self.rank == 0:
                     # the resumed tail of a finished run has no new steps
                     loss_s = (f"{self.history['loss'][-1]:.4f} "
                               if self.history["loss"] else "---- ")
@@ -613,11 +775,19 @@ class Engine:
                       op=name)
 
     def evaluate(self, mfn=None) -> tuple[float, float]:
+        """The source's evaluation, or the streamed one; under data
+        parallelism rank 0 evaluates and broadcasts ``(val, test)`` (every
+        rank calls this)."""
         mfn = mfn or metric_fn(self.cfg.metric)
+        if self.group is not None:
+            res = self._evaluate(mfn) if self.rank == 0 else None
+            return tuple(self.group.broadcast_object(res))
+        return self._evaluate(mfn)
+
+    def _evaluate(self, mfn) -> tuple[float, float]:
         if self.stream_eval is not None:
             return self.stream_eval.evaluate(self.model, mfn)
-        return self.source.evaluate(self.eval_logits, mfn,
-                                    self.model)
+        return self.source.evaluate(self.eval_logits, mfn, self.model)
 
 
 def _seeded_key(seed: int) -> np.ndarray:

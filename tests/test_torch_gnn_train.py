@@ -313,10 +313,25 @@ def test_cli_flags_run_on_cpu(capsys, flag, model):
     assert report["best_test"] > 1 / 41
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--minibatch", "--dp", "2"], "item 8"), (["--dp", "4"], "item 8"),
-    (["--mesh", "data:4"], "item 8"), (["--compress-grads"], "item 8"),
-    (["--minibatch", "--mesh", "data:2"], "item 8")])
-def test_cli_unported_flags_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
+_DP_ONE_DEVICE = "degree 2 > 1 visible devices"
+_NEEDS_MINIBATCH = "require --minibatch"
+
+
+@pytest.mark.parametrize("flag,exc,match", [
+    (["--minibatch", "--dp", "2"], ValueError, _DP_ONE_DEVICE),
+    (["--dp", "4"], SystemExit, _NEEDS_MINIBATCH),
+    (["--mesh", "data:4"], SystemExit, _NEEDS_MINIBATCH),
+    (["--compress-grads"], SystemExit, "compress-grads .* needs --dp"),
+    (["--minibatch", "--mesh", "data:2"], ValueError, _DP_ONE_DEVICE),
+    (["--overlap-allreduce"], SystemExit, "overlap-allreduce .* needs --dp"),
+    (["--minibatch", "--mesh", "model:2"], ValueError, "axis 'model'"),
+    (["--minibatch", "--dp", "2", "--mesh", "data:4"], SystemExit,
+     "--dp 2 contradicts --mesh"),
+], ids=[f"flag{i}-item 8" for i in range(5)] + [
+    "overlap-needs-dp", "mesh-axis", "dp-contradicts-mesh"])
+def test_cli_unported_flags_raise(flag, exc, match):
+    """The reference's checks of the data-parallel flags
+    (``src/repro/launch/train.py`` ``run_gnn``), and on the CPU two ranks
+    without ``--force-host-devices`` name the count."""
+    with pytest.raises(exc, match=match):
         train_cli.main(SKILL_ARGV + ["--device", "cpu", *flag])

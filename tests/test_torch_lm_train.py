@@ -337,13 +337,14 @@ def test_train_cli_defaults_to_cuda():
         train.main(["lm", "--arch", "qwen3-1.7b", "--smoke", "--steps", "1"])
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["lm", "--arch", "deepseek-v2-lite-16b", "--smoke"], "item 9c"),
-    # full-batch and minibatch training are ported for every model; the
-    # data-parallel pools are item 8
+@pytest.mark.parametrize("argv,exc,match", [
+    (["lm", "--arch", "deepseek-v2-lite-16b", "--smoke"],
+     NotImplementedError, "item 9c"),
+    # data-parallel GNN training is ported: on the CPU, two ranks need
+    # --force-host-devices 2 (gloo), so --dp 2 alone names the count
     (["gnn", "--model", "graphsage", "--minibatch", "--epochs", "2",
-      "--dp", "2"], "item 8"),
-])
-def test_train_cli_unported_parts_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train.main(argv + ["--device", "cpu"] if argv[0] == "lm" else argv)
+      "--dp", "2"], ValueError, "degree 2 > 1 visible devices"),
+], ids=["argv0-item 9c", "argv1-item 8"])
+def test_train_cli_unported_parts_raise(argv, exc, match):
+    with pytest.raises(exc, match=match):
+        train.main(argv + ["--device", "cpu"])

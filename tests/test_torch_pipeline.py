@@ -383,9 +383,25 @@ def test_stream_evaluation_needs_the_graph(pools):
 
 
 def test_dp_raises_naming_its_item(pools):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """A prebuilt pool whose buckets (2 and 2 subgraphs) do not split
+    across 4 shards raises the reference's error naming the bucket; a
+    pool that splits still needs the rank's process group."""
+    with pytest.raises(ValueError, match="bucket 0 holds 2 subgraphs"):
+        MinibatchTrainer(MinibatchConfig(device="cpu", dp=4, **TRAJ),
+                         pool=pools[0])
+    with pytest.raises(ValueError, match="DPGroup"):
         MinibatchTrainer(MinibatchConfig(device="cpu", dp=2, **TRAJ),
                          pool=pools[0])
+
+
+def test_dp_pool_from_graph_rebuilds_single_bucket(graph):
+    """Built from the graph, a pool whose buckets do not split across the
+    shards is rebuilt with one bucket, as the reference does."""
+    from repro_torch.pipeline import dp_pool, shard_pool_ids
+    cfg = MinibatchConfig(device="cpu", dp=4, **TRAJ)
+    pool = dp_pool(cfg, graph=graph)
+    assert len(pool.buckets) == 1 and len(pool) == 4
+    assert shard_pool_ids(pool, 4) == [[0], [1], [2], [3]]
 
 
 def test_minibatch_defaults_to_cuda(pools):
