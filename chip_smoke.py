@@ -183,6 +183,10 @@ without the final ``{"ok": true, ...}`` line:
    checking that each launch is counted under its variant; then prefill +
    8 greedy decode steps of the f32 smoke qwen3-1.7b on the card against
    the same run on the CPU;
+9b. the flash sweep over the other families' heads: hd 256 at (nq, nkv)
+   = (16, 1) and (4, 1) (variants ``wgmma_hd256`` and ``fma``), (32, 8) at
+   hd 128 and (24, 24) at hd 64, windows {None, 100, 2,048}, lengths up to
+   2,100 (past the 2,048 window), the same checks;
 10. drive the LM serving path (``repro_torch.launch.serve``) at the full
     width of qwen3-1.7b (28 layers, d_model 2048, bf16, seeded random
     weights) with batch 4, a 4,096-token prompt and 32 generated tokens,
@@ -190,6 +194,23 @@ without the final ``{"ok": true, ...}`` line:
     kernel launches in the prefill, all of them ``wgmma``, and none in
     decode, finite logits, a (4, 32) token block, and the kernel against
     its plain version on the first layer's own q/k/v;
+10b. the other LM families at their published widths (bf16, seeded
+    random weights), one at a time: xlstm-125m, recurrentgemma-9b,
+    llama-3.2-vision-11b (with 6,404 ``cross_states``), deepseek-v2-lite-16b,
+    musicgen-medium (embedding input) and deepseek-v2-236b (its dense
+    prefix layer and one attn_moe layer: 60 layers do not fit one card),
+    batch 2, a 4,096-token prompt, 16 generated tokens, through the
+    serving entry point with the launch counts set to 0 just before and
+    read just after: one flash launch per self-attention layer in the
+    prefill (12, all ``wgmma_hd256``; 32 and 48 ``wgmma``; 0 for xLSTM and
+    MLA), none in decode, finite logits, a (2, 16) token block; cold and
+    warm prefill, decode tok/s, peak memory, the RG-LRU scan's and
+    sLSTM's share of a prefill; the kernel against its plain version and
+    timed beside SDPA (given recurrentgemma's window as a mask) on the
+    first kernel layer's own q/k/v;
+10c. each of those families' f32 smoke config, prefill + 8 greedy decode
+    steps on the card against the same run on the CPU: identical tokens,
+    logits within 1e-4·max|logit|;
 11. time the flash kernel, its plain version and
     ``scaled_dot_product_attention`` (a yardstick the port never calls) at
     the main path's shape, at one 32,768-token row and at qwen2-0.5b's
@@ -204,6 +225,11 @@ without the final ``{"ok": true, ...}`` line:
     0.5, 2 microbatches) on the card against the same steps on the CPU:
     equal selected blocks, losses within 1e-5 relative and each
     parameter's change within ``TRAIN_DP_REL`` of the CPU run's change;
+12b. the same 3 steps for each family of phase 10b (its f32 smoke
+    config): equal selected blocks, losses within 1e-5 relative (or twice
+    the CPU run's own move from weights one unit in the last place away,
+    where that is more: xLSTM), one ``gather_matmul`` launch per RSC'd MLP
+    linear per microbatch (MoE experts and xLSTM's cells take no RSC);
 13. drive the LM training path (``repro_torch.launch.train lm``) at the
     full width of qwen3-1.7b with batch 4 × 4,096 tokens in the
     microbatches ``configs.shapes.microbatches`` gives ``train_4k`` (2),
@@ -220,13 +246,13 @@ without the final ``{"ok": true, ...}`` line:
 15. print each slice's JSON line (``slice``, ``bcoo_spmm_shapes``,
     ``frontend_slice``,
     ``gnn_train_slice``, ``gnn_models_slice``, ``minibatch_slice``,
-    ``obs_slice``, ``dp_slice``, ``lm_slice``,
+    ``obs_slice``, ``dp_slice``, ``lm_slice``, ``lm_families_slice``,
     ``lm_train_slice``), the build report, the kernel line (with the
     variant each kernel ran on its main path; ``bcoo_spmm``'s launches are
     the three models' serving and RSC training runs', the frontend's, the
-    minibatch run's, phase 8e's and both ranks' of phase 8f (b)), the card
-    line and,
-    last, the result line.
+    minibatch run's, phase 8e's and both ranks' of phase 8f (b);
+    ``flash_attention``'s qwen3-1.7b's and the families' of phase 10b),
+    the card line and, last, the result line.
 
 Without a CUDA device it exits with code 2 and prints no result. It
 imports nothing of JAX and nothing of the ``repro`` package.
@@ -234,8 +260,10 @@ imports nothing of JAX and nothing of the ``repro`` package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -298,6 +326,23 @@ LM_ARGV = ["--arch", "qwen3-1.7b", "--batch", "4", "--prompt-len", "4096",
 # reps) on seeded inputs, after the main path's own shape: one 32,768-token
 # row of qwen3-1.7b's heads, and qwen2-0.5b's widths at the prefill shape.
 FLASH_ROWS = [(1, 32768, 16, 8, 128, 1024, 3), (4, 4096, 14, 2, 64, None, 20)]
+# Phase 9b: the flash sweep over the other families' heads: hd 256 at
+# recurrentgemma-9b's 16/1 and at 4/1, llama-3.2-vision-11b's 32/8 at hd
+# 128, musicgen-medium's 24/24 at hd 64; windows up to recurrentgemma's
+# 2,048, with lengths past it.
+FLASH_FAMILY_HEADS = [(16, 1, 256), (4, 1, 256), (32, 8, 128), (24, 24, 64)]
+FLASH_FAMILY_LENGTHS = [(1, 1), (64, 64), (129, 129), (100, 385),
+                        (257, 1024), (2100, 2100)]
+FLASH_FAMILY_WINDOWS = (None, 100, 2048)
+# Phase 10b: the other LM families at their published widths (bf16,
+# seeded random weights), batch 2, a 4,096-token prompt (past
+# recurrentgemma's 2,048 window, so its ring buffer wraps), 16 generated
+# tokens, one model at a time. deepseek-v2-236b's 60 layers do not fit one
+# card: it runs its dense prefix layer and one attn_moe layer.
+FAMILIES = ["xlstm-125m", "recurrentgemma-9b", "llama-3.2-vision-11b",
+            "deepseek-v2-lite-16b", "musicgen-medium", "deepseek-v2-236b"]
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 2, 4096, 16
+FAMILY_CUT = {"deepseek-v2-236b": 2}
 # gather_matmul against its plain version, in f32, scaled to the data: for
 # each element |out - ref| <= rtol·|ref| + row·rms(ref row), and
 # ||out - ref||_F <= norm·||ref||_F. bf16: both sides sum exact products in
@@ -2942,44 +2987,51 @@ def randn(gen, shape, dtype, dev):
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
-def flash_sweep(ops, fmod, flash_attention_ref, dev) -> dict:
+def flash_sweep(ops, fmod, flash_attention_ref, dev, heads=None,
+                lengths=FLASH_LENGTHS, windows=(None, 16, 100), seed=0,
+                label="flash sweep") -> dict:
+    """Kernel against plain version over b in {1, 2}, ``heads`` ((nq, nkv,
+    hd) triples; by default FLASH_HEADS at hd 64 and 128), f32 and bf16,
+    ``lengths``, ``windows``, causal and not; each launch counted under
+    its variant."""
+    if heads is None:
+        heads = [(nq, nkv, hd) for nq, nkv in FLASH_HEADS for hd in (64, 128)]
     gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
+    gen.manual_seed(seed)
     worst = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
     n, n_var = 0, {}
     for b in (1, 2):
-        for nq, nkv in FLASH_HEADS:
-            for hd in (64, 128):
-                for dtype in (torch.float32, torch.bfloat16):
-                    for tq, tk in FLASH_LENGTHS:
-                        q = randn(gen, (b, tq, nq, hd), dtype, dev)
-                        k = randn(gen, (b, tk, nkv, hd), dtype, dev)
-                        v = randn(gen, (b, tk, nkv, hd), dtype, dev)
-                        for window in (None, 16, 100):
-                            for causal in (True, False):
-                                kw = dict(q_offset=tk - tq, causal=causal,
-                                          window=window)
-                                var = fmod.variant(dtype, hd)
-                                before = fmod.launches_by_variant[var]
-                                out = ops.flash_attention(q, k, v, **kw)
-                                torch.cuda.synchronize()
-                                if fmod.launches_by_variant[var] != \
-                                        before + 1:
-                                    raise AssertionError(
-                                        f"{var} launch not counted")
-                                if out.dtype != dtype or \
-                                        out.shape != q.shape:
-                                    raise AssertionError(
-                                        f"got {out.dtype} {out.shape}")
-                                errs = flash_close(
-                                    out, flash_attention_ref(q, k, v, **kw),
-                                    dtype)
-                                worst[dtype] = [max(a, e) for a, e in
-                                                zip(worst[dtype], errs)]
-                                n += 1
-                                n_var[var] = n_var.get(var, 0) + 1
+        for nq, nkv, hd in heads:
+            for dtype in (torch.float32, torch.bfloat16):
+                for tq, tk in lengths:
+                    q = randn(gen, (b, tq, nq, hd), dtype, dev)
+                    k = randn(gen, (b, tk, nkv, hd), dtype, dev)
+                    v = randn(gen, (b, tk, nkv, hd), dtype, dev)
+                    for window in windows:
+                        for causal in (True, False):
+                            kw = dict(q_offset=tk - tq, causal=causal,
+                                      window=window)
+                            var = fmod.variant(dtype, hd)
+                            before = fmod.launches_by_variant[var]
+                            out = ops.flash_attention(q, k, v, **kw)
+                            torch.cuda.synchronize()
+                            if fmod.launches_by_variant[var] != \
+                                    before + 1:
+                                raise AssertionError(
+                                    f"{var} launch not counted")
+                            if out.dtype != dtype or \
+                                    out.shape != q.shape:
+                                raise AssertionError(
+                                    f"got {out.dtype} {out.shape}")
+                            errs = flash_close(
+                                out, flash_attention_ref(q, k, v, **kw),
+                                dtype)
+                            worst[dtype] = [max(a, e) for a, e in
+                                            zip(worst[dtype], errs)]
+                            n += 1
+                            n_var[var] = n_var.get(var, 0) + 1
     f32, bf16 = worst[torch.float32], worst[torch.bfloat16]
-    say(f"[flash sweep] {n} cases agree ({n_var}); max abs err f32 "
+    say(f"[{label}] {n} cases agree ({n_var}); max abs err f32 "
         f"{f32[0]:.3e}, bf16 {bf16[0]:.3e}; max row-relative L2 err f32 "
         f"{f32[1]:.3e}, bf16 {bf16[1]:.3e}")
     return {"cases": n, "cases_by_variant": n_var,
@@ -3063,44 +3115,55 @@ def first_layer_qkv(out, apply_norm, project_qkv):
         return project_qkv(net.layers[0].attn, cfg, hn, pos)
 
 
-def flash_row(q, k, v, fmod, flash_attention_ref, q_chunk, reps) -> dict:
+def flash_row(q, k, v, fmod, flash_attention_ref, q_chunk, reps,
+              window=None) -> dict:
     """Kernel vs plain version, then the times of kernel, plain version
-    and SDPA (causal, GQA) on these inputs, and the card's bound."""
+    and SDPA (causal, GQA; with a window, given the band as an explicit
+    mask) on these inputs, and the card's bound."""
     F = torch.nn.functional
+    b, t, nq, hd = q.shape
     with torch.inference_mode():
-        got = fmod.flash_attention(q, k, v, causal=True)
-        ref = flash_attention_ref(q, k, v, causal=True, q_chunk=q_chunk)
+        got = fmod.flash_attention(q, k, v, causal=True, window=window)
+        ref = flash_attention_ref(q, k, v, causal=True, window=window,
+                                  q_chunk=q_chunk)
         err, rel = flash_close(got, ref, q.dtype)
         buf = torch.empty_like(q)
         ms = cuda_ms(lambda: fmod.launch(q, k, v, buf, q_offset=0,
-                                         causal=True, window=None), reps)
+                                         causal=True, window=window), reps)
         plain_ms = cuda_ms(lambda: flash_attention_ref(
-            q, k, v, causal=True, q_chunk=q_chunk), reps=2, warmup=1)
+            q, k, v, causal=True, window=window, q_chunk=q_chunk), reps=2,
+            warmup=1)
         del got
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
+        kw = dict(is_causal=True, enable_gqa=True)
+        if window is not None:
+            i = torch.arange(t, device=q.device)
+            kw = dict(attn_mask=(i[None, :] <= i[:, None])
+                      & (i[None, :] > i[:, None] - window), enable_gqa=True)
+        lib = F.scaled_dot_product_attention(qt, kt, vt, **kw)
         lib_err = float((lib.transpose(1, 2).float() - ref.float())
                         .abs().max())
+        del lib
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps)
-    b, t, nq, hd = q.shape
+            qt, kt, vt, **kw), reps)
     nkv = k.shape[2]
-    pairs = t * (t + 1) // 2                  # unmasked (q, k) pairs
+    w = min(window or t, t)                   # unmasked (q, k) pairs
+    pairs = w * (w + 1) // 2 + (t - w) * w
     flops = 4 * b * nq * hd * pairs
     es = q.element_size()
     nbytes = (2 * b * t * nq * hd + 2 * b * t * nkv * hd) * es
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
-    row = dict(b=b, t=t, nq=nq, nkv=nkv, hd=hd, dtype=str(q.dtype),
-               variant=fmod.variant(q.dtype, hd),
+    row = dict(b=b, t=t, nq=nq, nkv=nkv, hd=hd, window=window,
+               dtype=str(q.dtype), variant=fmod.variant(q.dtype, hd),
                max_abs_err=err, max_row_rel_err=rel,
                sdpa_max_abs_err=lib_err, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, flops=flops,
                bytes=nbytes, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                tflops=flops / ms / 1e9)
-    say(f"[flash {b}x{t} nq {nq} nkv {nkv} hd {hd}] err={err:.3e} row-rel={rel:.3e} kernel {ms:.4f} "
+    say(f"[flash {b}x{t} nq {nq} nkv {nkv} hd {hd} window {window}] "
+        f"err={err:.3e} row-rel={rel:.3e} kernel {ms:.4f} "
         f"ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
         f"{row['tflops']:.2f} TFLOP/s")
@@ -3138,6 +3201,217 @@ def lm_timings(out, serve, fmod, flash_attention_ref, apply_norm,
         f"attention kernel share of prefill "
         f"{warm['attention_share_of_prefill']:.3f}")
     return rows, warm
+
+
+# ------------------------------------------------------- LM families
+
+def family_config(get_arch, name: str):
+    """The family's published config; deepseek-v2-236b cut to its dense
+    prefix layer and one attn_moe layer (FAMILY_CUT)."""
+    cfg = get_arch(name)
+    if name in FAMILY_CUT:
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_CUT[name],
+                                  n_repeats=FAMILY_CUT[name] - 1)
+    cfg.validate()
+    return cfg
+
+
+def kernel_layers(cfg) -> list[int]:
+    """Layers whose prefill attention is the flash kernel: self-attention
+    without MLA (cross-attention and MLA run the plain jnp-style code, as
+    in the reference)."""
+    return [i for i, kind in enumerate(cfg.layer_plan())
+            if kind in ("attn", "attn_moe", "local") and cfg.mla is None]
+
+
+def set_gates(net, value: float = 0.5) -> None:
+    """Cross layers' ``ffn_gate`` and ``gate`` (0 at init, where such a
+    layer adds nothing) set to ``value``."""
+    with torch.no_grad():
+        for blk in net.layers:
+            if blk.kind == "cross":
+                blk.ffn_gate.fill_(value)
+                blk.attn.gate.fill_(value)
+
+
+class SectionTimer:
+    """Stands in for a module function (``rglru._rg_lru_scan``,
+    ``xlstm.slstm_cell``) during one prefill and adds up its time on the
+    card (synchronised before and after each call)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.seconds, self.calls = module, name, 0.0, 0
+
+    def __enter__(self):
+        self.inner = getattr(self.module, self.name)
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+    def __call__(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.inner(*args, **kw)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+def family_qkv(cfg, net, prompt, i, lm):
+    """Layer ``i``'s q, k, v of the served prompt: the layers before it
+    run in prefill mode on the same parameters and prompt."""
+    x = prompt.get("embeds", prompt.get("tokens"))
+    t = x.shape[1]
+    pos = torch.arange(t, dtype=torch.int32, device=x.device)
+    with torch.inference_mode():
+        h = x.to(net.embed.dtype) if "embeds" in prompt \
+            else net.embed[x.long()]
+        for j in range(i):
+            h, _ = lm.backbone.layer_apply(
+                net.layers[j], cfg, cfg.layer_plan()[j], h, pos,
+                mode="prefill", cross_states=prompt.get("cross_states"))
+        hn = lm.layers.apply_norm(net.layers[i].ln1, h, cfg.norm_eps)
+        return lm.attention._project_qkv(net.layers[i].attn, cfg, hn, pos)
+
+
+def family_serve(name, serve, ops, fmod, flash_attention_ref, lm, get_arch,
+                 init_params, make_batch, dev) -> tuple[dict, int]:
+    """Phase 10b for one family: serve it at its published widths (bf16,
+    seeded random weights) through the serving entry point with the launch
+    counts set to 0 just before and read just after; then a warm run, a
+    prefill with the recurrences timed, and the kernel against its plain
+    version (and timed) on the first kernel layer's own q/k/v. Returns the
+    record and the flash launches of the counted run."""
+    cfg = family_config(get_arch, name)
+    argv = ["--arch", name, "--batch", str(FAMILY_BATCH), "--prompt-len",
+            str(FAMILY_PROMPT), "--gen", str(FAMILY_GEN), "--device", "cuda"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if name in FAMILY_CUT:     # serve.run builds the published depth
+        params = init_params(cfg, 0, dev)
+        prompt = make_batch(cfg, "prefill_32k", FAMILY_BATCH, FAMILY_PROMPT,
+                            seed=0, device=dev)
+        toks, stats, rec = serve.greedy_generate(
+            cfg, params, prompt, FAMILY_PROMPT + FAMILY_GEN + 1, FAMILY_GEN)
+        out = {"params": params, "prompt": prompt, "tokens": toks,
+               "stats": stats, **rec}
+    else:
+        out = serve.run(serve.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    by_var = ops.launch_counts_by_variant()["flash_attention"]
+    net, prompt = out["params"], out["prompt"]
+    layers = kernel_layers(cfg)
+    want = len(layers)
+    var = fmod.variant(torch.bfloat16, cfg.hd) if layers else None
+    say(f"[family {name}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"run {wall:.2f} s, tokens {tuple(out['tokens'].shape)}, launches "
+        f"{counts}, by phase {out['launches']}, by variant {by_var}")
+    if out["launches"]["prefill"]["flash_attention"] != want or \
+            out["launches"]["decode"]["flash_attention"] != 0 or \
+            counts["flash_attention"] != want:
+        raise AssertionError(f"{name}: flash launches {out['launches']}, "
+                             f"expected {want} per prefill, 0 in decode")
+    if want and (var not in ("wgmma", "wgmma_hd256") or by_var[var] != want):
+        raise AssertionError(f"{name}: variants {by_var}, expected {want} "
+                             f"on a tensor-core variant")
+    if counts["gather_matmul"] or counts["bcoo_spmm"]:
+        raise AssertionError(f"{name}: other kernels launched: {counts}")
+    for phase, lg in out["logits"].items():
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"{name}: {phase} logits not finite")
+    if tuple(out["tokens"].shape) != (FAMILY_BATCH, FAMILY_GEN):
+        raise AssertionError(f"{name}: tokens {tuple(out['tokens'].shape)}")
+    cold = out["stats"]
+    _, warm, _ = serve.greedy_generate(cfg, net, prompt,
+                                       FAMILY_PROMPT + FAMILY_GEN + 1,
+                                       FAMILY_GEN)
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"arch": name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "cut": FAMILY_CUT.get(name), "run_s": wall,
+           "weights_gib": sum(p.numel() * p.element_size()
+                              for p in net.parameters()) / 2 ** 30,
+           "launches": out["launches"], "launches_by_variant": by_var,
+           "variant": var, "cold": cold, "warm": warm,
+           "peak_mem_gib": peak / 2 ** 30}
+    timers = [SectionTimer(mod, fn) for kind, mod, fn in (
+        ("rglru", lm.rglru, "_rg_lru_scan"),
+        ("slstm", lm.xlstm, "slstm_cell")) if kind in cfg.layer_plan()]
+    if timers:
+        prefill = serve.make_prefill_step(cfg)
+        with contextlib.ExitStack() as stack:
+            for tm in timers:
+                stack.enter_context(tm)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(net, prompt)
+            torch.cuda.synchronize()
+            t_pf = time.perf_counter() - t0
+        rec["timed_prefill_s"] = t_pf
+        for tm in timers:
+            rec[f"{tm.name.strip('_')}_s"] = tm.seconds
+            rec[f"{tm.name.strip('_')}_share_of_prefill"] = tm.seconds / t_pf
+    if layers:
+        q, k, v = family_qkv(cfg, net, prompt, layers[0], lm)
+        window = cfg.local_window if cfg.layer_plan()[layers[0]] == "local" \
+            else None
+        rec["flash_row"] = flash_row(q, k, v, fmod, flash_attention_ref,
+                                     1024, reps=10, window=window)
+        del q, k, v
+    say(f"[family {name}] cold prefill {cold['prefill_s']:.4f} s, warm "
+        f"prefill {warm['prefill_s']:.4f} s, decode {warm['tok_per_s']:.1f} "
+        f"tok/s, peak {rec['peak_mem_gib']:.2f} GiB"
+        + "".join(f", {k} {v:.4f}" for k, v in rec.items()
+                  if k.endswith("share_of_prefill")))
+    del out, net, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, counts["flash_attention"]
+
+
+def family_small_reference(name, serve, smoke_config, make_batch,
+                           init_params, dev) -> dict:
+    """Phase 10c for one family: prefill + 8 greedy decode steps of its
+    f32 smoke config on the card against the same run on the CPU (plain
+    versions), one parameter set (cross gates 0.5) on both: identical
+    tokens, logits within 1e-4·max|logit| (the tolerance of
+    tests/test_torch_lm_families.py), one kernel launch per kernel layer
+    in the prefill and none in decode."""
+    cfg = dataclasses.replace(smoke_config(name), dtype="float32")
+    net = init_params(cfg, seed=0, device="cpu")
+    set_gates(net)
+    runs = []
+    for d, params in (("cpu", net), (dev, copy.deepcopy(net).to(dev))):
+        prompt = make_batch(cfg, "prefill_32k", 2, 32, seed=0, device=d)
+        toks, _, rec = serve.greedy_generate(cfg, params, prompt, 42, 9)
+        runs.append((toks, rec))
+    (ctoks, crec), (gtoks, grec) = runs
+    want = len(kernel_layers(cfg))
+    if grec["launches"]["prefill"]["flash_attention"] != want or \
+            grec["launches"]["decode"]["flash_attention"] != 0:
+        raise AssertionError(f"{name} smoke launches {grec['launches']}, "
+                             f"expected {want} per prefill")
+    if not torch.equal(ctoks, gtoks):
+        raise AssertionError(f"{name}: tokens differ:\n{ctoks}\n{gtoks}")
+    err, scale = 0.0, 0.0
+    for phase in ("prefill", "last"):
+        ref = crec["logits"][phase]
+        got = grec["logits"][phase].cpu()
+        scale = max(scale, float(ref.abs().max()))
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()))
+        err = max(err, float((got - ref).abs().max()))
+    say(f"[family reference] smoke {name} f32, 8 decode steps: card = CPU, "
+        f"tokens identical, max abs logit err {err:.3e} (max |logit| "
+        f"{scale:.3e}), {want} kernel launches per prefill")
+    return {"max_abs_logit_err": err, "max_abs_logit": scale,
+            "launches": grec["launches"]}
 
 
 # ------------------------------------------------------- LM training phases
@@ -3283,6 +3557,64 @@ def lm_train_small_reference(ops, gmod, smoke_config, make_batch,
             "max_param_change_err": rel[worst]}
 
 
+def family_train_small_reference(name, ops, gmod, smoke_config,
+                                 make_batch, init_params, make_train_step,
+                                 Adam, dev) -> dict:
+    """Phase 12b for one family: 3 RSC training steps (keep 0.5, bk 32, 2
+    microbatches of 2 × 64 tokens) of its f32 smoke config on the card
+    against the same steps on the CPU, from one parameter set (cross gates
+    0.5): equal selected blocks, losses within 1e-5 relative, or within
+    twice what the CPU run's own losses move when every weight moves by
+    one unit in the last place, where that is more (the xLSTM smoke model
+    is that ill-conditioned); and one gather_matmul launch per RSC'd MLP
+    linear per microbatch (3 for a gated MLP, 2 for gelu's; MoE experts,
+    shared experts and xLSTM's cells take no RSC)."""
+    cfg = dataclasses.replace(smoke_config(name), dtype="float32")
+    rsc = {"keep_frac": 0.5, "bk": 32, "backend": "kernel"}
+    steps, n_mb = 3, 2
+    cpu_net = init_params(cfg, seed=0, device="cpu")
+    set_gates(cpu_net)
+    card_net = copy.deepcopy(cpu_net).to(dev)
+    nudged = copy.deepcopy(cpu_net)
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for p in nudged.parameters():
+            p.mul_(1 + 2.0 ** -23 * torch.from_numpy(
+                rng.choice([-1.0, 1.0], tuple(p.shape))).to(p.dtype))
+    runs = []
+    for d, net in (("cpu", cpu_net), (dev, card_net), ("cpu", nudged)):
+        opt = Adam(lr=1e-3, clip_norm=1.0)
+        state = opt.init(dict(net.named_parameters()))
+        step = make_train_step(cfg, opt, n_mb, rsc=rsc)
+        losses = []
+        ops.reset_launch_counts()
+        with GatherTap(gmod) as tap:
+            for i in range(steps):
+                batch = make_batch(cfg, "train_4k", 4, 64, seed=i, device=d)
+                net, state, loss = step(net, state, batch)
+                losses.append(float(loss))
+        runs.append((losses, [t.cpu().tolist() for t in tap.idx],
+                     ops.launch_counts()["gather_matmul"]))
+    (closs, cidx, claunch), (gloss, gidx, glaunch), (nloss, _, _) = runs
+    per_mlp = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    n_mlp = sum(blk.mlp is not None for blk in cpu_net.layers)
+    want = per_mlp * n_mlp * n_mb * steps
+    own = max(abs(a - b) / abs(a) for a, b in zip(closs, nloss))
+    rtol = max(1e-5, 2 * own)
+    say(f"[family train reference] smoke {name} f32 RSC, {steps} steps: "
+        f"launches CPU {claunch}, card {glaunch} of {want} ({n_mlp} RSC'd "
+        f"MLPs); losses {gloss} (CPU {closs}, rtol {rtol:.0e})")
+    if claunch != 0 or glaunch != want or len(gidx) != want:
+        raise AssertionError(f"{name}: gather_matmul launches: CPU "
+                             f"{claunch}, card {glaunch} of {want}")
+    if cidx != gidx:
+        raise AssertionError(f"{name}: selected blocks differ:\n{cidx}\n"
+                             f"{gidx}")
+    np.testing.assert_allclose(gloss, closs, rtol=rtol)
+    return {"losses_card": gloss, "losses_cpu": closs, "launches": glaunch,
+            "rsc_mlps": n_mlp, "loss_rtol": rtol}
+
+
 def lm_train_main_path(train, ops, gmod, gather_matmul_ref, argv):
     """The full-width training run, with the launch counts set to 0 just
     before and read just after; the kernel against its plain version on
@@ -3406,7 +3738,12 @@ def main(argv=None) -> int:
     from repro_torch.kernels.ref import bcoo_spmm_ref
     from repro_torch.launch import serve_gnn
     from repro_torch.models.gnn import MODELS, gcn
-    from repro_torch.configs import make_batch, smoke_config
+    from repro_torch.configs import get_arch, make_batch, smoke_config
+    from repro_torch.models.lm import attention as lm_attention
+    from repro_torch.models.lm import backbone as lm_backbone
+    from repro_torch.models.lm import layers as lm_layers
+    from repro_torch.models.lm import rglru as lm_rglru
+    from repro_torch.models.lm import xlstm as lm_xlstm
     from repro_torch.configs.shapes import microbatches
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels.ref import flash_attention_ref
@@ -3422,6 +3759,8 @@ def main(argv=None) -> int:
     from repro_torch.train.lm_steps import make_train_step
     from repro_torch.train.optimizer import Adam
 
+    lm = SimpleNamespace(attention=lm_attention, backbone=lm_backbone,
+                         layers=lm_layers, rglru=lm_rglru, xlstm=lm_xlstm)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3506,6 +3845,10 @@ def main(argv=None) -> int:
     dp_launches, dp_slice = dp_main_path(train, ops, autotune, smi)
     dp_slice["small_reference"] = dp_small
     flash_res = flash_sweep(ops, fmod, flash_attention_ref, dev)
+    flash_family_res = flash_sweep(
+        ops, fmod, flash_attention_ref, dev, heads=FLASH_FAMILY_HEADS,
+        lengths=FLASH_FAMILY_LENGTHS, windows=FLASH_FAMILY_WINDOWS, seed=3,
+        label="flash sweep families")
     lm_ref_err = lm_small_reference(serve, smoke_config, make_batch,
                                     init_params, dev)
     lm_out, flash_launches, lm_run_s = lm_main_path(serve, ops)
@@ -3515,8 +3858,22 @@ def main(argv=None) -> int:
     lm_report, lm_launches = lm_out["report"], lm_out["launches"]
     del lm_out
     torch.cuda.empty_cache()
+    families, family_launches = {}, 0
+    for name in FAMILIES:
+        families[name], n = family_serve(
+            name, serve, ops, fmod, flash_attention_ref, lm, get_arch,
+            init_params, make_batch, dev)
+        family_launches += n
+    for name in FAMILIES:
+        families[name]["small_reference"] = family_small_reference(
+            name, serve, smoke_config, make_batch, init_params, dev)
     gather_res = gather_sweep(ops, gmod, gather_matmul_ref, dev)
     train_ref = lm_train_small_reference(ops, gmod, smoke_config,
+                                         make_batch, init_params,
+                                         make_train_step, Adam, dev)
+    for name in FAMILIES:
+        families[name]["train_small_reference"] = \
+            family_train_small_reference(name, ops, gmod, smoke_config,
                                          make_batch, init_params,
                                          make_train_step, Adam, dev)
     argv = train_argv(microbatches("qwen3-1.7b", "train_4k"))
@@ -3549,7 +3906,8 @@ def main(argv=None) -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:31",
-        "variant": flash_rows[0]["variant"], "launches": flash_launches,
+        "variant": flash_rows[0]["variant"],
+        "launches": flash_launches + family_launches,
         "max_abs_err": flash_rows[0]["max_abs_err"],
         "ms": flash_rows[0]["ms"], "plain_ms": flash_rows[0]["plain_ms"],
         "bound_ms": flash_rows[0]["bound_ms"],
@@ -3584,6 +3942,10 @@ def main(argv=None) -> int:
         "launches": lm_launches, "warm": lm_warm,
         "flash_sweep": flash_res, "small_reference_max_abs_err": lm_ref_err,
         "flash_shapes": flash_rows}}))
+    say(json.dumps({"lm_families_slice": {
+        "batch": FAMILY_BATCH, "prompt_len": FAMILY_PROMPT,
+        "gen": FAMILY_GEN, "cut": FAMILY_CUT, "launches": family_launches,
+        "flash_sweep": flash_family_res, "families": families}}))
     say(json.dumps({"lm_train_slice": {
         "report": train_out["report"], "argv": argv,
         "run_s": train_run_s, "launches": gather_launches,

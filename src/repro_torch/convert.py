@@ -148,6 +148,8 @@ def _unstack(tree: dict, cfg) -> list[dict]:
     def take(x, r):
         if isinstance(x, dict):
             return {k: take(v, r) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [take(v, r) for v in x]
         return np.asarray(x)[r]
 
     blocks = tree.get("blocks") or ()
@@ -157,14 +159,18 @@ def _unstack(tree: dict, cfg) -> list[dict]:
     return layers + list(tree.get("suffix", []))
 
 
-def _copy_tree(module: torch.nn.Module, tree: dict, path: str) -> int:
+def _copy_tree(module: torch.nn.Module, tree, path: str) -> int:
     """Copy every leaf of ``tree`` into the same-named parameter or
-    submodule of ``module``; returns the number of parameters filled."""
+    submodule of ``module`` (a list into a ``ModuleList``, item by item);
+    returns the number of parameters filled."""
     n = 0
-    for key, val in tree.items():
-        target = getattr(module, key, None)
-        where = f"{path}.{key}" if path else key
-        if isinstance(val, dict):
+    items = enumerate(tree) if isinstance(tree, (list, tuple)) \
+        else tree.items()
+    for key, val in items:
+        target = module[key] if isinstance(module, torch.nn.ModuleList) \
+            and key < len(module) else getattr(module, str(key), None)
+        where = f"{path}.{key}" if path else str(key)
+        if isinstance(val, (dict, list, tuple)):
             if not isinstance(target, torch.nn.Module):
                 raise ValueError(f"{where}: no such submodule in the port")
             n += _copy_tree(target, val, where)
@@ -209,9 +215,12 @@ def lm_params_from_numpy(cfg, tree: dict, device="cuda"):
     return net
 
 
-def _module_tree(module: torch.nn.Module) -> dict:
+def _module_tree(module: torch.nn.Module):
     """``{name: f32 numpy array or subtree}`` of a module's own parameters
-    and submodules (absent ones, such as a missing bias, are left out)."""
+    and submodules (absent ones, such as a missing bias, are left out); a
+    ``ModuleList`` gives a list."""
+    if isinstance(module, torch.nn.ModuleList):
+        return [_module_tree(m) for m in module]
     tree = {k: p.detach().float().cpu().numpy()
             for k, p in module.named_parameters(recurse=False)}
     tree.update({k: _module_tree(m) for k, m in module.named_children()})
@@ -232,6 +241,9 @@ def lm_params_to_numpy(net, cfg) -> dict:
     def stack(trees):
         if isinstance(trees[0], dict):
             return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        if isinstance(trees[0], list):
+            return [stack([t[i] for t in trees])
+                    for i in range(len(trees[0]))]
         return np.stack(trees)
 
     tree = {k: v for k, v in _module_tree(net).items() if k != "layers"}
@@ -340,7 +352,8 @@ def _unview(x: torch.Tensor, transposed: bool) -> torch.Tensor:
 
 
 def _named_tree(named: dict) -> dict:
-    """Dotted parameter names as a tree of dicts."""
+    """Dotted parameter names as a tree of dicts, in which a node whose
+    keys are all indices (a ``ModuleList``'s) is a list."""
     tree: dict = {}
     for name, v in named.items():
         *head, last = name.split(".")
@@ -348,14 +361,25 @@ def _named_tree(named: dict) -> dict:
         for h in head:
             node = node.setdefault(h, {})
         node[last] = v
-    return tree
+    return {k: _listify(v) for k, v in tree.items()}
 
 
-def _dotted(tree: dict, prefix: str = "") -> dict:
+def _listify(node):
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def _dotted(tree, prefix: str = "") -> dict:
     out = {}
-    for k, v in tree.items():
+    items = enumerate(tree) if isinstance(tree, (list, tuple)) \
+        else tree.items()
+    for k, v in items:
         name = f"{prefix}{k}"
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list, tuple)):
             out.update(_dotted(v, name + "."))
         else:
             out[name] = v
@@ -368,13 +392,16 @@ def lm_tree(named: dict[str, torch.Tensor], cfg) -> dict:
     tree: the pattern's layers stacked over the repeats into ``blocks``.
     Leaves are CPU tensors (the stacks are made on the host)."""
     tree = _named_tree({n: t.detach().cpu() for n, t in named.items()})
-    layers = tree.pop("layers", {})
-    layers = [layers.get(str(i), {}) for i in range(cfg.n_layers)]
+    layers = tree.pop("layers", [])
+    layers = layers + [{}] * (cfg.n_layers - len(layers))
     n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
 
     def stack(trees):
         if isinstance(trees[0], dict):
             return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        if isinstance(trees[0], list):
+            return [stack([t[i] for t in trees])
+                    for i in range(len(trees[0]))]
         return torch.stack(trees)
 
     tree["prefix"] = layers[:n_pre]

@@ -10,7 +10,8 @@
 //   masked: (causal && j > q_offset + i) || (window && j <= q_offset + i - window)
 //
 // q is (b, tq, nq, hd), k and v are (b, tk, nkv, hd), all contiguous, hd in
-// {16, 64, 128} (the models use 64 and 128; the reduced smoke configs 16);
+// {16, 64, 128, 256} (the models use 64, 128 and, in recurrentgemma-9b's
+// local layers, 256; the reduced smoke configs 16);
 // the output has q's shape and dtype. The softmax is online, in f32, started at
 // m = -1e30, and the output is acc / max(l, 1e-30). Masked scores are
 // -1e30 and not -inf, as in the reference, so a query row whose every key is
@@ -35,7 +36,7 @@
 // power of two at hd 128). In bf16, P is rounded to bf16 before P.V (the row
 // sum l stays in f32): one more bf16 rounding than the reference, a few 1e-3
 // of each output row's norm (the tests allow 1e-2); S stays in registers,
-// since the C layout of Q.K^T is the A layout of P.V. Three variants, which
+// since the C layout of Q.K^T is the A layout of P.V. Four variants, which
 // the wrapper picks from the dtype and hd alone:
 //
 // - wgmma (bf16, hd 64 or 128, the models): 128-row q tiles, 384 threads.
@@ -53,6 +54,10 @@
 //   softmax runs between the two products; the two warpgroups interleave
 //   on the tensor cores. Tiles are released to the producer once P.V has
 //   finished reading them.
+// - wgmma_hd256 (bf16, hd 256): the same ring and products with one
+//   consumer warpgroup of 64 query rows and 64-key tiles (160 threads; see
+//   namespace wg256 for why), S as an SS wgmma.m64n64k16 and O += P.V as two
+//   RS wgmma.m64n128k16, one per half of hd.
 // - mma (bf16, hd 16, the reduced smoke configs): 64-row q tiles, 4 warps
 //   of 16 rows on mma.sync.m16n8k16, 64-key tiles loaded synchronously,
 //   V stored transposed in shared memory for the B operand.
@@ -545,6 +550,241 @@ cudaError_t launch(const Params& P, int b, cudaStream_t st) {
 
 }  // namespace wg
 
+// ------------------------------------- bf16, hd 256, wgmma + TMA ring
+
+namespace wg256 {
+
+// hd 256 (recurrentgemma's local layers) does not fit the layout above:
+// its O accumulator alone is 128 f32 registers per consumer thread, and
+// 128-row q tiles with 128-key stages would need 64 + 2 x 128 KB of
+// shared memory. So one consumer warpgroup owns 64 query rows, a producer
+// warp streams 64-key K and V tiles through the same 2-stage TMA ring, and
+// the CTA has 160 threads and all 255 registers each (no setmaxnreg).
+constexpr int HD = 256;
+constexpr int BQ = 64;        // query rows per CTA: one consumer warpgroup
+constexpr int BKV = 64;       // keys per tile
+constexpr int STAGES = 2;
+constexpr int THREADS = 160;  // the warpgroup + the producer warp
+constexpr int ROW = 128;      // bytes of one swizzled box row (64 bf16)
+constexpr int CH = HD / 64;   // boxes per row of q, k or v
+constexpr int Q_BYTES = BQ * HD * 2;    // 32 KB
+constexpr int KV_BYTES = BKV * HD * 2;  // 32 KB
+constexpr int STAGE = 2 * KV_BYTES;     // K, then V
+constexpr int BARS = 1 + 3 * STAGES;    // Q; K full, V full, empty
+constexpr int SMEM = Q_BYTES + STAGES * STAGE + BARS * 8 + 1024;
+
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_wgmma_hd256(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap, Params P) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = hopper::align1024(smem_raw);
+  unsigned char* ring = Qs + Q_BYTES;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* kfull = qfull + 1;
+  uint64_t* vfull = kfull + STAGES;
+  uint64_t* empty = vfull + STAGES;
+
+  const int tid = static_cast<int>(threadIdx.x);
+  const int q0 = (static_cast<int>(gridDim.x - 1 - blockIdx.x)) * BQ;
+  const int bh = static_cast<int>(blockIdx.y);
+  const int bi = bh / P.nq, h = bh % P.nq, kvh = h / (P.nq / P.nkv);
+  const int rows = min(BQ, P.tq - q0);
+  int t0, t1;
+  tile_range(P, q0, rows, BKV, t0, t1);
+
+  if (tid == 0) {
+    hopper::mbar_init(qfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&kfull[s], 1);
+      hopper::mbar_init(&vfull[s], 1);
+      hopper::mbar_init(&empty[s], 4);  // lane 0 of each consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // the producer warp
+    if (tid == 128) {
+      hopper::prefetch_map(&qmap);
+      hopper::prefetch_map(&kmap);
+      hopper::prefetch_map(&vmap);
+      hopper::mbar_expect_tx(qfull, Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        hopper::tma_load_4d(Qs + c * BQ * ROW, &qmap, qfull, 64 * c, h, q0,
+                            bi);
+      for (int t = t0; t <= t1; ++t) {
+        const int i = t - t0, s = i % STAGES;
+        if (i >= STAGES) hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        unsigned char* ks = ring + s * STAGE;
+        unsigned char* vs = ks + KV_BYTES;
+        hopper::mbar_expect_tx(&kfull[s], KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+          hopper::tma_load_4d(ks + c * BKV * ROW, &kmap, &kfull[s], 64 * c,
+                              kvh, t * BKV, bi);
+        hopper::mbar_expect_tx(&vfull[s], KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+          hopper::tma_load_4d(vs + c * BKV * ROW, &vmap, &vfull[s], 64 * c,
+                              kvh, t * BKV, bi);
+      }
+    }
+    return;
+  }
+
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int r0 = 16 * warp + g;  // rows r0 and r0 + 8
+  const int pos[2] = {P.q_offset + q0 + r0, P.q_offset + q0 + r0 + 8};
+  int lo_last, hi_first, unused;
+  key_range(P, P.q_offset + q0, unused, hi_first);
+  key_range(P, P.q_offset + q0 + rows - 1, lo_last, unused);
+
+  // O in two halves of hd: o[half][4j + e] is row r0 + 8 * (e >> 1),
+  // column 128 * half + 8j + 2 * tg + (e & 1)
+  float o[2][64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[0][i] = o[1][i] = 0.f;
+  hopper::fence_regs(o[0]);
+  hopper::fence_regs(o[1]);
+  float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
+  hopper::mbar_wait(qfull, 0);
+
+  for (int t = t0; t <= t1; ++t) {
+    const int i = t - t0, s = i % STAGES;
+    const uint32_t parity = (i / STAGES) & 1;
+    const unsigned char* ks = ring + s * STAGE;
+    const unsigned char* vs = ks + KV_BYTES;
+
+    // S = Q K^T (64 x 64): both K-major, 4 k16 steps per 64-wide box
+    float sc[BKV / 2];
+    hopper::mbar_wait(&kfull[s], parity);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int box = kk / 4, col = (kk % 4) * 32;
+      hopper::wgmma_m64n64k16_ss<0, 0>(
+          sc, hopper::desc_k(Qs + box * BQ * ROW + col),
+          hopper::desc_k(ks + box * BKV * ROW + col), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+
+    const int k0 = t * BKV;
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    if (k0 >= lo_last && k0 + BKV - 1 <= hi_first) {
+#pragma unroll
+      for (int e = 0; e < BKV / 2; ++e) {
+        sc[e] *= P.scale;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < BKV / 2; ++e) {
+        const int j = k0 + 8 * (e / 4) + 2 * tg + (e & 1);
+        sc[e] = masked_score(P, sc[e], pos[(e >> 1) & 1], j);
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+      }
+    }
+    float alpha[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      const float m_new = fmaxf(m[rr], mx[rr]);
+      alpha[rr] = __expf(m[rr] - m_new);
+      m[rr] = m_new;
+    }
+#pragma unroll
+    for (int e = 0; e < BKV / 2; ++e) {
+      sc[e] = __expf(sc[e] - m[(e >> 1) & 1]);
+      ls[(e >> 1) & 1] += sc[e];
+    }
+    l[0] = l[0] * alpha[0] + ls[0];
+    l[1] = l[1] * alpha[1] + ls[1];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) {
+      o[0][e] *= alpha[(e >> 1) & 1];
+      o[1][e] *= alpha[(e >> 1) & 1];
+    }
+    uint32_t p[BKV / 16][4];
+#pragma unroll
+    for (int kc = 0; kc < BKV / 16; ++kc)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        p[kc][u] = pack_bf16(sc[8 * kc + 2 * u], sc[8 * kc + 2 * u + 1]);
+
+    // O += P V: V MN-major, hd in two 128-wide halves of two boxes each
+    hopper::mbar_wait(&vfull[s], parity);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BKV / 16; ++kc) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint64_t db = hopper::desc_mn(
+            vs + half * 2 * BKV * ROW + kc * 16 * ROW, BKV * ROW);
+        hopper::wgmma_m64n128k16_rs<1>(o[half], p[kc], db, 1);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o[0]);
+    hopper::fence_regs(o[1]);
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    l[rr] = fmaxf(l[rr], 1e-30f);
+  }
+  const size_t q_stride = (size_t)P.nq * HD;
+  bf16* ob = static_cast<bf16*>(P.out) +
+             ((size_t)bi * P.tq + q0) * q_stride + (size_t)h * HD;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = r0 + 8 * rr;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r * q_stride +
+                                           128 * half + 8 * j + 2 * tg) =
+            __floats2bfloat162_rn(o[half][4 * j + 2 * rr] / l[rr],
+                                  o[half][4 * j + 2 * rr + 1] / l[rr]);
+  }
+}
+
+cudaError_t launch(const Params& P, int b, cudaStream_t st) {
+  CUtensorMap qmap, kmap, vmap;
+  const uint64_t qdims[4] = {HD, (uint64_t)P.nq, (uint64_t)P.tq,
+                             (uint64_t)b};
+  const uint64_t qstr[3] = {HD * 2, (uint64_t)P.nq * HD * 2,
+                            (uint64_t)P.tq * P.nq * HD * 2};
+  const uint64_t kvdims[4] = {HD, (uint64_t)P.nkv, (uint64_t)P.tk,
+                              (uint64_t)b};
+  const uint64_t kvstr[3] = {HD * 2, (uint64_t)P.nkv * HD * 2,
+                             (uint64_t)P.tk * P.nkv * HD * 2};
+  const uint32_t qbox[4] = {64, 1, BQ, 1}, kvbox[4] = {64, 1, BKV, 1};
+  cudaError_t err = hopper::encode_bf16(&qmap, P.q, 4, qdims, qstr, qbox);
+  if (err == cudaSuccess)
+    err = hopper::encode_bf16(&kmap, P.k, 4, kvdims, kvstr, kvbox);
+  if (err == cudaSuccess)
+    err = hopper::encode_bf16(&vmap, P.v, 4, kvdims, kvstr, kvbox);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((P.tq + BQ - 1) / BQ, b * P.nq);
+  return hopper::launch(flash_fwd_wgmma_hd256, grid, THREADS, SMEM, st, qmap,
+                        kmap, vmap, P);
+}
+
+}  // namespace wg256
+
 // ------------------------------------------------------------ f32, FMAs
 
 constexpr int BK32 = 32;       // keys per tile
@@ -681,7 +921,7 @@ __global__ void __launch_bounds__(THREADS32) flash_fwd_f32(Params P) {
   }
 }
 
-enum Variant { FMA = 0, MMA = 1, WGMMA = 2 };  // the wrapper's VARIANTS
+enum Variant { FMA = 0, MMA = 1, WGMMA = 2, WGMMA_HD256 = 3 };  // VARIANTS
 
 }  // namespace
 
@@ -689,8 +929,9 @@ enum Variant { FMA = 0, MMA = 1, WGMMA = 2 };  // the wrapper's VARIANTS
 // q, k, v and out are contiguous device tensors in the layout above,
 // 16-byte aligned; scale is hd^-0.5 rounded to f32 by the caller, as the
 // reference rounds it. The caller has checked shapes, dtypes, that the
-// variant takes them (fma: f32, hd 16, 64 or 128; mma: bf16, hd 16; wgmma:
-// bf16, hd 64 or 128) and that tq, tk >= 1, nq % nkv == 0 and
+// variant takes them (fma: f32, hd 16, 64, 128 or 256; mma: bf16, hd 16;
+// wgmma: bf16, hd 64 or 128; wgmma_hd256: bf16, hd 256) and that tq, tk >= 1,
+// nq % nkv == 0 and
 // b * nq <= 65535.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int b, int tq,
@@ -704,6 +945,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (variant == WGMMA) {
     if (hd == 64) err = wg::launch<64>(p, b, st);
     if (hd == 128) err = wg::launch<128>(p, b, st);
+  } else if (variant == WGMMA_HD256) {
+    if (hd == 256) err = wg256::launch(p, b, st);
   } else if (variant == MMA) {
     if (hd == 16)
       err = hopper::launch(flash_fwd_bf16<16>, grid, THREADS16,
@@ -718,6 +961,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     if (hd == 128)
       err = hopper::launch(flash_fwd_f32<128>, grid, THREADS32,
                            smem_f32<128>(), st, p);
+    if (hd == 256)
+      err = hopper::launch(flash_fwd_f32<256>, grid, THREADS32,
+                           smem_f32<256>(), st, p);
   }
   return static_cast<int>(err);
 }

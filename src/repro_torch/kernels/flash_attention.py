@@ -7,9 +7,10 @@ wrapper.
 Query ``i`` sits at position ``q_offset + i``. The port of the Pallas TPU
 kernel ``repro.kernels.flash_attention.flash_attention_fwd``. The kernel is
 ``csrc/flash_attention.cu`` (design and bound in its header), built with
-``nvcc`` on first use and called through ``ctypes``. It has three
+``nvcc`` on first use and called through ``ctypes``. It has four
 variants, chosen by ``variant(dtype, hd)`` from the dtype and the head
 dimension alone: ``"wgmma"`` (bf16, hd 64 or 128: TMA ring + wgmma),
+``"wgmma_hd256"`` (bf16, hd 256: the same with one consumer warpgroup),
 ``"mma"`` (bf16, hd 16: mma.sync) and ``"fma"`` (f32).
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a tensor
@@ -27,10 +28,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 64, 128)   # the models' 64 and 128, the smoke configs' 16
+HEAD_DIMS = (16, 64, 128, 256)   # the models' 64, 128 and 256; smoke 16
 _GRID_Y_MAX = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
-VARIANTS = ("fma", "mma", "wgmma")   # the kernel's codes 0, 1, 2
+VARIANTS = ("fma", "mma", "wgmma", "wgmma_hd256")   # kernel codes 0-3
 
 launches = 0      # kernel launches since the last reset_launches()
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
@@ -45,14 +46,15 @@ def reset_launches() -> None:
 
 def variant(dtype: torch.dtype, hd: int) -> str:
     """The kernel variant that q of ``dtype`` and head dimension ``hd``
-    runs: ``"wgmma"`` for bf16 at hd 64 or 128, ``"mma"`` for bf16 at hd
-    16, ``"fma"`` for f32 at any hd in ``HEAD_DIMS``."""
+    runs: ``"wgmma"`` for bf16 at hd 64 or 128, ``"wgmma_hd256"`` for bf16
+    at hd 256, ``"mma"`` for bf16 at hd 16, ``"fma"`` for f32 at any hd in
+    ``HEAD_DIMS``."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"the kernel takes hd in {HEAD_DIMS}, got {hd}")
     if dtype == torch.float32:
         return "fma"
     if dtype == torch.bfloat16:
-        return "mma" if hd == 16 else "wgmma"
+        return {16: "mma", 256: "wgmma_hd256"}.get(hd, "wgmma")
     raise ValueError(f"no flash_attention kernel for {dtype}")
 
 

@@ -68,8 +68,8 @@ def profile_phases(out: dict, n_decode: int) -> dict:
     steps, with ``out`` a ``serve.run`` result."""
     from torch.profiler import ProfilerActivity, profile
     cfg, params, prompt = out["cfg"], out["params"], out["prompt"]
-    b, t = prompt["tokens"].shape
-    device = prompt["tokens"].device
+    x = prompt["embeds" if "embeds" in prompt else "tokens"]
+    b, t, device = x.shape[0], x.shape[1], x.device
     prefill = serve.make_prefill_step(cfg)
     decode = serve.make_decode_step(cfg)
     acts = [ProfilerActivity.CPU]

@@ -31,7 +31,9 @@ def _sync(device: torch.device) -> None:
 def graft(cfg, prefill_cache: dict, batch: int, max_len: int,
           device) -> dict:
     """The prefill cache grown into a ``max_len`` decode cache: each full
-    attention layer's k/v copied into the first positions, ring buffers
+    attention layer's k/v (or MLA's ``ckv`` / ``krope`` latents) copied
+    into the first positions; ring buffers, cross-attention k/v and the
+    recurrent states (RG-LRU, mLSTM, sLSTM), whose shapes do not grow,
     taken as they are."""
     full = init_cache(cfg, batch, max_len, device)
     for dst, src in zip(full["layers"], prefill_cache["layers"]):

@@ -1,17 +1,19 @@
-"""Self-attention of the LM stack: GQA, sliding window, KV caches.
+"""Attention of the LM stack: GQA, sliding window, gated cross-attention.
 
-The port of ``repro.models.lm.attention``. Prefill attention goes
+The port of ``repro.models.lm.attention``. Prefill self-attention goes
 through ``kernels.ops.flash_attention``: on a CUDA tensor the hand-written
 kernel (the reference's TPU branch), on a CPU tensor its plain version.
 Training attention (``flash_attention`` below, kv-chunked online softmax
-with each chunk step rematerialised) and decode are plain tensor code, as
-both are jnp in the reference; training differentiates through them with
-autograd.
+with each chunk step rematerialised), decode, and cross-attention in every
+mode are plain tensor code, as all are jnp in the reference; training
+differentiates through them with autograd.
 
 Caches (one dict per layer):
   full  : {"k","v": (b, S, n_kv, hd)} written at absolute positions.
   local : ring buffer {"k","v": (b, W, n_kv, hd), "pos": (W,) int32} —
           "pos" holds each slot's absolute position (-1 = empty).
+  cross : {"k","v": (b, S_cross, n_kv, hd)} computed once at prefill and
+          read as they are in decode.
 Decode writes the new token's k/v into the cache in place and returns the
 same dict; the reference returns updated copies.
 """
@@ -27,14 +29,13 @@ from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Linear, Norm, apply_norm, \
     apply_rope, linear
 
-LM_REST = "ROADMAP.md Queue 1 item 9c (LM stack: the rest)"
-
-
 class Attention(nn.Module):
-    """Projections ``wq, wk, wv, wo`` (``x @ w`` layout) and, with
-    ``cfg.qk_norm``, per-head RMSNorms ``q_norm, k_norm``."""
+    """Projections ``wq, wk, wv, wo`` (``x @ w`` layout), with
+    ``cfg.qk_norm`` per-head RMSNorms ``q_norm, k_norm``, and for
+    cross-attention the f32 scalar ``gate`` (0 at init: tanh-gated, as in
+    llama-3.2-vision)."""
 
-    def __init__(self, cfg: LMConfig, device, gen=None):
+    def __init__(self, cfg: LMConfig, device, gen=None, cross: bool = False):
         super().__init__()
         d, hd, dt = cfg.d_model, cfg.hd, getattr(torch, cfg.dtype)
         self.wq = Linear(d, cfg.n_heads * hd, dt, device, bias=cfg.qkv_bias,
@@ -46,11 +47,15 @@ class Attention(nn.Module):
         self.wo = Linear(cfg.n_heads * hd, d, dt, device, gen=gen)
         self.q_norm = Norm(hd, device=device) if cfg.qk_norm else None
         self.k_norm = Norm(hd, device=device) if cfg.qk_norm else None
+        self.gate = nn.Parameter(torch.zeros((), dtype=torch.float32,
+                                             device=device)) \
+            if cross else None
 
 
-def attn_init(cfg: LMConfig, device, gen=None) -> Attention:
-    """Self-attention parameters (cross-attention is not ported)."""
-    return Attention(cfg, device, gen)
+def attn_init(cfg: LMConfig, device, gen=None,
+              kind: str = "full") -> Attention:
+    """Attention parameters of ``kind`` ``"full"`` or ``"cross"``."""
+    return Attention(cfg, device, gen, cross=(kind == "cross"))
 
 
 def _chunk_step(m, l, acc, qg, kch, vch, pch, q_positions, window):
@@ -218,3 +223,35 @@ def self_attention(
 
     out = out.reshape(b, t, cfg.n_heads * cfg.hd)
     return linear(p.wo, out), new_cache
+
+
+def cross_attention(p: Attention, cfg: LMConfig, x, cross_states, *,
+                    cache: dict | None = None, mode: str = "train"):
+    """Gated cross-attention (llama-3.2-vision layers), no causal mask:
+    ``tanh(gate) · wo(attention of x's queries over cross_states' k/v)``.
+    Prefill computes k/v from ``cross_states`` and caches them; decode
+    reads them from the cache. Returns (out, new_cache)."""
+    b, t, _ = x.shape
+    hd = cfg.hd
+    q = linear(p.wq, x).reshape(b, t, cfg.n_heads, hd)
+    if cfg.qk_norm:
+        q = apply_norm(p.q_norm, q, cfg.norm_eps)
+    if cache is not None and mode == "decode":
+        k, v = cache["k"], cache["v"]
+        new_cache = cache
+    else:
+        s = cross_states.shape[1]
+        k = linear(p.wk, cross_states).reshape(b, s, cfg.n_kv, hd)
+        v = linear(p.wv, cross_states).reshape(b, s, cfg.n_kv, hd)
+        if cfg.qk_norm:
+            k = apply_norm(p.k_norm, k, cfg.norm_eps)
+        new_cache = {"k": k, "v": v} if mode == "prefill" else None
+    kv_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
+    if mode == "decode":
+        out = decode_attention(q, k, v, kv_pos, None)
+    else:
+        out = flash_attention(q, k, v, q_positions=None, kv_positions=kv_pos,
+                              chunk=cfg.attn_chunk,
+                              remat_chunks=(mode == "train"))
+    out = out.reshape(b, t, cfg.n_heads * hd)
+    return linear(p.wo, out) * torch.tanh(p.gate).to(x.dtype), new_cache

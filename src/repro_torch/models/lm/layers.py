@@ -7,6 +7,15 @@ compute in f32, cast back to the input's dtype, as the reference does.
 Parameters are trainable; serving runs under ``torch.inference_mode``.
 With ``rsc``, the MLP's products go through ``core.rsc_matmul`` (exact
 forward and dx, top-k-sampled dW), the bias added outside it.
+
+The activations (``sigmoid``, ``silu``, ``gelu``) take one of two paths,
+chosen from the tensor. On the CPU below f32 they evaluate ``jax.nn``'s
+definitions op by op, each op rounding to bf16 (GeLU's constants too), as
+the reference's op graph does; over a deep bf16 model the one-unit
+differences of PyTorch's fused ops (f32 inside, one rounding) add up past
+the parity tests' rule. On a CUDA tensor, and in f32, the fused ops run:
+the op graph costs four more passes over each MLP activation, and the
+card's kernels round at other places than the reference in any case.
 """
 from __future__ import annotations
 
@@ -19,14 +28,33 @@ from torch import nn
 from repro_torch.core.rsc_matmul import rsc_matmul
 
 
-def he(shape, dtype, device, gen: torch.Generator | None) -> torch.Tensor:
-    """``N(0, 1/shape[0])`` drawn in f32 from ``gen`` and cast to
-    ``dtype``; uninitialised when ``gen`` is None (the caller copies values
-    in)."""
+def normal(shape, scale: float, dtype, device,
+           gen: torch.Generator | None) -> torch.Tensor:
+    """``N(0, scale²)`` drawn in f32 from ``gen`` and cast to ``dtype``;
+    uninitialised when ``gen`` is None (the caller copies values in)."""
     if gen is None:
         return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * math.sqrt(1.0 / shape[0])).to(dtype)
+    return (x * scale).to(dtype)
+
+
+def he(shape, dtype, device, gen: torch.Generator | None) -> torch.Tensor:
+    """``N(0, 1/shape[0])`` (see ``normal``)."""
+    return normal(shape, math.sqrt(1.0 / shape[0]), dtype, device, gen)
+
+
+def causal_conv(w: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                state: torch.Tensor | None = None):
+    """Causal depthwise conv over positions: ``w`` (width, c), ``x`` (b, t,
+    c); ``state`` is the (b, width-1, c) tail of earlier positions (decode)
+    or None (zeros). Returns the output and the new tail."""
+    t = x.shape[1]
+    head = torch.zeros((x.shape[0], w.shape[0] - 1, x.shape[2]),
+                       dtype=x.dtype, device=x.device) if state is None \
+        else state.to(x.dtype)
+    xp = torch.cat([head, x], dim=1)
+    out = sum(xp[:, i: i + t] * w[i] for i in range(w.shape[0]))
+    return out + bias, xp[:, t:]
 
 
 class Linear(nn.Module):
@@ -92,6 +120,44 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+# ------------------------------- activations --------------------------------
+
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def _bf16_const(c: float) -> float:
+    """``c`` rounded to bf16, as JAX casts a Python constant to the dtype
+    of the array it meets."""
+    return float(torch.tensor(c, dtype=torch.bfloat16))
+
+
+def _op_graph(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the reference's op graph: bf16 on the CPU."""
+    return x.dtype == torch.bfloat16 and x.device.type == "cpu"
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``; on the op-graph path as XLA evaluates it in
+    bf16, ``1 / (1 + exp(-x))`` op by op."""
+    return 1 / (1 + torch.exp(-x)) if _op_graph(x) else torch.sigmoid(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x · sigmoid(x)``, on the op-graph path each
+    rounded."""
+    return x * sigmoid(x) if _op_graph(x) else F.silu(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation, its default): ``x · 0.5 ·
+    (1 + tanh(√(2/π) · (x + 0.044715 x³)))``, on the op-graph path op by
+    op with the constants rounded to bf16."""
+    if not _op_graph(x):
+        return F.gelu(x, approximate="tanh")
+    c0, c1 = _bf16_const(_SQRT_2_OVER_PI), _bf16_const(0.044715)
+    return x * (0.5 * (1.0 + torch.tanh(c0 * (x + c1 * (x * x * x)))))
+
+
 # ------------------------------- MLPs --------------------------------------
 
 class MLP(nn.Module):
@@ -114,11 +180,11 @@ def mlp_apply(p: MLP, x: torch.Tensor, kind: str, rsc=None) -> torch.Tensor:
     ("kernel")}``) routes its products through ``rsc_matmul``."""
     mm = _mm(rsc)
     if kind == "swiglu":
-        h = F.silu(mm(x, p.gate)) * mm(x, p.up)
+        h = silu(mm(x, p.gate)) * mm(x, p.up)
     elif kind == "geglu":
-        h = F.gelu(mm(x, p.gate), approximate="tanh") * mm(x, p.up)
+        h = gelu(mm(x, p.gate)) * mm(x, p.up)
     else:
-        h = F.gelu(mm(x, p.up), approximate="tanh")
+        h = gelu(mm(x, p.up))
     return mm(h, p.down)
 
 

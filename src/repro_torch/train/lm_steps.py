@@ -24,6 +24,15 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return (lse - picked).mean()
 
 
+def _grads(loss: torch.Tensor, named: dict) -> list[torch.Tensor]:
+    """d loss / d each parameter; zeros for one the loss does not use
+    (an embedding-input model's ``embed`` in training), as
+    ``jax.value_and_grad`` gives."""
+    gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(named.values(), gs)]
+
+
 def _fwd_kwargs(batch: dict) -> dict:
     return {k: batch[k] for k in ("tokens", "embeds", "cross_states")
             if k in batch}
@@ -45,8 +54,7 @@ def make_train_step(cfg: LMConfig, opt: Adam, n_microbatches: int = 1,
         named = dict(params.named_parameters())
         if n_microbatches == 1:
             loss = loss_fn(params, batch)
-            grads = dict(zip(named, torch.autograd.grad(
-                loss, list(named.values()))))
+            grads = dict(zip(named, _grads(loss, named)))
             loss = loss.detach()
         else:
             rows = next(iter(batch.values())).shape[0]
@@ -61,7 +69,7 @@ def make_train_step(cfg: LMConfig, opt: Adam, n_microbatches: int = 1,
             for i in range(n_microbatches):
                 mb = {k: x[i * per:(i + 1) * per] for k, x in batch.items()}
                 l = loss_fn(params, mb)
-                gs = torch.autograd.grad(l, list(named.values()))
+                gs = _grads(l, named)
                 for k, g in zip(named, gs):
                     gsum[k] += g.float()
                 lsum = lsum + l.detach()

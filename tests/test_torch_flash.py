@@ -23,14 +23,17 @@ DTYPES = {"f32": (np.float32, torch.float32, 2e-4),
           "bf16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
 
 # (b, tq, tk, nq, nkv, hd, window, q_offset): tests/test_kernels.py's
-# shapes, then hd 64/128, GQA 14/2, q_offset and lengths that are not
-# multiples of any block.
+# shapes, then hd 64/128/256, GQA 14/2 and 16/1, q_offset and lengths that
+# are not multiples of any block.
 SHAPES = [
     (2, 32, 32, 4, 2, 16, None, 0), (1, 64, 64, 6, 1, 8, 16, 0),
     (2, 16, 16, 4, 4, 32, None, 0), (1, 32, 32, 8, 2, 8, 8, 0),
     (1, 24, 24, 4, 2, 64, None, 0), (1, 40, 40, 2, 1, 128, 16, 0),
     (2, 21, 21, 14, 2, 64, None, 0), (1, 37, 37, 14, 2, 16, 10, 0),
     (1, 8, 40, 4, 2, 16, None, 32), (2, 5, 33, 4, 1, 64, 9, 28),
+    # hd 256 (recurrentgemma's local layers): GQA 16:1 and 4:1, windows
+    (1, 40, 40, 16, 1, 256, 16, 0), (2, 24, 24, 4, 1, 256, None, 0),
+    (1, 9, 48, 16, 1, 256, 20, 39),
 ]
 
 
@@ -133,3 +136,15 @@ def test_wrapper_refuses_bad_inputs_on_any_device(case):
         q = q[0]
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, v, **kw)
+
+
+def test_head_dims_include_256():
+    """The kernel takes hd 256 (recurrentgemma-9b's local layers) on a
+    variant of its own in bf16 and on ``fma`` in f32; an hd outside
+    ``HEAD_DIMS`` is still refused by name."""
+    assert 256 in kmod.HEAD_DIMS
+    assert kmod.variant(torch.bfloat16, 256) == "wgmma_hd256"
+    assert kmod.variant(torch.float32, 256) == "fma"
+    for hd in (32, 96, 192, 512):
+        with pytest.raises(ValueError, match="hd in"):
+            kmod.variant(torch.bfloat16, hd)

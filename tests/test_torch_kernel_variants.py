@@ -30,13 +30,14 @@ F32, BF16 = torch.float32, torch.bfloat16
 
 
 @pytest.mark.parametrize("dtype,hd,want", [
-    (F32, 16, "fma"), (F32, 64, "fma"), (F32, 128, "fma"),
-    (BF16, 16, "mma"), (BF16, 64, "wgmma"), (BF16, 128, "wgmma")])
+    (F32, 16, "fma"), (F32, 64, "fma"), (F32, 128, "fma"), (F32, 256, "fma"),
+    (BF16, 16, "mma"), (BF16, 64, "wgmma"), (BF16, 128, "wgmma"),
+    (BF16, 256, "wgmma_hd256")])
 def test_flash_variant(dtype, hd, want):
     assert fmod.variant(dtype, hd) == want
 
 
-@pytest.mark.parametrize("dtype,hd", [(BF16, 96), (F32, 32), (BF16, 256),
+@pytest.mark.parametrize("dtype,hd", [(BF16, 96), (F32, 32), (BF16, 192),
                                       (torch.float16, 128)])
 def test_flash_variant_refuses(dtype, hd):
     with pytest.raises(ValueError):
@@ -67,6 +68,23 @@ def test_main_path_shapes_take_wgmma(arch):
     assert fmod.variant(BF16, cfg.hd) == "wgmma"
     assert gmod.variant(BF16, cfg.d_model, cfg.d_ff) == "wgmma"
     assert gmod.variant(BF16, cfg.d_ff, cfg.d_model) == "wgmma"
+
+
+@pytest.mark.parametrize("arch,flash", [
+    ("recurrentgemma-9b", "wgmma_hd256"), ("llama-3.2-vision-11b", "wgmma"),
+    ("musicgen-medium", "wgmma"), ("deepseek-v2-lite-16b", None),
+    ("deepseek-v2-236b", None), ("xlstm-125m", None)])
+def test_family_shapes_take_tensor_core_variants(arch, flash):
+    """The other families' bf16 prefill attention (MLA's runs no kernel,
+    xLSTM has no attention) and the sampled dW products of their dense
+    MLPs (a MoE model's dense layer is ``d_ff_dense`` wide)."""
+    cfg = get_arch(arch)
+    if flash is not None:
+        assert fmod.variant(BF16, cfg.hd) == flash
+    if cfg.mlp != "none":
+        d_ff = cfg.moe.d_ff_dense if cfg.moe else cfg.d_ff
+        assert gmod.variant(BF16, cfg.d_model, d_ff) == "wgmma"
+        assert gmod.variant(BF16, d_ff, cfg.d_model) == "wgmma"
 
 
 @pytest.mark.parametrize("dtype,bm,bk,d,want", [
@@ -143,7 +161,8 @@ def test_variant_codes_match_the_kernel(mod):
 
 
 @pytest.mark.parametrize("dtype,hd", [(F32, 16), (F32, 128), (BF16, 16),
-                                      (BF16, 64), (BF16, 128)])
+                                      (BF16, 64), (BF16, 128), (F32, 256),
+                                      (BF16, 256)])
 def test_flash_cpu_call_counts_no_launch(dtype, hd):
     rng = np.random.default_rng(hd)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))

@@ -422,6 +422,8 @@ FLASH_CASES = [
     (2, 130, 130, 16, 8, 64, True, None, -3),
     (1, 40, 40, 4, 2, 16, True, 16, 0),
     (2, 9, 9, 4, 4, 64, False, None, 0),
+    (1, 300, 300, 16, 1, 256, True, 100, 0),
+    (2, 40, 97, 4, 1, 256, False, None, 57),
 ]
 # (atol cap, atol per unit of row rms, row L2 error per unit of row norm)
 FLASH_TOL = {"f32": (2e-4, 1e-3, 1e-4), "bf16": (5e-2, 5e-2, 1e-2)}
@@ -486,6 +488,37 @@ def test_flash_wgmma_variant_edges(cuda, b, tq, tk, nq, nkv, hd, causal,
     torch.cuda.synchronize()
     assert fmod.launches_by_variant == {**before,
                                         "wgmma": before["wgmma"] + 1}
+    _flash_close(out, flash_attention_ref(q, k, v, **kw), "bf16")
+
+
+# The hd-256 variant's edges (bf16; recurrentgemma's local layers: 16 q
+# heads over 1 kv head, window 2,048): 64-row q tiles and 64-key tiles, so
+# lengths that are not multiples of 64, the ring's wrap over many tiles, a
+# window narrower than a tile, rows that see no key, one query, GQA 16:1
+# and 4:1.
+FLASH_HD256_CASES = [
+    (1, 65, 65, 16, 1, True, None, 0),
+    (2, 200, 200, 4, 1, True, 100, 0),
+    (1, 1, 1, 16, 1, True, None, 0),
+    (1, 100, 385, 16, 1, True, None, 285),
+    (1, 130, 200, 4, 1, True, None, -5),
+    (1, 64, 64, 4, 1, True, 8, 100),
+    (2, 129, 300, 16, 1, False, 40, 171),
+    (1, 2100, 2100, 16, 1, True, 2048, 0)]
+
+
+@pytest.mark.parametrize("b,tq,tk,nq,nkv,causal,window,q_offset",
+                         FLASH_HD256_CASES)
+def test_flash_hd256_variant_edges(cuda, b, tq, tk, nq, nkv, causal, window,
+                                   q_offset):
+    q, k, v = _qkv(tq * 5 + tk, b, tq, tk, nq, nkv, 256, "bf16", cuda)
+    kw = dict(q_offset=q_offset, causal=causal, window=window)
+    assert fmod.variant(q.dtype, 256) == "wgmma_hd256"
+    before = dict(fmod.launches_by_variant)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fmod.launches_by_variant == {
+        **before, "wgmma_hd256": before["wgmma_hd256"] + 1}
     _flash_close(out, flash_attention_ref(q, k, v, **kw), "bf16")
 
 

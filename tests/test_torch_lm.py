@@ -324,30 +324,16 @@ def test_serve_cli_defaults_to_cuda():
         serve.main(["--arch", "qwen3-1.7b", "--smoke", "--gen", "2"])
 
 
-# ------------------------------------------------------------ not ported
-
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "xlstm-125m",
-                                  "recurrentgemma-9b", "musicgen-medium",
-                                  "llama-3.2-vision-11b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        init_params(smoke_config(arch), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
-
-
 def test_rsc_and_training_raise():
     """RSC and training are ported (tests/test_torch_lm_train.py); what
-    they do not take still raises: an unknown rsc backend, embedding
-    inputs to a training forward (item 9c), an unknown mode."""
+    they do not take still raises: an unknown rsc backend, an unknown
+    mode."""
     cfg = smoke_config("qwen3-1.7b")
     net = init_params(cfg, seed=0, device="cpu")
     x = torch.zeros(1, 3, cfg.d_model, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="backend"):
         layers.mlp_apply(net.layers[0].mlp, x, cfg.mlp,
                          rsc={"keep_frac": 0.5, "backend": "pallas"})
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        forward(net, cfg, embeds=x, mode="train")
     with pytest.raises(ValueError, match="mode"):
         forward(net, cfg, tokens=torch.zeros(1, 3, dtype=torch.int32),
                 mode="score")

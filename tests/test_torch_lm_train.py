@@ -338,13 +338,11 @@ def test_train_cli_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["lm", "--arch", "deepseek-v2-lite-16b", "--smoke"],
-     NotImplementedError, "item 9c"),
     # data-parallel GNN training is ported: on the CPU, two ranks need
     # --force-host-devices 2 (gloo), so --dp 2 alone names the count
     (["gnn", "--model", "graphsage", "--minibatch", "--epochs", "2",
       "--dp", "2"], ValueError, "degree 2 > 1 visible devices"),
-], ids=["argv0-item 9c", "argv1-item 8"])
+], ids=["argv1-item 8"])
 def test_train_cli_unported_parts_raise(argv, exc, match):
     with pytest.raises(exc, match=match):
         train.main(argv + ["--device", "cpu"])
