@@ -243,15 +243,42 @@ without the final ``{"ok": true, ...}`` line:
     ``torch.matmul`` (a yardstick the port never calls) at the path's
     gate/up and down shapes, with the card's bound; report the warm step
     time, tokens/s and peak device memory;
+13b. LM training on a (data 2, model 2) mesh: 4 gloo ranks sharing the
+    card (NCCL refuses two ranks on one GPU), FSDP over ``data`` and
+    tensor parallelism over ``model``, through
+    ``train.lm_steps.make_sharded_train_step``. (a) qwen3's and qwen2's
+    f32 smoke configs, 3 RSC steps (bk 32, keep 0.5, 2 microbatches),
+    against the one-process run on the card from the same parameters:
+    equal selected blocks, losses within 1e-5 relative, each parameter's
+    change within ``TRAIN_DP_REL`` of the one-process change (or twice
+    what that run's own change moves from weights one unit in the last
+    place away, where that is more: qwen2's k bias), each rank's blocks
+    of the shape its spec gives, and the trained state gathered and
+    placed on (2, 1) and (1, 1) gathering back bit for bit. (b)
+    qwen3-1.7b at full width (batch 4 × 4,096, 2 microbatches, RSC keep
+    0.5, bk 128), 1 step (cut from 2 for the run's time) from phase 13's
+    seeded parameters and batches, against phase 13's first step (its
+    parameters saved after it, outside its step timer): the loss within
+    1e-3 and each parameter within
+    5e-2 (max abs), the reference's bounds for its bf16 sharded step;
+    3 × 28 × 2 ``gather_matmul`` calls on each rank, launched
+    (all ``wgmma``, at the tensor-parallel shapes) or counted as skipped;
+    no ``flash_attention`` launch; each rank's parameter and moment bytes
+    against the spec's share; its peak memory, step median and host-clock
+    all-gather / reduce-scatter / all-reduce ms (through the host under
+    gloo: a functional figure, not NCCL's); the kernel against its plain
+    version on the path's own operands and timed at those shapes;
 15. print each slice's JSON line (``slice``, ``bcoo_spmm_shapes``,
     ``frontend_slice``,
     ``gnn_train_slice``, ``gnn_models_slice``, ``minibatch_slice``,
     ``obs_slice``, ``dp_slice``, ``lm_slice``, ``lm_families_slice``,
-    ``lm_train_slice``), the build report, the kernel line (with the
+    ``lm_train_slice``, ``lm_mesh_slice``), the build report, the kernel
+    line (with the
     variant each kernel ran on its main path; ``bcoo_spmm``'s launches are
     the three models' serving and RSC training runs', the frontend's, the
     minibatch run's, phase 8e's and both ranks' of phase 8f (b);
-    ``flash_attention``'s qwen3-1.7b's and the families' of phase 10b),
+    ``flash_attention``'s qwen3-1.7b's and the families' of phase 10b;
+    ``gather_matmul``'s phase 13's and every rank's of phase 13b (b)),
     the card line and, last, the result line.
 
 Without a CUDA device it exits with code 2 and prints no result. It
@@ -265,6 +292,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -358,6 +386,18 @@ GATHER_WIDTHS = [(41, 96), (96, 41), (130, 264), (200, 264), (2048, 6144),
 # over the run within TRAIN_DP_REL of the CPU run's change, in L2 norm. A
 # sampled dW that drops one of its two selected blocks moves it by ~0.7.
 TRAIN_DP_REL = 1e-3
+# Phase 13b: the mesh, its smoke archs and steps, and the limits of the
+# full-width run against phase 13, the reference's own for its bf16
+# sharded step (tests/test_sharding_multidevice.py:274-275). Phase 13's
+# parameters after MESH_FULL_STEPS steps go to MESH_SNAPSHOT for the ranks.
+MESH = (2, 2)
+MESH_SMALL = ("qwen3-1.7b", "qwen2-0.5b")
+MESH_SMALL_STEPS = 3
+MESH_FULL_STEPS = 1     # cut from 2: each step takes ~35 s through gloo
+MESH_FULL = ("qwen3-1.7b", 4, 4096, 2)     # arch, batch, seq, microbatches
+MESH_LOSS_ATOL = 1e-3
+MESH_PARAM_ATOL = 5e-2
+MESH_SNAPSHOT = ROOT / "build" / "phase13_params.pt"
 # The small GNN training run held on the card against the CPU: the graph
 # and model of tests/test_torch_gnn_train.py's trajectory (GCN 2 × 48,
 # block 32, so tf32x3; batchnorm; dropout 0; RSC at budget 0.3; 30 epochs).
@@ -3623,9 +3663,13 @@ def lm_train_main_path(train, ops, gmod, gather_matmul_ref, argv):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with GatherTap(gmod) as tap:
+    with GatherTap(gmod) as tap, \
+            ParamSnapshot(train, MESH_FULL_STEPS, MESH_SNAPSHOT) as snap:
         out = train.main(argv)
     torch.cuda.synchronize()
+    if not snap.saved:
+        raise AssertionError("phase 13's parameters after "
+                             f"{MESH_FULL_STEPS} steps were not saved")
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     by_var = ops.launch_counts_by_variant()["gather_matmul"]
@@ -3716,6 +3760,393 @@ def lm_train_timings(out, args, tap, gmod, gather_matmul_ref,
         f"{kernel_s * 1e3:.2f} ms per step "
         f"({warm['gather_matmul_share_of_step']:.4f} of it)")
     return rows, warm
+
+
+class ParamSnapshot:
+    """Saves a ``train lm`` run's parameters after its first ``after``
+    steps to ``path`` (``{name: CPU tensor}``), outside the step timer:
+    ``train.make_train_step`` is wrapped to learn the module, and
+    ``train.make_batch`` saves it when the batch of step ``after`` is
+    drawn, before that step's clock starts."""
+
+    def __init__(self, train, after: int, path: Path):
+        self.train, self.after, self.path = train, after, path
+        self.params, self.saved = None, False
+
+    def __enter__(self):
+        self.inner = (self.train.make_train_step, self.train.make_batch)
+        inner_step, inner_batch = self.inner
+
+        def make_train_step(*a, **k):
+            step = inner_step(*a, **k)
+
+            def wrapped(params, *rest):
+                self.params = params
+                return step(params, *rest)
+            return wrapped
+
+        def make_batch(*a, seed=0, **k):
+            if seed == self.after and self.params is not None \
+                    and not self.saved:
+                self.path.parent.mkdir(parents=True, exist_ok=True)
+                torch.save({n: p.detach().cpu() for n, p in
+                            self.params.named_parameters()}, self.path)
+                self.saved = True
+            return inner_batch(*a, seed=seed, **k)
+        self.train.make_train_step, self.train.make_batch = (make_train_step,
+                                                            make_batch)
+        return self
+
+    def __exit__(self, *exc):
+        self.train.make_train_step, self.train.make_batch = self.inner
+        self.params = None
+
+
+def mesh_recorder():
+    """Record every global block selection of the sharded RSC dW (the
+    ``top_blocks`` call of ``core.rsc_matmul.sharded_xt_g``)."""
+    import importlib
+    mod = importlib.import_module("repro_torch.core.rsc_matmul")
+    log, inner = [], mod.top_blocks
+
+    def top_blocks(scores, keep):
+        idx = inner(scores, keep)
+        log.append(idx.cpu().tolist())
+        return idx
+    mod.top_blocks = top_blocks
+    return log
+
+
+def mesh_small_rank(mesh, meshes, starts: dict, log) -> dict:
+    """Phase 13b (a) on one rank: each smoke arch's 3 RSC steps on the
+    mesh, its blocks' shapes, and the reshard onto the smaller meshes."""
+    from repro_torch import convert
+    from repro_torch.configs import make_batch, smoke_config
+    from repro_torch.distributed.elastic import gather_tree, reshard_tree
+    from repro_torch.kernels import ops
+    from repro_torch.train.lm_steps import local_batch, \
+        make_sharded_train_step
+    from repro_torch.train.optimizer import Adam
+    dev = mesh.device
+    out = {}
+    for arch in MESH_SMALL:
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        state = convert.lm_sharded_from_numpy(cfg, starts[arch], mesh, dev)
+        opt = Adam(lr=1e-3, clip_norm=1.0)
+        ost = opt.init(state.shards)
+        step = make_sharded_train_step(
+            cfg, opt, mesh, 2, {"keep_frac": 0.5, "bk": 32,
+                                "backend": "kernel"})
+        ops.reset_launch_counts()
+        log.clear()
+        losses = []
+        for i in range(MESH_SMALL_STEPS):
+            batch = make_batch(cfg, "train_4k", 4, 64, seed=i, device=dev)
+            state, ost, loss = step(state, ost, local_batch(batch, mesh, 2))
+            losses.append(float(loss))
+        full_shapes = {n: tuple(p.shape)
+                       for n, p in state.skeleton.named_parameters()}
+        shapes_ok = all(
+            tuple(t[n].shape) == state.shardings[n].local_shape(
+                full_shapes[n])
+            for t in (state.shards, ost["m"], ost["v"]) for n in t)
+        full = {k: gather_tree(t, state.shardings) for k, t in
+                (("p", state.shards), ("m", ost["m"]), ("v", ost["v"]))}
+        exact = {}
+        for sizes, m2 in meshes.items():
+            if sizes == MESH or not m2.member:
+                continue
+            sh2 = convert.lm_param_shardings(cfg, m2)
+            back = {k: gather_tree(reshard_tree(t, sh2), sh2)
+                    for k, t in full.items()}
+            exact[sizes] = all(torch.equal(back[k][n], full[k][n])
+                               for k in full for n in full[k])
+        out[arch] = {"losses": losses, "sel": list(log),
+                     "launches": ops.launch_counts()["gather_matmul"],
+                     "skipped": ops.skipped_counts()["gather_matmul"],
+                     "shapes_ok": shapes_ok, "exact": exact,
+                     "params": convert.lm_sharded_to_numpy(state)}
+        del state, ost, full
+    return out
+
+
+def mesh_full_rank(group, mesh, snapshot: str) -> dict:
+    """Phase 13b (b) on one rank: full-width qwen3-1.7b, MESH_FULL_STEPS
+    steps on the mesh from phase 13's seed, launch counts and collective
+    statistics set to 0 just before and read just after; the parameters
+    against phase 13's after as many steps; the kernel on the path's own
+    operands."""
+    from repro_torch.configs import get_arch, make_batch
+    from repro_torch.kernels import gather_matmul as gmod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gather_matmul_ref
+    from repro_torch.models.lm.backbone import init_sharded_params
+    from repro_torch.train.lm_steps import local_batch, \
+        make_sharded_train_step
+    from repro_torch.train.optimizer import Adam
+    dev = mesh.device
+    arch, batch_rows, seq, n_mb = MESH_FULL
+    cfg = get_arch(arch)
+    state = init_sharded_params(cfg, mesh, seed=0, device=dev)
+    opt = Adam(lr=3e-4, clip_norm=1.0)      # train lm's defaults
+    ost = opt.init(state.shards)
+    step = make_sharded_train_step(cfg, opt, mesh, n_mb,
+                                   {"keep_frac": 0.5, "backend": "kernel"})
+    losses, step_s = [], []
+    group.barrier()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    mesh.reset_stats()
+    with GatherTap(gmod) as tap:
+        for i in range(MESH_FULL_STEPS):
+            batch = local_batch(make_batch(cfg, "train_4k", batch_rows, seq,
+                                           seed=i, device=dev), mesh, n_mb)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, ost, loss = step(state, ost, batch)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    by_var = ops.launch_counts_by_variant()["gather_matmul"]
+    skipped = ops.skipped_counts()["gather_matmul"]
+    stats = copy.deepcopy(mesh.stats)
+    peak = torch.cuda.max_memory_allocated(dev)
+    full_shapes = {n: tuple(p.shape)
+                   for n, p in state.skeleton.named_parameters()}
+    p_bytes = sum(t.numel() * t.element_size() for t in state.shards.values())
+    mom_bytes = sum(t.numel() * t.element_size()
+                    for k in ("m", "v") for t in ost[k].values())
+    spec_bytes = sum(math.prod(state.shardings[n].local_shape(s))
+                     * state.shards[n].element_size()
+                     for n, s in full_shapes.items())
+    full_bytes = sum(math.prod(s) * state.shards[n].element_size()
+                     for n, s in full_shapes.items())
+    snap = torch.load(snapshot, mmap=True)
+    worst, worst_name = 0.0, None
+    with torch.no_grad():
+        for n, t in state.shards.items():
+            ref = state.shardings[n].local(snap[n]).to(dev)
+            d = float((t.float() - ref.float()).abs().max())
+            if d >= worst:
+                worst, worst_name = d, n
+    del snap
+    checks, rows = {}, []
+    group.barrier()
+    if group.rank == 0:    # the other ranks wait at the next barrier
+        for (xs, gs), (x, g, idx, bk) in tap.first.items():
+            got = gmod.gather_matmul(x, g, idx, bk=bk)
+            checks[f"{xs[1]}x{gs[1]}"] = gather_close(
+                got, gather_matmul_ref(x, g, idx, bk=bk), x.dtype)
+            rows.append(gather_row(x, g, idx, bk, gmod, gather_matmul_ref))
+    group.barrier()
+    del state, ost, tap
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "losses": losses, "step_s": step_s,
+            "launches": counts,
+            "gather_by_variant": by_var, "skipped": skipped,
+            "collectives": stats, "peak_mem_bytes": peak,
+            "param_bytes": p_bytes, "moment_bytes": mom_bytes,
+            "spec_param_bytes": spec_bytes, "full_param_bytes": full_bytes,
+            "max_param_diff": worst, "max_param_diff_name": worst_name,
+            "kernel_checks": checks, "gather_rows": rows}
+
+
+def mesh_rank(group, starts: dict, snapshot: str) -> dict:
+    """Phase 13b on one of the 4 ranks: (a), then (b)."""
+    from repro_torch.launch.mesh import Mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshes = {s: Mesh(s, ("data", "model")).bind(group.device)
+              for s in (MESH, (2, 1), (1, 1))}
+    log = mesh_recorder()
+    small = mesh_small_rank(meshes[MESH], meshes, starts, log)
+    torch.cuda.empty_cache()
+    full = mesh_full_rank(group, meshes[MESH], snapshot)
+    return {"rank": group.rank, "small": small, "full": full}
+
+
+def mesh_small_reference(ops, gmod, dev) -> tuple[dict, dict]:
+    """The one-process runs of 13b (a) on the card: each smoke arch's 3
+    RSC steps from its seeded parameters (and from those parameters one
+    unit in the last place away), with the selected blocks; returns the
+    starting trees (numpy, for the ranks) and the runs."""
+    from repro_torch import convert
+    from repro_torch.configs import make_batch, smoke_config
+    from repro_torch.models.lm.backbone import init_params
+    from repro_torch.train.lm_steps import make_train_step
+    from repro_torch.train.optimizer import Adam
+    starts, runs = {}, {}
+    rng = np.random.default_rng(0)
+    for arch in MESH_SMALL:
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        starts[arch] = convert.lm_params_to_numpy(
+            init_params(cfg, seed=0, device="cpu"), cfg)
+        trees = [starts[arch], _nudge_tree(starts[arch], rng)]
+        runs[arch] = []
+        for tree in trees:
+            net = convert.lm_params_from_numpy(cfg, tree, dev)
+            opt = Adam(lr=1e-3, clip_norm=1.0)
+            st = opt.init(dict(net.named_parameters()))
+            step = make_train_step(cfg, opt, 2, rsc={
+                "keep_frac": 0.5, "bk": 32, "backend": "kernel"})
+            losses = []
+            with GatherTap(gmod) as tap:
+                for i in range(MESH_SMALL_STEPS):
+                    batch = make_batch(cfg, "train_4k", 4, 64, seed=i,
+                                       device=dev)
+                    net, st, loss = step(net, st, batch)
+                    losses.append(float(loss))
+            runs[arch].append({"losses": losses,
+                               "sel": [t.cpu().tolist() for t in tap.idx],
+                               "params": convert.lm_params_to_numpy(net,
+                                                                    cfg)})
+    return starts, runs
+
+
+def _nudge_tree(tree, rng):
+    """Every leaf one unit in the last place of f32 up or down."""
+    if isinstance(tree, dict):
+        return {k: _nudge_tree(v, rng) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_nudge_tree(v, rng) for v in tree)
+    a = np.asarray(tree, np.float32)
+    return a * (1 + np.float32(2.0 ** -23) * rng.choice(
+        np.array([-1, 1], np.float32), a.shape))
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [np.asarray(tree, np.float32)]
+
+
+def lm_mesh_phase(train_losses: list, ops, gmod, dev, smi: str) -> dict:
+    """Phase 13b: the one-process references, then the 4 ranks; every
+    check of (a) and (b) against their results."""
+    from repro_torch.distributed import launch, plan_group
+    starts, refs = mesh_small_reference(ops, gmod, dev)
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ranks = launch(mesh_rank, (starts, str(MESH_SNAPSHOT)),
+                   plan=plan_group(4, force_host_devices=4, device=str(dev)),
+                   threads=2)
+    run_s = time.perf_counter() - t0
+    if sum(ops.launch_counts().values()):
+        raise AssertionError("this process launched kernels during 13b")
+    out = {"run_s": run_s, "small": {}, "card": smi}
+    # (a)
+    for arch in MESH_SMALL:
+        ref, nudged = refs[arch]
+        got = [r["small"][arch] for r in ranks]
+        want_calls = 3 * 2 * 2 * MESH_SMALL_STEPS
+        for r, g in enumerate(got):
+            if g["sel"] != ref["sel"]:
+                raise AssertionError(f"13b {arch}: rank {r}'s selected "
+                                     f"blocks differ:\n{g['sel']}\n"
+                                     f"{ref['sel']}")
+            if g["launches"] + g["skipped"] != want_calls:
+                raise AssertionError(f"13b {arch}: rank {r} launched "
+                                     f"{g['launches']} + skipped "
+                                     f"{g['skipped']} of {want_calls}")
+            if not g["shapes_ok"]:
+                raise AssertionError(f"13b {arch}: rank {r}'s blocks are "
+                                     "not its spec's share")
+        for sizes in ((2, 1), (1, 1)):
+            flags = [g["exact"][sizes] for g in got if sizes in g["exact"]]
+            if len(flags) != math.prod(sizes) or not all(flags):
+                raise AssertionError(f"13b {arch}: the reshard onto {sizes} "
+                                     f"is not bit-identical ({flags})")
+        np.testing.assert_allclose(got[0]["losses"], ref["losses"],
+                                   rtol=1e-5)
+        start = _tree_leaves(starts[arch])
+        worst = 0.0
+        for o, rr, r2, p0 in zip(_tree_leaves(got[0]["params"]),
+                                 _tree_leaves(ref["params"]),
+                                 _tree_leaves(nudged["params"]), start):
+            moved = rr - p0
+            norm = max(np.linalg.norm(moved), 1e-30)
+            lim = max(TRAIN_DP_REL, 2 * np.linalg.norm(r2 - p0 - moved)
+                      / norm)
+            err = np.linalg.norm(o - p0 - moved) / norm
+            if err > lim:
+                raise AssertionError(f"13b {arch}: a parameter's change "
+                                     f"differs by {err:.3e} of its norm "
+                                     f"(limit {lim:.3e})")
+            worst = max(worst, float(err))
+        out["small"][arch] = {
+            "losses": got[0]["losses"], "losses_one_process": ref["losses"],
+            "max_param_change_err": worst,
+            "launches": [g["launches"] for g in got],
+            "skipped": [g["skipped"] for g in got],
+            "reshard_exact": {str(k): v for g in got
+                              for k, v in g["exact"].items()}}
+        say(f"[mesh small] {arch} f32 smoke on {MESH}: losses "
+            f"{got[0]['losses']} (one process {ref['losses']}), selected "
+            f"blocks equal on every rank, largest parameter-change error "
+            f"{worst:.3e}, launches {out['small'][arch]['launches']} + "
+            f"skipped {out['small'][arch]['skipped']}, reshard onto (2, 1) "
+            f"and (1, 1) bit-identical")
+    # (b)
+    fulls = [r["full"] for r in ranks]
+    want = 3 * fulls[0]["n_layers"] * MESH_FULL[3] * MESH_FULL_STEPS
+    for r, f in enumerate(fulls):
+        calls = f["launches"]["gather_matmul"] + f["skipped"]
+        if calls != want or f["launches"]["flash_attention"] != 0 \
+                or f["launches"]["bcoo_spmm"] != 0:
+            raise AssertionError(f"13b rank {r}: launches {f['launches']} "
+                                 f"+ skipped {f['skipped']}, expected "
+                                 f"{want} gather_matmul calls and nothing "
+                                 "else")
+        if f["gather_by_variant"].get("wgmma", 0) != \
+                f["launches"]["gather_matmul"]:
+            raise AssertionError(f"13b rank {r}: gather_matmul variants "
+                                 f"{f['gather_by_variant']}")
+        if f["losses"] != fulls[0]["losses"]:
+            raise AssertionError("13b: the ranks' losses differ")
+        if f["param_bytes"] != f["spec_param_bytes"]:
+            raise AssertionError(f"13b rank {r}: {f['param_bytes']} "
+                                 "parameter bytes, the spec's share is "
+                                 f"{f['spec_param_bytes']}")
+        if f["max_param_diff"] > MESH_PARAM_ATOL:
+            raise AssertionError(f"13b rank {r}: {f['max_param_diff_name']} "
+                                 f"differs from phase 13's by "
+                                 f"{f['max_param_diff']:.3e}")
+    ref_losses = train_losses[:MESH_FULL_STEPS]
+    loss_err = max(abs(a - b) for a, b in zip(fulls[0]["losses"],
+                                               ref_losses))
+    if not loss_err < MESH_LOSS_ATOL:
+        raise AssertionError(f"13b losses {fulls[0]['losses']} against "
+                             f"phase 13's {ref_losses}")
+    checks = fulls[0]["kernel_checks"]
+    per_step = {op: {k: v / MESH_FULL_STEPS for k, v in st.items()}
+                for op, st in fulls[0]["collectives"].items()}
+    out["full"] = {"ranks": fulls, "losses": fulls[0]["losses"],
+                   "phase13_losses": ref_losses, "loss_err": loss_err,
+                   "collectives_per_step_rank0": per_step,
+                   "launches": sum(f["launches"]["gather_matmul"]
+                                   for f in fulls),
+                   "skipped": sum(f["skipped"] for f in fulls)}
+    state_gb = [round((f["param_bytes"] + f["moment_bytes"]) / 1e9, 3)
+                for f in fulls]
+    say(f"[mesh train] qwen3-1.7b on {MESH} ({smi}): losses "
+        f"{fulls[0]['losses']} (phase 13 {ref_losses}, err {loss_err:.2e}); "
+        f"largest parameter difference "
+        f"{max(f['max_param_diff'] for f in fulls):.3e}; gather_matmul per "
+        f"rank {[f['launches']['gather_matmul'] for f in fulls]} + skipped "
+        f"{[f['skipped'] for f in fulls]}; step s "
+        f"{[[round(s, 3) for s in f['step_s']] for f in fulls]} (medians "
+        f"{[round(float(np.median(f['step_s'])), 3) for f in fulls]}); "
+        f"peak GiB "
+        f"{[round(f['peak_mem_bytes'] / 2 ** 30, 2) for f in fulls]}; "
+        f"parameter + moment GB per rank {state_gb}"
+        f" (parameters {fulls[0]['param_bytes'] / 1e9:.3f} of "
+        f"{fulls[0]['full_param_bytes'] / 1e9:.3f}); rank 0 collectives "
+        f"per step {json.dumps(per_step)}; kernel = plain version {checks}")
+    return out
 
 
 def main(argv=None) -> int:
@@ -3882,6 +4313,11 @@ def main(argv=None) -> int:
                                        argv)
     gather_rows, train_warm = lm_train_timings(
         train_out, train_args, tap, gmod, gather_matmul_ref, peak)
+    train_losses = train_out["losses"]
+    del train_out["params"], tap
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_slice = lm_mesh_phase(train_losses, ops, gmod, dev, smi)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if bad:
@@ -3916,8 +4352,10 @@ def main(argv=None) -> int:
         "name": "gather_matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/gather_matmul.cu",
         "replaces": "src/repro/kernels/gather_matmul.py:28",
-        "variant": gather_rows[0]["variant"], "launches": gather_launches,
-        "max_abs_err": max(c[0] for c in path_checks.values()),
+        "variant": gather_rows[0]["variant"],
+        "launches": gather_launches + mesh_slice["full"]["launches"],
+        "max_abs_err": max(c[0] for c in list(path_checks.values()) + list(
+            mesh_slice["full"]["ranks"][0]["kernel_checks"].values())),
         "ms": gather_rows[0]["ms"], "plain_ms": gather_rows[0]["plain_ms"],
         "bound_ms": gather_rows[0]["bound_ms"],
         "bound_by": gather_rows[0]["bound_by"],
@@ -3952,6 +4390,7 @@ def main(argv=None) -> int:
         "warm": train_warm, "gather_sweep": gather_res,
         "small_reference": train_ref, "path_checks": path_checks,
         "gather_shapes": gather_rows}}))
+    say(json.dumps({"lm_mesh_slice": mesh_slice}))
     say(json.dumps({"build": build_rep,
                     "total_s": time.perf_counter() - t_start}))
     say(json.dumps({"kernels": kernels}))

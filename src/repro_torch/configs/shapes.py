@@ -85,3 +85,39 @@ def make_batch(cfg: LMConfig, shape: str, batch: int, seq: int,
     else:
         out["tokens"] = ints((batch, 1))
     return out
+
+
+def shape_applicable(cfg: LMConfig, shape: str) -> tuple[bool, str]:
+    """long_500k only for sub-quadratic archs (the reference's skip
+    rule)."""
+    if shape == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full-attention arch: 524k-token decode has no "
+                       "sub-quadratic mechanism — skipped per assignment")
+    return True, ""
+
+
+def input_specs(cfg: LMConfig, shape: str,
+                batch_override: int | None = None) -> dict:
+    """Every model input of this cell as a ``meta`` tensor (its shape and
+    dtype, nothing allocated): the reference's ``ShapeDtypeStruct``s."""
+    sp = SHAPES[shape]
+    b = batch_override if batch_override is not None else sp.global_batch
+    t = sp.seq_len
+    dt = getattr(torch, cfg.dtype)
+
+    def spec(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if sp.kind in ("train", "prefill"):
+        specs = {"targets": spec((b, t), torch.int32)} \
+            if sp.kind == "train" else {}
+        if cfg.embeds_input:
+            specs["embeds"] = spec((b, t, cfg.d_model), dt)
+        else:
+            specs["tokens"] = spec((b, t), torch.int32)
+        if cfg.cross_seq:
+            specs["cross_states"] = spec((b, cfg.cross_seq, cfg.d_model), dt)
+        return specs
+    # decode: one new token against a cache of length seq_len (musicgen
+    # decodes its own EnCodec token ids through its embed table)
+    return {"tokens": spec((b, 1), torch.int32)}

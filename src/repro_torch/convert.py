@@ -390,8 +390,10 @@ def lm_tree(named: dict[str, torch.Tensor], cfg) -> dict:
     """``{parameter name: tensor}`` of the port's ``LM`` (parameters or
     anything keyed like them, such as Adam's moments) as the reference's
     tree: the pattern's layers stacked over the repeats into ``blocks``.
-    Leaves are CPU tensors (the stacks are made on the host)."""
-    tree = _named_tree({n: t.detach().cpu() for n, t in named.items()})
+    Leaves are CPU tensors (the stacks are made on the host), or ``meta``
+    tensors for ``meta`` inputs (an abstract tree: shapes and dtypes)."""
+    tree = _named_tree({n: t.detach() if t.is_meta else t.detach().cpu()
+                        for n, t in named.items()})
     layers = tree.pop("layers", [])
     layers = layers + [{}] * (cfg.n_layers - len(layers))
     n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
@@ -457,3 +459,85 @@ def load_lm_state(net, opt_state: dict, tree: tuple, cfg) -> dict:
                           dtype=opt_state[k][n].dtype).contiguous()
                   for n, x in lm_named(opt[k], cfg).items()}
     return out
+
+
+# ------------------------------------------------------------ LM on a mesh
+def lm_param_path(name: str, cfg) -> tuple[str, bool]:
+    """The reference's tree path (``/``-joined) of the port's LM parameter
+    ``name``, and whether the reference stacks it over the repeats (a
+    ``blocks`` leaf, one more leading dimension). The port keeps one
+    module per layer where the reference scans a stacked super-block;
+    its ``Linear.w`` keeps the reference's ``(d_in, d_out)`` orientation,
+    so a spec applies to it unpermuted."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return "/".join(parts), False
+    i, rest = int(parts[1]), "/".join(parts[2:])
+    n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
+    body = cfg.repeats * n_pat
+    if i < n_pre:
+        return f"prefix/{i}/{rest}", False
+    if i < n_pre + body:
+        return f"blocks/{(i - n_pre) % n_pat}/{rest}", True
+    return f"suffix/{i - n_pre - body}/{rest}", False
+
+
+def lm_param_shardings(cfg, mesh) -> dict:
+    """``{parameter name: launch.shardings.Sharding}`` of the port's LM on
+    ``mesh``: the spec the reference's rules give the parameter's tree
+    path, at the reference's (stacked) shape, without the stacked
+    leading dimension."""
+    from repro_torch.launch.shardings import P, Sharding, param_spec
+    from repro_torch.models.lm.backbone import LM
+    out = {}
+    for name, p in LM(cfg, "meta").named_parameters():
+        path, stacked = lm_param_path(name, cfg)
+        shape = tuple(p.shape)
+        if stacked:
+            spec = P(*param_spec(path, (cfg.repeats,) + shape, mesh)[1:])
+        else:
+            spec = param_spec(path, shape, mesh)
+        out[name] = Sharding(mesh, spec)
+    return out
+
+
+def lm_sharded_from_numpy(cfg, tree: dict, mesh, device="cuda"):
+    """This rank's ``ShardedLM`` on ``mesh`` (bound) from the reference's
+    whole parameter tree (numpy; ``repro.models.lm.backbone.init_params``
+    as ``jax.device_get`` gives it, or ``lm_params_to_numpy``'s): each
+    leaf unstacked, cut to this rank's block, cast to the port's dtype."""
+    from repro_torch.distributed.elastic import reshard_tree
+    from repro_torch.models.lm.backbone import LM, ShardedLM
+    mesh.device = resolve_device(device)
+    skeleton = LM(cfg, "meta")
+    dtypes = {n: p.dtype for n, p in skeleton.named_parameters()}
+    full = lm_named(tree, cfg)
+    if set(full) != set(dtypes):
+        raise ValueError(f"the tree's parameters differ from the port's: "
+                         f"{sorted(set(full) ^ set(dtypes))[:4]}")
+    shardings = lm_param_shardings(cfg, mesh)
+    blocks = reshard_tree({n: np.asarray(x, np.float32)
+                           for n, x in full.items()}, shardings)
+    return ShardedLM(cfg, mesh, {n: b.to(dtypes[n]) for n, b in
+                                 blocks.items()}, shardings, skeleton)
+
+
+def lm_sharded_to_numpy(state) -> dict | None:
+    """The inverse of ``lm_sharded_from_numpy``: every rank's blocks
+    gathered into the reference's whole parameter tree (f32 numpy, the
+    pattern's layers stacked into ``blocks``), as the reference's
+    checkpoints hold it, on the mesh's first rank; ``None`` on the
+    others. Every rank of the mesh must call it."""
+    from repro_torch.distributed.elastic import gather_tree
+    full = gather_tree(state.shards, state.shardings)
+    if state.mesh.rank != state.mesh.ranks[0]:
+        return None
+    return _numpy_tree(lm_tree(full, state.cfg))
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_numpy_tree(v) for v in tree)
+    return tree.float().numpy()

@@ -1,12 +1,14 @@
 """Process groups for data-parallel training on ``torch.distributed``.
 
-The port's counterpart of ``repro.launch.mesh`` (``make_dp_mesh``,
-``parse_mesh_spec``) and ``repro.launch.hostdev``. The reference runs one
-process over a ``("data",)`` mesh of devices; the port runs one process
-per rank, PyTorch's own idiom:
+The port's counterpart of ``repro.launch.hostdev`` and of how the
+reference's GNN training takes its ``("data",)`` mesh of devices
+(``launch/mesh.py`` ports the meshes themselves). The reference runs one
+process over the mesh; the port runs one process per rank, PyTorch's own
+idiom:
 
-* ``parse_mesh_spec`` reads ``--mesh`` (``"N"`` or ``"data:N"``; another
-  axis raises, naming it) as the data-parallel degree;
+* ``parse_mesh_spec`` reads the GNN's ``--mesh`` (``"N"`` or
+  ``"data:N"``; another axis raises, naming it) as the data-parallel
+  degree;
 * ``plan_group`` chooses the backend, with no silent fallback: NCCL with
   one card per rank when the degree fits the visible cards; gloo with
   every rank on the one device ``--device`` names when
@@ -45,22 +47,23 @@ DEFAULT_TIMEOUT_S = 300.0
 
 
 def parse_mesh_spec(spec: str) -> int:
-    """The data-parallel degree of a ``--mesh`` spec: ``"N"`` or
-    ``"data:N"``. Any other axis raises, naming it."""
+    """The data-parallel degree of a GNN ``--mesh`` spec: ``"N"`` or
+    ``"data:N"``, parsed by ``launch.mesh.parse_mesh_spec`` (which takes
+    any axes). The GNN's data-parallel training has one axis: any other
+    raises, naming it."""
+    from repro_torch.launch.mesh import parse_mesh_spec as parse
     parts = [p for p in spec.split(",") if p]
     if len(parts) == 1 and ":" not in parts[0]:
         return int(parts[0])
-    dp = None
-    for p in parts:
-        name, _, size = p.partition(":")
+    mesh = parse(spec)
+    for name in mesh.axis_names:
         if name != "data":
             raise ValueError(
                 f"--mesh {spec!r}: axis {name!r} is not supported (the "
                 "port's data-parallel training has one axis, 'data')")
-        dp = int(size)
-    if dp is None:
+    if "data" not in mesh.shape:
         raise ValueError(f"--mesh {spec!r} lacks a 'data' axis")
-    return dp
+    return mesh.shape["data"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,9 +159,12 @@ def _init(plan: GroupPlan, rank: int, init_method: str,
     device = torch.device(plan.devices[rank])
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    # NCCL binds its communicator to the rank's card up front (without
+    # device_id it guesses, and warns)
+    bind = {"device_id": device} if plan.backend == "nccl" else {}
     dist.init_process_group(
         plan.backend, init_method=init_method, world_size=plan.world_size,
-        rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+        rank=rank, timeout=datetime.timedelta(seconds=timeout_s), **bind)
     return DPGroup(rank, plan.world_size, plan.backend, device)
 
 

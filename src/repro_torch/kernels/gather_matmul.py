@@ -35,13 +35,23 @@ VARIANTS = ("fma", "mma", "wgmma")   # the kernel's codes 0, 1, 2
 
 launches = 0      # kernel launches since the last reset_launches()
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
+# calls with no selected block on this rank (a sharded RSC dW whose global
+# selection falls wholly on other ranks' tokens), not launched
+skipped = 0
 _lib: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, skipped
+    launches = skipped = 0
     launches_by_variant.update(dict.fromkeys(VARIANTS, 0))
+
+
+def skip() -> None:
+    """Count a call this rank did not launch: it held none of the selected
+    blocks, and its share of the product is zero."""
+    global skipped
+    skipped += 1
 
 
 def variant(dtype: torch.dtype, m: int, q: int) -> str:

@@ -113,6 +113,12 @@ def launch_counts() -> dict[str, int]:
             "flash_attention": _flash.launches}
 
 
+def skipped_counts() -> dict[str, int]:
+    """Calls counted as skipped since the last reset (``gather_matmul``:
+    a sharded RSC dW on a rank that holds none of the selected blocks)."""
+    return {"gather_matmul": _gather.skipped}
+
+
 def launch_counts_by_variant() -> dict[str, dict[str, int]]:
     """Launches of the kernels that have variants, split by variant."""
     return {"bcoo_spmm": dict(_bcoo.launches_by_variant),

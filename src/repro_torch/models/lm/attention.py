@@ -28,6 +28,8 @@ from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Linear, Norm, apply_norm, \
     apply_rope, linear
+from repro_torch.models.lm.sharding import copy_to_model, current_mesh, \
+    reduce_from_model, shard, tp_size
 
 class Attention(nn.Module):
     """Projections ``wq, wk, wv, wo`` (``x @ w`` layout), with
@@ -153,15 +155,31 @@ def decode_attention(
 def _project_qkv(p: Attention, cfg: LMConfig, x, positions):
     b, t, _ = x.shape
     hd = cfg.hd
-    q = linear(p.wq, x).reshape(b, t, cfg.n_heads, hd)
-    k = linear(p.wk, x).reshape(b, t, cfg.n_kv, hd)
-    v = linear(p.wv, x).reshape(b, t, cfg.n_kv, hd)
+    # heads from the width: under tensor parallelism wq holds this
+    # rank's query heads only
+    q = linear(p.wq, x).reshape(b, t, -1, hd)
+    k = linear(p.wk, x).reshape(b, t, -1, hd)
+    v = linear(p.wv, x).reshape(b, t, -1, hd)
     if cfg.qk_norm:
         q = apply_norm(p.q_norm, q, cfg.norm_eps)
         k = apply_norm(p.k_norm, k, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _local_kv(cfg: LMConfig, k, v, nq_local: int, mesh):
+    """The kv heads this rank's query heads read (GQA: global query head
+    ``h`` reads kv head ``h // (n_heads / n_kv)``), in the grouping
+    ``flash_attention`` expects: a slice when the local heads cover
+    whole groups, else one kv head per query head."""
+    g = cfg.n_heads // cfg.n_kv
+    h0 = mesh.index("model") * nq_local
+    if nq_local % g == 0:
+        return (k[:, :, h0 // g:(h0 + nq_local) // g],
+                v[:, :, h0 // g:(h0 + nq_local) // g])
+    ids = (torch.arange(h0, h0 + nq_local, device=k.device) // g)
+    return k[:, :, ids], v[:, :, ids]
 
 
 def _ring(cfg: LMConfig, k, v, positions, window: int) -> dict:
@@ -187,9 +205,27 @@ def self_attention(
     window: int | None = None,
     mode: str = "train",
 ):
-    """Returns (out, new_cache). Modes: train | prefill | decode."""
+    """Returns (out, new_cache). Modes: train | prefill | decode.
+
+    Under a mesh context with ``model`` > 1 (training only) the layer is
+    tensor parallel: ``wq`` holds this rank's query heads, ``wk`` / ``wv``
+    are whole (kv heads replicated, ``TRAIN_RULES["kv_heads"]``), each
+    local query head reads its own kv head, and the row-parallel ``wo``'s
+    partial output is summed over ``model``."""
     b, t, _ = x.shape
+    mesh = current_mesh()
+    tp = tp_size(mesh) > 1
+    if tp:
+        if mode != "train":
+            raise ValueError("tensor-parallel attention runs the training "
+                             "path only: sharded prefill and decode are not "
+                             "ported")
+        x = copy_to_model(x)
     q, k, v = _project_qkv(p, cfg, x, positions)
+    shard(q, "batch", "seq", "heads", None)
+    shard(k, "batch", "seq", "kv_heads", None)
+    if tp:
+        k, v = _local_kv(cfg, k, v, q.shape[2], mesh)
 
     if mode == "train":
         out = flash_attention(q, k, v, q_positions=positions,
@@ -221,8 +257,11 @@ def self_attention(
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
-    out = out.reshape(b, t, cfg.n_heads * cfg.hd)
-    return linear(p.wo, out), new_cache
+    out = out.reshape(b, t, -1)
+    if not tp:
+        return linear(p.wo, out), new_cache
+    y = reduce_from_model(out @ p.wo.w)
+    return (y if p.wo.b is None else y + p.wo.b), new_cache
 
 
 def cross_attention(p: Attention, cfg: LMConfig, x, cross_states, *,

@@ -26,7 +26,9 @@ attention caches are updated in place, recurrent states replaced).
 """
 from __future__ import annotations
 
+import functools
 import math
+import types
 
 import torch
 import torch.nn.functional as F
@@ -42,8 +44,11 @@ from repro_torch.models.lm.layers import MLP, Linear, Norm, apply_norm, \
 from repro_torch.models.lm.mla import MLA, mla_attention
 from repro_torch.models.lm.moe import MoE, moe_apply
 from repro_torch.models.lm.rglru import RGLRU, rglru_block
+from repro_torch.models.lm.sharding import copy_to_model, gather_params, \
+    gather_plan, reduce_from_model, shard, tp_size
 from repro_torch.models.lm.xlstm import MLSTM, SLSTM, mlstm_block, \
     slstm_block
+
 
 class Block(nn.Module):
     """One layer of kind ``kind`` (see the module's docstring)."""
@@ -81,6 +86,12 @@ class Block(nn.Module):
             self.cell = SLSTM(cfg, device, gen)
         else:
             raise ValueError(f"unknown layer kind {kind!r}")
+
+    def forward(self, cfg: LMConfig, h, positions, rsc=None,
+                cross_states=None):
+        """The layer's training forward (what ``torch.func.functional_call``
+        runs with a mesh rank's gathered parameters)."""
+        return _train_layer(self, cfg, h, positions, rsc, cross_states)
 
 
 class LM(nn.Module):
@@ -282,3 +293,111 @@ def forward(
     else:
         logits = (h @ params.unembed.w).float()
     return logits, new_cache
+
+
+# ------------------------------------------------------------ on a mesh
+class ShardedLM:
+    """One rank's share of an LM on a (bound) mesh: ``shards`` holds the
+    rank's block of every parameter (``{name: tensor}``, laid out by
+    ``shardings``, ``launch.shardings.Sharding`` per name: the reference's
+    ``param_spec`` of its tree path, ``convert.lm_param_shardings``), and
+    ``skeleton`` the module's structure on the ``meta`` device (no
+    memory). ``compute(*names)`` rebuilds parameters' compute tensors
+    (``models.lm.sharding.gather_params``): whole, or this rank's share
+    of the heads / ffn / vocab under tensor parallelism."""
+
+    def __init__(self, cfg: LMConfig, mesh, shards: dict, shardings: dict,
+                 skeleton: LM | None = None):
+        self.cfg, self.mesh = cfg, mesh
+        self.skeleton = skeleton if skeleton is not None else LM(cfg, "meta")
+        self.shards = {n: t.requires_grad_() for n, t in shards.items()}
+        self.shardings = shardings
+        self.plans = {n: gather_plan(n, sh) for n, sh in shardings.items()}
+        for n, p in self.skeleton.named_parameters():
+            want = shardings[n].local_shape(tuple(p.shape))
+            if tuple(self.shards[n].shape) != want:
+                raise ValueError(f"{n}: block {tuple(self.shards[n].shape)}, "
+                                 f"its spec gives {want}")
+
+    def compute(self, *names: str) -> list[torch.Tensor]:
+        return gather_params([self.shards[n] for n in names],
+                             [self.plans[n] for n in names], self.mesh)
+
+
+def init_sharded_params(cfg: LMConfig, mesh, seed: int = 0,
+                        device="cuda") -> ShardedLM:
+    """This rank's ``ShardedLM`` of ``init_params(cfg, seed, device)``:
+    the whole seeded model is drawn on the rank's device (every rank draws
+    the same numbers) and cut to its blocks."""
+    from repro_torch.convert import lm_param_shardings
+    device = resolve_device(device)
+    mesh.device = device
+    shardings = lm_param_shardings(cfg, mesh)
+    full = init_params(cfg, seed, device)
+    shards = {n: shardings[n].local(p.detach()).clone(
+        memory_format=torch.contiguous_format)
+        for n, p in full.named_parameters()}
+    del full
+    return ShardedLM(cfg, mesh, shards, shardings)
+
+
+def vocab_parallel_embed(tokens: torch.Tensor, emb: torch.Tensor,
+                         mesh) -> torch.Tensor:
+    """Embedding lookup in a table split over ``model`` by vocab rows:
+    ids outside this rank's rows give 0, and the ranks' lookups are
+    summed over ``model``."""
+    if tp_size(mesh) == 1:
+        return F.embedding(tokens.long(), emb)
+    n = emb.shape[0]
+    ids = tokens.long() - mesh.index("model") * n
+    ok = (ids >= 0) & (ids < n)
+    h = F.embedding(ids.clamp(0, n - 1), emb) * ok[..., None].to(emb.dtype)
+    return reduce_from_model(h)
+
+
+def _sharded_layer(state: ShardedLM, i: int, rsc, h, positions,
+                   cross_states):
+    blk = state.skeleton.layers[i]
+    names = [n for n, _ in blk.named_parameters()]
+    params = dict(zip(names, state.compute(*(f"layers.{i}.{n}"
+                                              for n in names))))
+    return torch.func.functional_call(
+        blk, params, (state.cfg, h, positions),
+        {"rsc": rsc, "cross_states": cross_states})
+
+
+def forward_sharded(state: ShardedLM, *, tokens=None, embeds=None,
+                    cross_states=None, rsc: dict | None = None):
+    """The training forward of this rank's rows on the mesh installed by
+    ``models.lm.sharding.mesh_context`` (FSDP over the batch axes, tensor
+    parallelism over ``model`` for the dense family): this rank's logits,
+    f32 ``(rows, t, vocab / model)``, its vocab rows' share under tensor
+    parallelism. Each layer gathers its parameters on entry (inside the
+    layer's checkpoint with ``cfg.remat``, so the backward gathers them
+    again instead of keeping them)."""
+    cfg = state.cfg
+    emb = None
+    if embeds is not None:
+        h = embeds.to(getattr(torch, cfg.dtype))
+    else:
+        emb, = state.compute("embed")
+        h = vocab_parallel_embed(tokens, emb, state.mesh)
+    shard(h, "batch", "seq", "embed")
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    for i in range(len(state.skeleton.layers)):
+        fn = functools.partial(_sharded_layer, state, i, rsc)
+        if cfg.remat:
+            h = checkpoint(fn, h, positions, cross_states,
+                           use_reentrant=False)
+        else:
+            h = fn(h, positions, cross_states)
+    names = [n for n, _ in state.skeleton.final_norm.named_parameters()]
+    norm = types.SimpleNamespace(**{"b": None, **dict(zip(names, state.compute(
+        *(f"final_norm.{n}" for n in names))))})
+    h = copy_to_model(apply_norm(norm, h, cfg.norm_eps))
+    if state.skeleton.unembed is None:
+        emb = emb if emb is not None else state.compute("embed")[0]
+        logits = h.float() @ emb.float().T
+    else:
+        logits = (h @ state.compute("unembed.w")[0]).float()
+    return shard(logits, "batch", "seq", "vocab")

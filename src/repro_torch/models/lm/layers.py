@@ -26,6 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.rsc_matmul import rsc_matmul
+from repro_torch.models.lm.sharding import copy_to_model, reduce_from_model, \
+    tp_size
 
 
 def normal(shape, scale: float, dtype, device,
@@ -177,25 +179,40 @@ class MLP(nn.Module):
 
 def mlp_apply(p: MLP, x: torch.Tensor, kind: str, rsc=None) -> torch.Tensor:
     """The MLP forward. ``rsc`` (``{"keep_frac", "bk" (128), "backend"
-    ("kernel")}``) routes its products through ``rsc_matmul``."""
+    ("kernel")}``) routes its products through ``rsc_matmul``.
+
+    Under a mesh context with ``model`` > 1 (``models.lm.sharding``) the
+    block is tensor parallel, Megatron's way: ``gate`` and ``up`` hold
+    this rank's ffn columns (column-parallel, their input's gradient
+    summed over ``model``), ``down`` its ffn rows (row-parallel, its
+    partial output summed over ``model`` before the bias)."""
+    tp = tp_size() > 1
+    if tp:
+        x = copy_to_model(x)
     mm = _mm(rsc)
     if kind == "swiglu":
-        h = silu(mm(x, p.gate)) * mm(x, p.up)
+        h = silu(mm(x, p.gate, "g")) * mm(x, p.up, "g")
     elif kind == "geglu":
-        h = gelu(mm(x, p.gate)) * mm(x, p.up)
+        h = gelu(mm(x, p.gate, "g")) * mm(x, p.up, "g")
     else:
-        h = gelu(mm(x, p.up))
-    return mm(h, p.down)
+        h = gelu(mm(x, p.up, "g"))
+    if not tp:
+        return mm(h, p.down, "x")
+    y = reduce_from_model(mm(h, p.down, "x", bias=False))
+    return y if p.down.b is None else y + p.down.b
 
 
 def _mm(rsc):
-    if rsc is None:
-        return lambda x, p: linear(p, x)
-
-    def mm(x, p: Linear):
-        y = rsc_matmul(x, p.w, rsc["keep_frac"], rsc.get("bk", 128),
-                       rsc.get("backend", "kernel"))
-        if p.b is not None:
+    """``mm(x, p, split, bias=True)``: the product of ``x`` and linear
+    ``p`` (through ``rsc_matmul`` with ``rsc``; ``split`` names the
+    operand split over ``model`` under tensor parallelism)."""
+    def mm(x, p: Linear, split=None, bias=True):
+        if rsc is None:
+            y = x @ p.w
+        else:
+            y = rsc_matmul(x, p.w, rsc["keep_frac"], rsc.get("bk", 128),
+                           rsc.get("backend", "kernel"), split)
+        if bias and p.b is not None:
             y = y + p.b
         return y
     return mm

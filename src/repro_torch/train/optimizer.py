@@ -25,13 +25,31 @@ def tree_zeros_f32(params: Tensors) -> Tensors:
             for k, p in params.items()}
 
 
-def clip_by_global_norm(grads: Tensors,
-                        max_norm: float) -> tuple[Tensors, torch.Tensor]:
+def global_sq_norm(grads: Tensors, shardings: dict | None = None
+                   ) -> torch.Tensor:
+    """``Σ g²`` over every gradient (f32). With ``shardings`` (``{name:
+    launch.shardings.Sharding}``, the gradients this rank's blocks) each
+    leaf counts once: only the rank that leads its replicas adds its
+    block, and the sum runs over the whole mesh."""
+    if shardings is None:
+        return sum(torch.sum(torch.square(g.float())) for g in grads.values())
+    first = next(iter(grads.values()))
+    total = torch.zeros((), dtype=torch.float32, device=first.device)
+    for k, g in grads.items():
+        if shardings[k].lead:
+            total = total + torch.sum(torch.square(g.float()))
+    mesh = shardings[next(iter(grads))].mesh
+    return mesh.all_reduce(total, mesh.axis_names)
+
+
+def clip_by_global_norm(grads: Tensors, max_norm: float,
+                        shardings: dict | None = None
+                        ) -> tuple[Tensors, torch.Tensor]:
     """Gradients scaled by ``min(1, max_norm / max(norm, 1e-12))``, in f32
     (a bf16 gradient times the reference's f32 scale is f32 there too),
-    and the global norm ``sqrt(Σ g²)`` (f32, left on the device)."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                        for g in grads.values()))
+    and the global norm ``sqrt(Σ g²)`` (f32, left on the device; over a
+    mesh, ``shardings`` as ``global_sq_norm`` takes them)."""
+    gn = torch.sqrt(global_sq_norm(grads, shardings))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return {k: g.float() * scale for k, g in grads.items()}, gn
 
@@ -58,12 +76,14 @@ class Adam:
                 "count": 0}
 
     @torch.no_grad()
-    def update(self, grads: Tensors, state: dict,
-               params: Tensors) -> tuple[Tensors, dict]:
+    def update(self, grads: Tensors, state: dict, params: Tensors,
+               shardings: dict | None = None) -> tuple[Tensors, dict]:
         """The step to add to each parameter (f32) and the state, whose
-        moments are updated in place."""
+        moments are updated in place. On a mesh the tensors are this
+        rank's blocks (Adam is elementwise) and ``shardings`` say how, for
+        the clip's global norm."""
         if self.clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, self.clip_norm)
+            grads, _ = clip_by_global_norm(grads, self.clip_norm, shardings)
         count = state["count"] + 1
         # bias corrections in f32, as the reference computes them
         b1c = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(count))
