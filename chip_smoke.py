@@ -268,17 +268,45 @@ without the final ``{"ok": true, ...}`` line:
     all-gather / reduce-scatter / all-reduce ms (through the host under
     gloo: a functional figure, not NCCL's); the kernel against its plain
     version on the path's own operands and timed at those shapes;
+13c. the six non-dense families on the same mesh and ranks (launched
+    once with 13b), tensor parallel over ``model`` (MoE experts, MLA and
+    attention heads, the LRU width, xLSTM heads, the ffn columns). (a)
+    each family's f32 smoke config (cross gates 0.5), 2 plain-SGD steps
+    (lr 0.1) with RSC (bk 32, keep 0.5, 2 microbatches), against the
+    one-process run on the card from the same parameters: equal selected
+    blocks, losses within 1e-5 relative (or twice the one-process run's
+    own move from weights one unit in the last place away: xLSTM), each
+    parameter's change within ``TRAIN_DP_REL`` (or twice that run's own
+    move), one ``gather_matmul`` call per RSC'd linear per microbatch on
+    each rank (launched or skipped), the MoE expert ids of every rank
+    equal to the one-process run's for its rows, each rank's blocks of
+    the spec's shape. (b) deepseek-v2-lite-16b at its published widths
+    (d 2,048, 16 MLA heads, 64 routed + 2 shared experts of 1,408,
+    ``d_ff_dense`` 10,944, vocab 102,400) cut to 2 of its 27 layers (the
+    dense first layer and one MoE layer), 1 step of batch 4 × 4,096 in 2
+    microbatches, RSC keep 0.5 (bk 128), against the one-process step on
+    the card from the same seed (its parameters saved after it): the loss
+    within 1e-3 and each parameter within 5e-2 (max abs), 13b's bounds;
+    6 ``gather_matmul`` calls per rank (3 per microbatch, the dense
+    layer's), launched (all ``wgmma``, at 5,472 ffn columns per rank) or
+    counted as skipped; the MoE routing identical along each ``model``
+    line and its share of picks equal to the one process's; each rank's
+    parameter and moment bytes against the spec's share, peak memory,
+    step time and host-clock collectives; the kernel against its plain
+    version on the path's own operands and timed at those shapes;
 15. print each slice's JSON line (``slice``, ``bcoo_spmm_shapes``,
     ``frontend_slice``,
     ``gnn_train_slice``, ``gnn_models_slice``, ``minibatch_slice``,
     ``obs_slice``, ``dp_slice``, ``lm_slice``, ``lm_families_slice``,
-    ``lm_train_slice``, ``lm_mesh_slice``), the build report, the kernel
+    ``lm_train_slice``, ``lm_mesh_slice`` with 13c's ``families`` and
+    ``moe_full_width``), the build report, the kernel
     line (with the
     variant each kernel ran on its main path; ``bcoo_spmm``'s launches are
     the three models' serving and RSC training runs', the frontend's, the
     minibatch run's, phase 8e's and both ranks' of phase 8f (b);
     ``flash_attention``'s qwen3-1.7b's and the families' of phase 10b;
-    ``gather_matmul``'s phase 13's and every rank's of phase 13b (b)),
+    ``gather_matmul``'s phase 13's and every rank's of phase 13b (b)
+    and of 13c (a) and (b)),
     the card line and, last, the result line.
 
 Without a CUDA device it exits with code 2 and prints no result. It
@@ -398,6 +426,29 @@ MESH_FULL = ("qwen3-1.7b", 4, 4096, 2)     # arch, batch, seq, microbatches
 MESH_LOSS_ATOL = 1e-3
 MESH_PARAM_ATOL = 5e-2
 MESH_SNAPSHOT = ROOT / "build" / "phase13_params.pt"
+# Phase 13c: the non-dense families on MESH. (a) each family's f32 smoke
+# config, MESH_FAMILY_STEPS plain-SGD steps (each change a multiple of the
+# gradient: Adam's first step is ±lr wherever a gradient passes its eps,
+# which turns the rounding of a gradient near 0 into a full step) in 2
+# microbatches with RSC (bk 32, keep 0.5), against the one-process run on
+# the card. At lr 1 the xLSTM smoke model's second step moves 2.8e-2 of a
+# parameter's change from weights one unit in the last place away, and
+# the mesh's other order of sums moved it 5.6e-2 (on the card, limit
+# 5.5e-2); at MESH_FAMILY_LR the first step's change is still the
+# gradient, scaled, and the second less ill-conditioned. (b) deepseek-v2-lite-16b at its published widths, cut to
+# MOE_FULL_LAYERS of its 27 layers (the dense first layer and one MoE
+# layer: 27 do not fit 4 ranks on one card), 1 step, RSC keep 0.5 (bk
+# 128), against the one-process step on the card within 13b's bounds; the
+# one-process parameters after the step go to MOE_SNAPSHOT for the ranks.
+MESH_FAMILIES = ["xlstm-125m", "recurrentgemma-9b", "llama-3.2-vision-11b",
+                 "deepseek-v2-lite-16b", "deepseek-v2-236b",
+                 "musicgen-medium"]
+MESH_FAMILY_STEPS = 2
+MESH_FAMILY_LR = 0.1
+MOE_FULL = ("deepseek-v2-lite-16b", 4, 4096, 2)   # arch, batch, seq, mb
+MOE_FULL_LAYERS = 2
+MOE_FULL_STEPS = 1
+MOE_SNAPSHOT = ROOT / "build" / "phase13c_params.pt"
 # The small GNN training run held on the card against the CPU: the graph
 # and model of tests/test_torch_gnn_train.py's trajectory (GCN 2 × 48,
 # block 32, so tf32x3; batchnorm; dropout 0; RSC at budget 0.3; 30 epochs).
@@ -3870,13 +3921,16 @@ def mesh_small_rank(mesh, meshes, starts: dict, log) -> dict:
     return out
 
 
-def mesh_full_rank(group, mesh, snapshot: str) -> dict:
-    """Phase 13b (b) on one rank: full-width qwen3-1.7b, MESH_FULL_STEPS
-    steps on the mesh from phase 13's seed, launch counts and collective
-    statistics set to 0 just before and read just after; the parameters
-    against phase 13's after as many steps; the kernel on the path's own
-    operands."""
-    from repro_torch.configs import get_arch, make_batch
+def mesh_full_rank(group, mesh, snapshot: str, cfg, shape: tuple,
+                   steps: int) -> dict:
+    """Phase 13b (b) (full-width qwen3-1.7b) and 13c (b) (deepseek cut in
+    depth) on one rank: ``cfg`` at ``shape`` (batch, seq, microbatches),
+    ``steps`` steps on the mesh from the seeded parameters, launch counts
+    and collective statistics set to 0 just before and read just after;
+    the parameters against the one-process run's after as many steps
+    (``snapshot``); the kernel on the path's own operands; a MoE's
+    routing of this rank's rows."""
+    from repro_torch.configs import make_batch
     from repro_torch.kernels import gather_matmul as gmod
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import gather_matmul_ref
@@ -3885,8 +3939,7 @@ def mesh_full_rank(group, mesh, snapshot: str) -> dict:
         make_sharded_train_step
     from repro_torch.train.optimizer import Adam
     dev = mesh.device
-    arch, batch_rows, seq, n_mb = MESH_FULL
-    cfg = get_arch(arch)
+    batch_rows, seq, n_mb = shape
     state = init_sharded_params(cfg, mesh, seed=0, device=dev)
     opt = Adam(lr=3e-4, clip_norm=1.0)      # train lm's defaults
     ost = opt.init(state.shards)
@@ -3898,8 +3951,8 @@ def mesh_full_rank(group, mesh, snapshot: str) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     mesh.reset_stats()
-    with GatherTap(gmod) as tap:
-        for i in range(MESH_FULL_STEPS):
+    with GatherTap(gmod) as tap, RouteTap() as routes:
+        for i in range(steps):
             batch = local_batch(make_batch(cfg, "train_4k", batch_rows, seq,
                                            seed=i, device=dev), mesh, n_mb)
             torch.cuda.synchronize(dev)
@@ -3949,11 +4002,15 @@ def mesh_full_rank(group, mesh, snapshot: str) -> dict:
             "param_bytes": p_bytes, "moment_bytes": mom_bytes,
             "spec_param_bytes": spec_bytes, "full_param_bytes": full_bytes,
             "max_param_diff": worst, "max_param_diff_name": worst_name,
-            "kernel_checks": checks, "gather_rows": rows}
+            "kernel_checks": checks, "gather_rows": rows,
+            "routes": routes.log, "data_index": mesh.index(mesh.dp_axes)}
 
 
-def mesh_rank(group, starts: dict, snapshot: str) -> dict:
-    """Phase 13b on one of the 4 ranks: (a), then (b)."""
+def mesh_rank(group, starts: dict, snapshot: str, family_starts: dict,
+              moe_snapshot: str) -> dict:
+    """Phases 13b and 13c on one of the 4 ranks: 13b (a) and (b), then
+    13c (a) and (b)."""
+    from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import Mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3962,8 +4019,15 @@ def mesh_rank(group, starts: dict, snapshot: str) -> dict:
     log = mesh_recorder()
     small = mesh_small_rank(meshes[MESH], meshes, starts, log)
     torch.cuda.empty_cache()
-    full = mesh_full_rank(group, meshes[MESH], snapshot)
-    return {"rank": group.rank, "small": small, "full": full}
+    full = mesh_full_rank(group, meshes[MESH], snapshot,
+                          get_arch(MESH_FULL[0]), MESH_FULL[1:],
+                          MESH_FULL_STEPS)
+    families = mesh_family_rank(meshes[MESH], family_starts, log)
+    torch.cuda.empty_cache()
+    moe = mesh_full_rank(group, meshes[MESH], moe_snapshot,
+                         moe_full_config(), MOE_FULL[1:], MOE_FULL_STEPS)
+    return {"rank": group.rank, "small": small, "full": full,
+            "families": families, "moe_full": moe}
 
 
 def mesh_small_reference(ops, gmod, dev) -> tuple[dict, dict]:
@@ -4023,15 +4087,19 @@ def _tree_leaves(tree) -> list:
     return [np.asarray(tree, np.float32)]
 
 
-def lm_mesh_phase(train_losses: list, ops, gmod, dev, smi: str) -> dict:
-    """Phase 13b: the one-process references, then the 4 ranks; every
-    check of (a) and (b) against their results."""
+def lm_mesh_phase(train_losses: list, ops, gmod, dev, smi: str,
+                  family_starts: dict) -> tuple[dict, list]:
+    """Phase 13b: the one-process references, then the 4 ranks (which
+    go on to 13c with ``family_starts`` and MOE_SNAPSHOT); every check of
+    (a) and (b) against their results. Returns 13b's slice and the
+    ranks' results."""
     from repro_torch.distributed import launch, plan_group
     starts, refs = mesh_small_reference(ops, gmod, dev)
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    ranks = launch(mesh_rank, (starts, str(MESH_SNAPSHOT)),
+    ranks = launch(mesh_rank, (starts, str(MESH_SNAPSHOT), family_starts,
+                               str(MOE_SNAPSHOT)),
                    plan=plan_group(4, force_host_devices=4, device=str(dev)),
                    threads=2)
     run_s = time.perf_counter() - t0
@@ -4146,6 +4214,364 @@ def lm_mesh_phase(train_losses: list, ops, gmod, dev, smi: str) -> dict:
         f" (parameters {fulls[0]['param_bytes'] / 1e9:.3f} of "
         f"{fulls[0]['full_param_bytes'] / 1e9:.3f}); rank 0 collectives "
         f"per step {json.dumps(per_step)}; kernel = plain version {checks}")
+    return out, ranks
+
+
+class RouteTap:
+    """Stands in for ``models.lm.moe.route`` while a run is driven: every
+    routing passes through unchanged, and the expert ids of the forward's
+    (not of a backward's recomputation) are kept, on the CPU."""
+
+    def __enter__(self):
+        import importlib
+        self.mod = importlib.import_module("repro_torch.models.lm.moe")
+        self.inner, self.log = self.mod.route, []
+        self.mod.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.inner
+
+    def __call__(self, p, cfg, x):
+        r = self.inner(p, cfg, x)
+        if torch._C._current_graph_task_id() == -1:
+            self.log.append(r["expert"].cpu())
+        return r
+
+
+class PlainSGD:
+    """``p ← p − lr·g`` with ``train.optimizer.Adam``'s interface (13c
+    (a); see MESH_FAMILY_STEPS)."""
+
+    lr = MESH_FAMILY_LR
+
+    def init(self, params):
+        return {"count": 0}
+
+    def update(self, grads, state, params, shardings=None):
+        return ({k: -self.lr * g.float() for k, g in grads.items()},
+                {"count": state["count"] + 1})
+
+
+def moe_full_config():
+    """deepseek-v2-lite-16b at its published widths, cut to its dense
+    first layer and MOE_FULL_LAYERS - 1 MoE layers."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(MOE_FULL[0])
+    return dataclasses.replace(cfg, n_layers=MOE_FULL_LAYERS,
+                               n_repeats=MOE_FULL_LAYERS - len(cfg.prefix))
+
+
+def rsc_calls(cfg) -> int:
+    """The RSC'd linears of one forward: 3 per gated MLP, 2 per gelu MLP
+    (MoE experts, shared experts and xLSTM's cells take no RSC)."""
+    from repro_torch.models.lm.backbone import LM
+    per_mlp = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    return per_mlp * sum(blk.mlp is not None
+                         for blk in LM(cfg, "meta").layers)
+
+
+def mesh_family_reference(ops, gmod, dev) -> tuple[dict, dict]:
+    """13c (a)'s one-process runs on the card: each family's f32 smoke
+    config (cross gates 0.5), MESH_FAMILY_STEPS RSC steps from its seeded
+    parameters and from those one unit in the last place away, with the
+    selected blocks and the MoE routing; returns the starting trees
+    (numpy, for the ranks) and the runs."""
+    from repro_torch import convert
+    from repro_torch.configs import make_batch, smoke_config
+    from repro_torch.models.lm.backbone import init_params
+    from repro_torch.train.lm_steps import make_train_step
+    starts, runs = {}, {}
+    rng = np.random.default_rng(0)
+    for arch in MESH_FAMILIES:
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        net = init_params(cfg, seed=0, device="cpu")
+        set_gates(net)
+        starts[arch] = convert.lm_params_to_numpy(net, cfg)
+        runs[arch] = []
+        for tree in (starts[arch], _nudge_tree(starts[arch], rng)):
+            net = convert.lm_params_from_numpy(cfg, tree, dev)
+            opt = PlainSGD()
+            st = opt.init(dict(net.named_parameters()))
+            step = make_train_step(cfg, opt, 2, rsc={
+                "keep_frac": 0.5, "bk": 32, "backend": "kernel"})
+            losses = []
+            with GatherTap(gmod) as tap, RouteTap() as routes:
+                for i in range(MESH_FAMILY_STEPS):
+                    batch = make_batch(cfg, "train_4k", 4, 64, seed=i,
+                                       device=dev)
+                    net, st, loss = step(net, st, batch)
+                    losses.append(float(loss))
+            runs[arch].append({"losses": losses,
+                               "sel": [t.cpu().tolist() for t in tap.idx],
+                               "routes": routes.log,
+                               "params": convert.lm_params_to_numpy(net,
+                                                                    cfg)})
+    return starts, runs
+
+
+def moe_full_reference(ops, dev) -> dict:
+    """13c (b)'s one-process step on the card: the cut deepseek from its
+    seeded parameters, MOE_FULL_STEPS steps of MOE_FULL's batch (Adam and
+    clip of ``train lm``'s defaults), its routing, loss and step time;
+    the parameters after it saved to MOE_SNAPSHOT for the ranks."""
+    from repro_torch.configs import make_batch
+    from repro_torch.models.lm.backbone import init_params
+    from repro_torch.train.lm_steps import make_train_step
+    from repro_torch.train.optimizer import Adam
+    cfg = moe_full_config()
+    _, rows, seq, n_mb = MOE_FULL
+    net = init_params(cfg, seed=0, device=dev)
+    opt = Adam(lr=3e-4, clip_norm=1.0)
+    st = opt.init(dict(net.named_parameters()))
+    step = make_train_step(cfg, opt, n_mb, rsc={"keep_frac": 0.5,
+                                                "backend": "kernel"})
+    losses, step_s = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    with RouteTap() as routes:
+        for i in range(MOE_FULL_STEPS):
+            batch = make_batch(cfg, "train_4k", rows, seq, seed=i,
+                               device=dev)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            net, st, loss = step(net, st, batch)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    MOE_SNAPSHOT.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({n: p.detach().cpu() for n, p in net.named_parameters()},
+               MOE_SNAPSHOT)
+    n_params = sum(p.numel() for p in net.parameters())
+    del net, st
+    torch.cuda.empty_cache()
+    say(f"[mesh moe reference] {cfg.name} cut to {cfg.n_layers} layers "
+        f"({n_params / 1e9:.3f} B parameters), one process: losses "
+        f"{losses}, step s {[round(x, 3) for x in step_s]}, peak "
+        f"{peak / 2 ** 30:.2f} GiB")
+    return {"losses": losses, "step_s": step_s, "routes": routes.log,
+            "peak_mem_bytes": peak, "n_params": n_params}
+
+
+def mesh_family_rank(mesh, starts: dict, log) -> dict:
+    """13c (a) on one rank: each family's MESH_FAMILY_STEPS RSC steps on
+    the mesh, launch counts set to 0 just before and read just after,
+    with its selected blocks, routing and blocks' shapes."""
+    from repro_torch import convert
+    from repro_torch.configs import make_batch, smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.train.lm_steps import local_batch, \
+        make_sharded_train_step
+    from repro_torch.train.optimizer import Adam
+    dev = mesh.device
+    out = {}
+    for arch in MESH_FAMILIES:
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        state = convert.lm_sharded_from_numpy(cfg, starts[arch], mesh, dev)
+        opt = PlainSGD()
+        ost = opt.init(state.shards)
+        step = make_sharded_train_step(
+            cfg, opt, mesh, 2, {"keep_frac": 0.5, "bk": 32,
+                                "backend": "kernel"})
+        ops.reset_launch_counts()
+        log.clear()
+        losses = []
+        with RouteTap() as routes:
+            for i in range(MESH_FAMILY_STEPS):
+                batch = make_batch(cfg, "train_4k", 4, 64, seed=i,
+                                   device=dev)
+                state, ost, loss = step(state, ost,
+                                        local_batch(batch, mesh, 2))
+                losses.append(float(loss))
+        launches = ops.launch_counts()["gather_matmul"]
+        full_shapes = {n: tuple(p.shape)
+                       for n, p in state.skeleton.named_parameters()}
+        moments = Adam().init(state.shards)
+        shapes_ok = all(
+            tuple(t[n].shape) == state.shardings[n].local_shape(
+                full_shapes[n])
+            for t in (state.shards, moments["m"], moments["v"]) for n in t)
+        out[arch] = {"losses": losses, "sel": list(log),
+                     "routes": routes.log,
+                     "data_index": mesh.index(mesh.dp_axes),
+                     "launches": launches,
+                     "skipped": ops.skipped_counts()["gather_matmul"],
+                     "shapes_ok": shapes_ok,
+                     "params": convert.lm_sharded_to_numpy(state)}
+        del state, ost, moments
+    return out
+
+
+def _routes_of_rows(routes: list, k: int, i: int) -> list:
+    """Rows ``[i·k, (i+1)·k)`` of each routing of a one-process run."""
+    return [r[i * k:(i + 1) * k] for r in routes]
+
+
+def lm_mesh_families_check(ranks: list, starts: dict, refs: dict) -> dict:
+    """13c (a)'s checks: every rank's selected blocks, launches, routing
+    and blocks; the losses and parameter changes of the first rank
+    against the one-process run."""
+    from repro_torch.configs import smoke_config
+    out = {"mesh": MESH, "steps": MESH_FAMILY_STEPS, "launches": 0,
+           "archs": {}}
+    for arch in MESH_FAMILIES:
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        ref, nudged = refs[arch]
+        got = [r["families"][arch] for r in ranks]
+        want_calls = rsc_calls(cfg) * 2 * MESH_FAMILY_STEPS
+        for r, g in enumerate(got):
+            if g["sel"] != ref["sel"]:
+                raise AssertionError(f"13c {arch}: rank {r}'s selected "
+                                     f"blocks differ:\n{g['sel']}\n"
+                                     f"{ref['sel']}")
+            if g["launches"] + g["skipped"] != want_calls:
+                raise AssertionError(f"13c {arch}: rank {r} launched "
+                                     f"{g['launches']} + skipped "
+                                     f"{g['skipped']} of {want_calls}")
+            if not g["shapes_ok"]:
+                raise AssertionError(f"13c {arch}: rank {r}'s blocks are "
+                                     "not its spec's share")
+            k = 4 // 2 // MESH[0]        # this rank's rows per microbatch
+            want_routes = _routes_of_rows(ref["routes"], k,
+                                          g["data_index"])
+            if len(g["routes"]) != len(want_routes) or not all(
+                    torch.equal(a, b) for a, b in zip(g["routes"],
+                                                      want_routes)):
+                raise AssertionError(f"13c {arch}: rank {r}'s MoE routing "
+                                     "differs from the one-process run's")
+        for i, (a, b, n) in enumerate(zip(got[0]["losses"], ref["losses"],
+                                          nudged["losses"])):
+            own = abs(n - b) / abs(b)
+            np.testing.assert_allclose(a, b, rtol=max(1e-5, 2 * own),
+                                       err_msg=f"13c {arch} step {i}")
+        worst = 0.0
+        for o, rr, r2, p0 in zip(_tree_leaves(got[0]["params"]),
+                                 _tree_leaves(ref["params"]),
+                                 _tree_leaves(nudged["params"]),
+                                 _tree_leaves(starts[arch])):
+            moved = rr - p0
+            norm = max(np.linalg.norm(moved), 1e-30)
+            lim = max(TRAIN_DP_REL, 2 * np.linalg.norm(r2 - p0 - moved)
+                      / norm)
+            err = np.linalg.norm(o - p0 - moved) / norm
+            if err > lim:
+                raise AssertionError(f"13c {arch}: a parameter's change "
+                                     f"differs by {err:.3e} of its norm "
+                                     f"(limit {lim:.3e})")
+            worst = max(worst, float(err))
+        launches = [g["launches"] for g in got]
+        out["launches"] += sum(launches)
+        out["archs"][arch] = {
+            "losses": got[0]["losses"], "losses_one_process": ref["losses"],
+            "max_param_change_err": worst, "launches": launches,
+            "skipped": [g["skipped"] for g in got],
+            "moe_routings": len(ref["routes"])}
+        say(f"[mesh family] {arch} f32 smoke on {MESH}: losses "
+            f"{got[0]['losses']} (one process {ref['losses']}), selected "
+            f"blocks equal on every rank, largest parameter-change error "
+            f"{worst:.3e}, launches {launches} + skipped "
+            f"{out['archs'][arch]['skipped']} of {want_calls} each, MoE "
+            f"routings equal on every rank and to the one process: "
+            f"{len(ref['routes'])}")
+    return out
+
+
+def lm_mesh_moe_check(ranks: list, ref: dict, smi: str) -> dict:
+    """13c (b)'s checks: launches, losses, bytes, parameters against the
+    one-process step; routing identical along each ``model`` line, and
+    its share of picks equal to the one-process run's."""
+    fulls = [r["moe_full"] for r in ranks]
+    cfg = moe_full_config()
+    _, rows, seq, n_mb = MOE_FULL
+    want = rsc_calls(cfg) * n_mb * MOE_FULL_STEPS
+    for r, f in enumerate(fulls):
+        calls = f["launches"]["gather_matmul"] + f["skipped"]
+        if calls != want or f["launches"]["flash_attention"] != 0 \
+                or f["launches"]["bcoo_spmm"] != 0:
+            raise AssertionError(f"13c rank {r}: launches {f['launches']} "
+                                 f"+ skipped {f['skipped']}, expected "
+                                 f"{want} gather_matmul calls and nothing "
+                                 "else")
+        if f["gather_by_variant"].get("wgmma", 0) != \
+                f["launches"]["gather_matmul"]:
+            raise AssertionError(f"13c rank {r}: gather_matmul variants "
+                                 f"{f['gather_by_variant']}")
+        if f["losses"] != fulls[0]["losses"]:
+            raise AssertionError("13c: the ranks' losses differ")
+        if f["param_bytes"] != f["spec_param_bytes"]:
+            raise AssertionError(f"13c rank {r}: {f['param_bytes']} "
+                                 "parameter bytes, the spec's share is "
+                                 f"{f['spec_param_bytes']}")
+        if f["max_param_diff"] > MESH_PARAM_ATOL:
+            raise AssertionError(f"13c rank {r}: {f['max_param_diff_name']} "
+                                 f"differs from the one process's by "
+                                 f"{f['max_param_diff']:.3e}")
+    loss_err = max(abs(a - b) for a, b in zip(fulls[0]["losses"],
+                                               ref["losses"]))
+    if not loss_err < MESH_LOSS_ATOL:
+        raise AssertionError(f"13c losses {fulls[0]['losses']} against the "
+                             f"one process's {ref['losses']}")
+    # routing: identical along each model line; picks equal to the one
+    # process's (a near tie may route otherwise in bf16): in the same
+    # place of the top-k, and among the token's top-k at all (the output
+    # depends on the set: a token's picks never share an expert)
+    k = rows // n_mb // MESH[0]
+    top_k = cfg.moe.top_k
+    equal, in_set, total = 0, 0, 0
+    by_line: dict = {}
+    for f in fulls:
+        line = by_line.setdefault(f["data_index"], f["routes"])
+        if len(line) != len(f["routes"]) or not all(
+                torch.equal(a, b) for a, b in zip(line, f["routes"])):
+            raise AssertionError("13c: the MoE routing differs between the "
+                                 "ranks of a model line")
+    for i, routes in by_line.items():
+        want_routes = _routes_of_rows(ref["routes"], k, i)
+        if len(want_routes) != len(routes):
+            raise AssertionError(f"13c: {len(routes)} routings on the "
+                                 f"ranks, {len(want_routes)} in one process")
+        for a, b in zip(routes, want_routes):
+            equal += int((a == b).sum())
+            a3, b3 = a.view(-1, top_k), b.view(-1, top_k)
+            in_set += int((a3[:, :, None] == b3[:, None, :]).any(-1).sum())
+            total += a.numel()
+    checks = fulls[0]["kernel_checks"]
+    per_step = {op: {k2: v / MOE_FULL_STEPS for k2, v in st.items()}
+                for op, st in fulls[0]["collectives"].items()}
+    state_gb = [round((f["param_bytes"] + f["moment_bytes"]) / 1e9, 3)
+                for f in fulls]
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": rows,
+           "seq": seq, "microbatches": n_mb, "steps": MOE_FULL_STEPS,
+           "losses": fulls[0]["losses"], "one_process_losses": ref["losses"],
+           "loss_err": loss_err, "one_process": {
+               k2: ref[k2] for k2 in ("step_s", "peak_mem_bytes",
+                                      "n_params")},
+           "max_param_diff": max(f["max_param_diff"] for f in fulls),
+           "equal_pick_share": equal / max(total, 1),
+           "same_expert_share": in_set / max(total, 1), "picks": total,
+           "launches": sum(f["launches"]["gather_matmul"] for f in fulls),
+           "skipped": sum(f["skipped"] for f in fulls),
+           "kernel_checks": checks, "gather_rows": fulls[0]["gather_rows"],
+           "collectives_per_step_rank0": per_step, "card": smi,
+           "ranks": [{k2: f[k2] for k2 in (
+               "losses", "step_s", "launches", "gather_by_variant",
+               "skipped", "peak_mem_bytes", "param_bytes", "moment_bytes",
+               "spec_param_bytes", "full_param_bytes", "max_param_diff",
+               "max_param_diff_name", "collectives")} for f in fulls]}
+    say(f"[mesh moe] {cfg.name} ({cfg.n_layers} of 27 layers) on {MESH} "
+        f"({smi}): losses {fulls[0]['losses']} (one process "
+        f"{ref['losses']}, err {loss_err:.2e}); largest parameter "
+        f"difference {out['max_param_diff']:.3e}; routing equal along each "
+        f"model line; of {total} picks {out['equal_pick_share']:.6f} equal "
+        f"to the one process's in place, {out['same_expert_share']:.6f} "
+        f"among its token's top-{top_k}; gather_matmul per rank "
+        f"{[f['launches']['gather_matmul'] for f in fulls]} + skipped "
+        f"{[f['skipped'] for f in fulls]}; step s "
+        f"{[[round(x, 3) for x in f['step_s']] for f in fulls]}; peak GiB "
+        f"{[round(f['peak_mem_bytes'] / 2 ** 30, 2) for f in fulls]}; "
+        f"parameter + moment GB per rank {state_gb} (parameters "
+        f"{fulls[0]['param_bytes'] / 1e9:.3f} of "
+        f"{fulls[0]['full_param_bytes'] / 1e9:.3f}); rank 0 collectives per "
+        f"step {json.dumps(per_step)}; kernel = plain version {checks}")
     return out
 
 
@@ -4317,7 +4743,20 @@ def main(argv=None) -> int:
     del train_out["params"], tap
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_slice = lm_mesh_phase(train_losses, ops, gmod, dev, smi)
+    t13c = time.perf_counter()
+    family_starts, family_refs = mesh_family_reference(ops, gmod, dev)
+    moe_ref = moe_full_reference(ops, dev)
+    t13c = time.perf_counter() - t13c
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_slice, mesh_ranks = lm_mesh_phase(train_losses, ops, gmod, dev,
+                                           smi, family_starts)
+    mesh_slice["families"] = lm_mesh_families_check(
+        mesh_ranks, family_starts, family_refs)
+    mesh_slice["moe_full_width"] = lm_mesh_moe_check(mesh_ranks, moe_ref,
+                                                     smi)
+    mesh_slice["phase13c_reference_s"] = t13c
+    del mesh_ranks
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if bad:
@@ -4353,9 +4792,12 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/gather_matmul.cu",
         "replaces": "src/repro/kernels/gather_matmul.py:28",
         "variant": gather_rows[0]["variant"],
-        "launches": gather_launches + mesh_slice["full"]["launches"],
+        "launches": gather_launches + mesh_slice["full"]["launches"]
+        + mesh_slice["families"]["launches"]
+        + mesh_slice["moe_full_width"]["launches"],
         "max_abs_err": max(c[0] for c in list(path_checks.values()) + list(
-            mesh_slice["full"]["ranks"][0]["kernel_checks"].values())),
+            mesh_slice["full"]["ranks"][0]["kernel_checks"].values())
+            + list(mesh_slice["moe_full_width"]["kernel_checks"].values())),
         "ms": gather_rows[0]["ms"], "plain_ms": gather_rows[0]["plain_ms"],
         "bound_ms": gather_rows[0]["bound_ms"],
         "bound_by": gather_rows[0]["bound_by"],

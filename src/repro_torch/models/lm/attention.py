@@ -27,9 +27,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Linear, Norm, apply_norm, \
-    apply_rope, linear
-from repro_torch.models.lm.sharding import copy_to_model, current_mesh, \
-    reduce_from_model, shard, tp_size
+    apply_rope, linear, row_linear
+from repro_torch.models.lm.sharding import check_train_only, \
+    copy_to_model, current_mesh, shard, tp_size
 
 class Attention(nn.Module):
     """Projections ``wq, wk, wv, wo`` (``x @ w`` layout), with
@@ -216,10 +216,7 @@ def self_attention(
     mesh = current_mesh()
     tp = tp_size(mesh) > 1
     if tp:
-        if mode != "train":
-            raise ValueError("tensor-parallel attention runs the training "
-                             "path only: sharded prefill and decode are not "
-                             "ported")
+        check_train_only(mode, "attention")
         x = copy_to_model(x)
     q, k, v = _project_qkv(p, cfg, x, positions)
     shard(q, "batch", "seq", "heads", None)
@@ -257,11 +254,7 @@ def self_attention(
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
-    out = out.reshape(b, t, -1)
-    if not tp:
-        return linear(p.wo, out), new_cache
-    y = reduce_from_model(out @ p.wo.w)
-    return (y if p.wo.b is None else y + p.wo.b), new_cache
+    return row_linear(p.wo, out.reshape(b, t, -1)), new_cache
 
 
 def cross_attention(p: Attention, cfg: LMConfig, x, cross_states, *,
@@ -269,10 +262,21 @@ def cross_attention(p: Attention, cfg: LMConfig, x, cross_states, *,
     """Gated cross-attention (llama-3.2-vision layers), no causal mask:
     ``tanh(gate) · wo(attention of x's queries over cross_states' k/v)``.
     Prefill computes k/v from ``cross_states`` and caches them; decode
-    reads them from the cache. Returns (out, new_cache)."""
+    reads them from the cache. Returns (out, new_cache).
+
+    Tensor parallel (training only) as ``self_attention``: ``wq`` holds
+    this rank's query heads, ``wk`` / ``wv`` are whole over the replicated
+    ``cross_states``, and the gate scales the output after its sum over
+    ``model`` (so the gate's gradient is whole)."""
     b, t, _ = x.shape
     hd = cfg.hd
-    q = linear(p.wq, x).reshape(b, t, cfg.n_heads, hd)
+    mesh = current_mesh()
+    tp = tp_size(mesh) > 1
+    if tp:
+        check_train_only(mode, "cross-attention")
+        x = copy_to_model(x)
+    q = linear(p.wq, x).reshape(b, t, -1, hd)
+    shard(q, "batch", "seq", "heads", None)
     if cfg.qk_norm:
         q = apply_norm(p.q_norm, q, cfg.norm_eps)
     if cache is not None and mode == "decode":
@@ -285,6 +289,8 @@ def cross_attention(p: Attention, cfg: LMConfig, x, cross_states, *,
         if cfg.qk_norm:
             k = apply_norm(p.k_norm, k, cfg.norm_eps)
         new_cache = {"k": k, "v": v} if mode == "prefill" else None
+    if tp:
+        k, v = _local_kv(cfg, k, v, q.shape[2], mesh)
     kv_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
     if mode == "decode":
         out = decode_attention(q, k, v, kv_pos, None)
@@ -292,5 +298,5 @@ def cross_attention(p: Attention, cfg: LMConfig, x, cross_states, *,
         out = flash_attention(q, k, v, q_positions=None, kv_positions=kv_pos,
                               chunk=cfg.attn_chunk,
                               remat_chunks=(mode == "train"))
-    out = out.reshape(b, t, cfg.n_heads * hd)
-    return linear(p.wo, out) * torch.tanh(p.gate).to(x.dtype), new_cache
+    out = row_linear(p.wo, out.reshape(b, t, -1))
+    return out * torch.tanh(p.gate).to(x.dtype), new_cache

@@ -304,7 +304,8 @@ class ShardedLM:
     ``skeleton`` the module's structure on the ``meta`` device (no
     memory). ``compute(*names)`` rebuilds parameters' compute tensors
     (``models.lm.sharding.gather_params``): whole, or this rank's share
-    of the heads / ffn / vocab under tensor parallelism."""
+    of the heads / ffn / experts / LRU width / vocab under tensor
+    parallelism."""
 
     def __init__(self, cfg: LMConfig, mesh, shards: dict, shardings: dict,
                  skeleton: LM | None = None):
@@ -370,7 +371,7 @@ def forward_sharded(state: ShardedLM, *, tokens=None, embeds=None,
                     cross_states=None, rsc: dict | None = None):
     """The training forward of this rank's rows on the mesh installed by
     ``models.lm.sharding.mesh_context`` (FSDP over the batch axes, tensor
-    parallelism over ``model`` for the dense family): this rank's logits,
+    parallelism over ``model``): this rank's logits,
     f32 ``(rows, t, vocab / model)``, its vocab rows' share under tensor
     parallelism. Each layer gathers its parameters on entry (inside the
     layer's checkpoint with ``cfg.remat``, so the backward gathers them

@@ -77,6 +77,16 @@ def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def row_linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
+    """``linear`` of a row-parallel product: under tensor parallelism
+    ``p.w`` holds this rank's rows and ``x`` its columns, and the partial
+    product is summed over ``model`` before the bias."""
+    if tp_size() == 1:
+        return linear(p, x)
+    y = reduce_from_model(x @ p.w)
+    return y if p.b is None else y + p.b
+
+
 class Norm(nn.Module):
     """RMSNorm (gain ``g``) or LayerNorm (gain ``g``, shift ``b``), f32."""
 
@@ -177,7 +187,8 @@ class MLP(nn.Module):
         self.down = Linear(d_ff, d, dtype, device, gen=gen)
 
 
-def mlp_apply(p: MLP, x: torch.Tensor, kind: str, rsc=None) -> torch.Tensor:
+def mlp_apply(p: MLP, x: torch.Tensor, kind: str, rsc=None, *,
+              partial: bool = False) -> torch.Tensor:
     """The MLP forward. ``rsc`` (``{"keep_frac", "bk" (128), "backend"
     ("kernel")}``) routes its products through ``rsc_matmul``.
 
@@ -185,9 +196,12 @@ def mlp_apply(p: MLP, x: torch.Tensor, kind: str, rsc=None) -> torch.Tensor:
     block is tensor parallel, Megatron's way: ``gate`` and ``up`` hold
     this rank's ffn columns (column-parallel, their input's gradient
     summed over ``model``), ``down`` its ffn rows (row-parallel, its
-    partial output summed over ``model`` before the bias)."""
+    partial output summed over ``model`` before the bias). With
+    ``partial`` the caller has put ``x`` through ``copy_to_model`` and
+    sums over ``model`` itself: the result is this rank's partial output,
+    without ``down``'s bias (MoE's shared experts)."""
     tp = tp_size() > 1
-    if tp:
+    if tp and not partial:
         x = copy_to_model(x)
     mm = _mm(rsc)
     if kind == "swiglu":
@@ -198,7 +212,10 @@ def mlp_apply(p: MLP, x: torch.Tensor, kind: str, rsc=None) -> torch.Tensor:
         h = gelu(mm(x, p.up, "g"))
     if not tp:
         return mm(h, p.down, "x")
-    y = reduce_from_model(mm(h, p.down, "x", bias=False))
+    y = mm(h, p.down, "x", bias=False)
+    if partial:
+        return y
+    y = reduce_from_model(y)
     return y if p.down.b is None else y + p.down.b
 
 

@@ -11,6 +11,13 @@ Decode uses the absorbed form in f32: ``W_uk`` folded into the query and
 
 Queries come through ``w_q`` or, with ``q_lora`` (deepseek-v2-236b),
 through ``w_dq`` → ``q_norm`` → ``w_uq``.
+
+Tensor parallel over ``model`` (training only): ``w_q`` / ``w_uq``,
+``w_uk`` and ``w_uv`` hold this rank's heads (a contiguous block of their
+columns is whole heads in the order the reshapes below read them), the
+latents (``w_dkv``, ``w_kr``, ``kv_norm``) and the query's down-projection
+(``w_dq``, ``q_norm``) are whole on every rank, and the row-parallel
+``wo``'s partial output is summed over ``model``.
 """
 from __future__ import annotations
 
@@ -21,7 +28,9 @@ from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.lm.attention import flash_attention
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Linear, Norm, apply_norm, \
-    apply_rope, linear
+    apply_rope, linear, row_linear
+from repro_torch.models.lm.sharding import check_train_only, \
+    copy_to_model, shard, tp_size
 
 
 class MLA(nn.Module):
@@ -58,7 +67,8 @@ def _queries(p: MLA, cfg: LMConfig, x, positions):
         q = linear(p.w_uq, cq)
     else:
         q = linear(p.w_q, x)
-    q = q.reshape(b, t, cfg.n_heads, m.qk_nope + m.qk_rope)
+    q = shard(q.reshape(b, t, -1, m.qk_nope + m.qk_rope), "batch", "seq",
+              "heads", None)
     q_nope, q_rope = q[..., : m.qk_nope], q[..., m.qk_nope:]
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -76,8 +86,11 @@ def mla_attention(p: MLA, cfg: LMConfig, x, positions, *,
     """Returns (out, new_cache). Modes: train | prefill | decode."""
     m = cfg.mla
     b, t, _ = x.shape
-    h = cfg.n_heads
+    if tp_size() > 1:
+        check_train_only(mode, "MLA")
+        x = copy_to_model(x)
     q_nope, q_rope = _queries(p, cfg, x, positions)
+    h = q_nope.shape[2]          # this rank's heads
 
     if mode in ("train", "prefill"):
         ckv, krope = _latents(p, cfg, x, positions)
@@ -116,4 +129,4 @@ def mla_attention(p: MLA, cfg: LMConfig, x, positions, *,
         new_cache = cache
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    return linear(p.wo, out), new_cache
+    return row_linear(p.wo, out), new_cache

@@ -17,6 +17,15 @@ and the capacity scatter are per batch row:
   the shared experts (always on) added.
 
 Experts take no RSC, as in the reference.
+
+Expert parallel over ``model`` (training only): every rank holds the
+whole router and computes the same routing (its input is replicated over
+``model``; each layer checks that the expert ids agree), runs only the
+``n_routed / model`` experts it holds (its slots of the dispatch buffer;
+the others' entries go to the dropped slot), and combines only their
+outputs; the shared experts are column- and row-parallel as the dense
+MLP, and the routed and shared partial outputs are summed over ``model``
+once.
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ from torch import nn
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import MLP, Linear, gelu, linear, \
     mlp_apply, normal, silu
+from repro_torch.models.lm.sharding import check_same_over_model, \
+    copy_to_model, model_slice, reduce_from_model, shard, tp_size
 
 
 class StackedLinear(nn.Module):
@@ -120,17 +131,33 @@ def moe_apply(p: MoE, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
     m = cfg.moe
     b, t, d = x.shape
     dt = x.dtype
+    tp = tp_size() > 1
+    if tp:
+        x = copy_to_model(x)
     r = route(p, cfg, x)
-    cap, n_slots = r["cap"], m.n_routed + 1
+    cap = r["cap"]
+    slot, pos = r["slot"], r["pos"]
+    if tp:   # this rank's experts; every other entry to the dropped slot
+        check_same_over_model(r["expert"], "the MoE routing")
+        mine = model_slice(m.n_routed)
+        n_exp = mine.stop - mine.start
+        slot = slot - mine.start
+        keep = (slot >= 0) & (slot < n_exp)
+        slot = torch.where(keep, slot, n_exp)
+        pos = torch.where(keep, pos, 0)
+    else:
+        n_exp = m.n_routed
+    n_slots = n_exp + 1
     # dispatch: each entry's row of x into its (row, slot, pos); the
-    # overflowed ones all land in slot E, which is dropped
+    # overflowed ones all land in the last slot, which is dropped
     flat = (torch.arange(b, device=x.device)[:, None] * n_slots
-            + r["slot"]) * cap + r["pos"]                         # (b, t·k)
+            + slot) * cap + pos                                   # (b, t·k)
     tok = torch.arange(t, device=x.device).repeat_interleave(m.top_k)
     xg = x[:, tok].reshape(b * t * m.top_k, d)
     xb = torch.zeros((b * n_slots * cap, d), dtype=dt, device=x.device)
     xb = xb.index_add(0, flat.reshape(-1), xg).view(b, n_slots, cap, d)
-    yb = _expert_ffn(p.experts, xb[:, : m.n_routed], cfg.mlp)
+    yb = _expert_ffn(p.experts, shard(xb[:, :n_exp], "batch", "experts",
+                                      None, None), cfg.mlp)
     yb = torch.cat([yb, torch.zeros((b, 1, cap, d), dtype=yb.dtype,
                                     device=x.device)], dim=1)
     # combine: gather back, weight, sum over the k picks
@@ -139,6 +166,10 @@ def moe_apply(p: MoE, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
     y_tok = (y_tok.view(b, t * m.top_k, d) * w_eff[..., None]).view(
         b, t, m.top_k, d)
     y = y_tok.sum(dim=2).to(dt)
+    if tp:
+        for sp in p.shared:
+            y = y + mlp_apply(sp, x, cfg.mlp, partial=True)
+        return reduce_from_model(y).to(dt)
     for sp in p.shared:
         y = y + mlp_apply(sp, x, cfg.mlp)
     return y.to(dt)

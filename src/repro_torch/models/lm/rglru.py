@@ -16,6 +16,13 @@ form carrying the ``h`` and conv-tail state. Block layout (Griffin): gate
 branch (GeLU) × recurrent branch (conv → LRU), merged, then
 down-projected. The parameter ``lambda`` (Λ, f32) is registered under the
 reference's name, a Python keyword.
+
+Tensor parallel over ``model`` (training only): each rank holds its share
+of the LRU width (``in_gate``, ``in_rec``, ``conv_w``, ``conv_b``,
+``lambda`` and the columns of ``wa`` / ``wx``), so the conv and the scan,
+which are per channel, run on it; ``wa`` and ``wx`` read the whole conv
+output (gathered over ``model``, its gradient reduce-scattered back), and
+the row-parallel ``out``'s partial output is summed over ``model``.
 """
 from __future__ import annotations
 
@@ -24,7 +31,9 @@ from torch import nn
 
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Linear, causal_conv, gelu, \
-    linear, normal, sigmoid
+    linear, normal, row_linear, sigmoid
+from repro_torch.models.lm.sharding import check_train_only, \
+    copy_to_model, gather_from_model, tp_size
 
 _C = 8.0
 
@@ -62,10 +71,13 @@ class RGLRU(nn.Module):
         self.out = Linear(w, d, dt, device, gen=gen)
 
 
-def _gates(p: RGLRU, x):
-    """f32 ``a`` and the gated input ``√(1−a²)·i·x`` of x (b, t, w)."""
-    r = sigmoid(linear(p.wa, x).float())
-    i = sigmoid(linear(p.wx, x).float())
+def _gates(p: RGLRU, x, x_all=None):
+    """f32 ``a`` and the gated input ``√(1−a²)·i·x`` of x (b, t, w); the
+    gates read ``x_all``, the whole width under tensor parallelism (``x``
+    by default)."""
+    x_all = x if x_all is None else x_all
+    r = sigmoid(linear(p.wa, x_all).float())
+    i = sigmoid(linear(p.wx, x_all).float())
     a = torch.exp(-_C * softplus(getattr(p, "lambda")) * r)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * x.float())
     return a, gated
@@ -87,9 +99,9 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def _rg_lru_scan(p: RGLRU, x):
+def _rg_lru_scan(p: RGLRU, x, x_all=None):
     """x: (b, t, w) -> (y in x's dtype, f32 h of the last position)."""
-    a, gated = _gates(p, x)
+    a, gated = _gates(p, x, x_all)
     y = linear_scan(a, gated)
     return y.to(x.dtype), y[:, -1]
 
@@ -104,6 +116,10 @@ def _rg_lru_step(p: RGLRU, x, h_prev):
 def rglru_block(p: RGLRU, cfg: LMConfig, x, *, cache=None, mode="train"):
     """Temporal-mixing block; cache = {"h": (b, w), "conv": (b, cw-1, w)},
     both in the model dtype. Returns (out, new_cache)."""
+    tp = tp_size() > 1
+    if tp:
+        check_train_only(mode, "RG-LRU")
+        x = copy_to_model(x)
     gate = gelu(linear(p.in_gate, x))
     rec = linear(p.in_rec, x)
     if mode == "decode":
@@ -113,8 +129,10 @@ def rglru_block(p: RGLRU, cfg: LMConfig, x, *, cache=None, mode="train"):
         new_cache = {"h": h_last.to(x.dtype), "conv": conv_state}
     else:
         rec_conv, conv_tail = causal_conv(p.conv_w, p.conv_b, rec)
-        y, h_last = _rg_lru_scan(p, rec_conv)
+        y, h_last = _rg_lru_scan(
+            p, rec_conv, gather_from_model(rec_conv, partial=True)
+            if tp else None)
         new_cache = {"h": h_last.to(x.dtype), "conv": conv_tail} \
             if mode == "prefill" else None
-    return linear(p.out, gate * y), new_cache
+    return row_linear(p.out, gate * y), new_cache
 

@@ -20,7 +20,11 @@ The port runs one process per rank, so nothing can be laid out for it:
   replicated on), one collective per mesh line and dtype;
 * ``copy_to_model`` / ``reduce_from_model`` are Megatron's conjugate
   pair around a tensor-parallel region (identity forward and all-reduce
-  over ``model`` backward, and the reverse).
+  over ``model`` backward, and the reverse);
+* ``gather_from_model`` turns a ``model``-split activation whole (an
+  all-gather forward), its backward either this rank's slice of a
+  gradient that is whole on every rank, or the reduce-scatter of one
+  that each rank holds only a share of.
 
 The context is process-wide, not thread-local as in the reference: the
 autograd engine runs a CUDA backward (and the recomputation of a
@@ -116,6 +120,14 @@ def tp_size(mesh=None) -> int:
     return 1 if mesh is None else mesh.axis_size("model")
 
 
+def check_train_only(mode: str, what: str) -> None:
+    """Raise unless ``mode`` is ``train``: the tensor-parallel layers run
+    the training path only."""
+    if mode != "train":
+        raise ValueError(f"tensor-parallel {what} runs the training path "
+                         "only: sharded prefill and decode are not ported")
+
+
 # ------------------------------------------------------------ TP collectives
 
 class _CopyToModel(torch.autograd.Function):
@@ -152,6 +164,58 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     rank's partial ``x``; the gradient passes through."""
     mesh = current_mesh()
     return x if tp_size(mesh) == 1 else _ReduceFromModel.apply(x, mesh)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, partial):
+        ctx.mesh, ctx.dim, ctx.partial = mesh, dim, partial
+        return mesh.all_gather(x, "model", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim = ctx.mesh, ctx.dim
+        if ctx.partial:
+            return mesh.reduce_scatter(g, "model", dim), None, None, None
+        n = g.shape[dim] // mesh.axis_size("model")
+        return g.narrow(dim, mesh.index("model") * n, n), None, None, None
+
+
+def gather_from_model(x: torch.Tensor, dim: int = -1, *,
+                      partial: bool = False) -> torch.Tensor:
+    """The whole tensor of a ``model``-split ``x`` (every rank's block
+    along ``dim``, in rank order). Without ``partial`` everything after
+    the gather is computed alike on every ``model`` rank, so each holds
+    the whole gradient and keeps its slice of it; with ``partial`` each
+    rank goes on with its own columns only, so its gradient of the whole
+    tensor is a share, reduce-scattered back to the blocks."""
+    mesh = current_mesh()
+    if tp_size(mesh) == 1:
+        return x
+    return _GatherFromModel.apply(x, mesh, dim % x.ndim, partial)
+
+
+def model_slice(n: int) -> slice:
+    """This rank's block of ``n`` items split whole over ``model`` (all
+    of them without tensor parallelism)."""
+    tp = tp_size()
+    if n % tp:
+        raise ValueError(f"model={tp} does not divide {n}")
+    k = n // tp
+    i = current_mesh().index("model") if tp > 1 else 0
+    return slice(i * k, (i + 1) * k)
+
+
+def check_same_over_model(t: torch.Tensor, what: str) -> None:
+    """Raise unless ``t`` (integers) is the same on every ``model`` rank:
+    one all-reduce of ``(t, -t)`` under ``max``."""
+    mesh = current_mesh()
+    if tp_size(mesh) == 1:
+        return
+    both = torch.stack([t, -t])
+    if not torch.equal(mesh.all_reduce(both, "model", "max"), both):
+        raise RuntimeError(f"{what} differs between the ranks of a 'model' "
+                           "line")
 
 
 # ------------------------------------------------------------ FSDP
@@ -214,22 +278,54 @@ class _GatherParams(torch.autograd.Function):
         return (None, None, *g)
 
 
-# The compute layout of tensor-parallel parameters (the dense family):
-# (port name pattern, dimension kept split over 'model', gradient partial
-# over 'model'). A partial gradient is summed over 'model'; wk / wv and
-# the q / k norms serve every rank's own heads, so each rank holds a share
-# of their gradient. Everything else is used whole with a whole gradient.
+# The compute layout of tensor-parallel parameters: (port name pattern,
+# dimension kept split over 'model', gradient partial over 'model'); the
+# first match wins. A partial gradient is summed over 'model': the
+# parameter is used whole but each rank's loss reaches it only through its
+# own heads, experts or columns (wk / wv, the q / k norms, MLA's latent
+# projections, the router, xLSTM's gates and recurrent matrices). Where
+# the stored split does not fall on the dimension a rank computes by (the
+# packed mLSTM ``up``, sLSTM's ``wo`` stored row-split), the parameter is
+# used whole and the rank takes its columns. Everything else is used
+# whole with a whole gradient (norms and gates outside the parallel
+# regions, biases added after a reduction).
 _TP_COMPUTE = [
     (r"^embed$", 0, False),
     (r"^unembed\.w$", 1, False),
+    # attention (dense, local, cross)
     (r"\.attn\.wq\.w$", 1, False),
     (r"\.attn\.wq\.b$", 0, False),
     (r"\.attn\.w[kv]\.[wb]$", None, True),
     (r"\.attn\.wo\.w$", 0, False),
     (r"\.attn\.[qk]_norm\.g$", None, True),
-    (r"\.mlp\.(gate|up)\.w$", 1, False),
-    (r"\.mlp\.(gate|up)\.b$", 0, False),
-    (r"\.mlp\.down\.w$", 0, False),
+    # MLA: the latents and the query's down-projection serve every head
+    (r"\.attn\.(w_dkv|w_kr|w_dq)\.w$", None, True),
+    (r"\.attn\.kv_norm\.g$", None, True),
+    (r"\.attn\.(w_uk|w_uv|w_uq|w_q)\.w$", 1, False),
+    # MoE: each rank its experts; the shared experts as the dense MLP
+    (r"\.moe\.experts\.(gate|up|down)\.w$", 0, False),
+    (r"\.moe\.router\.w$", None, True),
+    (r"\.(mlp|moe\.shared\.\d+)\.(gate|up)\.w$", 1, False),
+    (r"\.(mlp|moe\.shared\.\d+)\.(gate|up)\.b$", 0, False),
+    (r"\.(mlp|moe\.shared\.\d+)\.down\.w$", 0, False),
+    # RG-LRU: each rank its share of the LRU width
+    (r"\.rec\.(in_gate|in_rec|wa|wx)\.w$", 1, False),
+    (r"\.rec\.conv_w$", 1, False),
+    (r"\.rec\.(conv_b|lambda)$", 0, False),
+    (r"\.rec\.out\.w$", 0, False),
+    # mLSTM: each rank its heads
+    (r"\.cell\.up\.w$", None, True),
+    (r"\.cell\.conv_w$", 1, False),
+    (r"\.cell\.conv_b$", 0, False),
+    (r"\.cell\.w[qkv]\.w$", 1, False),
+    (r"\.cell\.(wgate\.w|head_norm\.g)$", None, True),
+    (r"\.cell\.down\.w$", 0, False),
+    # sLSTM: each rank its heads; the FFN as the dense MLP
+    (r"\.cell\.wo\.w$", None, True),
+    (r"\.cell\.w[zif]\.w$", 1, False),
+    (r"\.cell\.r[zifo]$", None, True),
+    (r"\.cell\.ffn_(gate|up)\.w$", 1, False),
+    (r"\.cell\.ffn_down\.w$", 0, False),
 ]
 
 
@@ -295,47 +391,36 @@ def gather_params(blocks: list[torch.Tensor], plans: list,
     return out
 
 
-# Layer kinds whose blocks are tensor parallel, and the module that holds
-# each kind that is not.
-_TP_KINDS = {"attn"}
-_NOT_TP = {
-    "attn_moe": "models/lm/moe.py (MoE experts)",
-    "local": "models/lm/attention.py (sliding-window self_attention)",
-    "cross": "models/lm/attention.py (cross_attention)",
-    "rglru": "models/lm/rglru.py (RG-LRU)",
-    "mlstm": "models/lm/xlstm.py (mLSTM)",
-    "slstm": "models/lm/xlstm.py (sLSTM)",
-}
-
-
 def check_tensor_parallel(cfg, mesh) -> None:
-    """Raise unless ``cfg`` can run tensor parallel on ``mesh``'s
-    ``model`` axis: every layer a dense attention + gated MLP block
-    (naming the first module that is not), and ``model`` dividing the
-    query heads, ``d_ff`` and the vocabulary (naming the dimension). A
-    mesh without ``model`` (or of size 1) passes every config."""
+    """Raise unless ``model`` (of ``mesh``; a mesh without it, or of size
+    1, passes every config) divides each dimension of ``cfg`` that tensor
+    parallelism splits whole per rank, naming the first that it does
+    not divide."""
     tp = tp_size(mesh)
     if tp == 1:
         return
-    if cfg.mla is not None:
-        raise ValueError(f"{cfg.name}: tensor parallelism over 'model' "
-                         f"({tp}) is not implemented for models/lm/mla.py "
-                         "(MLA attention)")
-    for i, kind in enumerate(cfg.layer_plan()):
-        if kind not in _TP_KINDS:
-            raise ValueError(f"{cfg.name}: tensor parallelism over 'model' "
-                             f"({tp}) is not implemented for "
-                             f"{_NOT_TP.get(kind, kind)}, layer {i}")
-    if cfg.embeds_input:
-        raise ValueError(f"{cfg.name}: tensor parallelism over 'model' "
-                         f"({tp}) is not implemented for the embedding "
-                         "inputs of models/lm/backbone.py")
-    if cfg.mlp not in ("swiglu", "geglu"):
-        raise ValueError(f"{cfg.name}: tensor parallelism over 'model' "
-                         f"({tp}) is not implemented for the {cfg.mlp} MLP "
-                         "of models/lm/layers.py")
-    for what, n in (("n_heads (query heads)", cfg.n_heads),
-                    ("d_ff", cfg.d_ff), ("vocab", cfg.vocab)):
+    kinds = set(cfg.layer_plan())
+    dims = []
+    if kinds & {"attn", "attn_moe", "local", "cross"}:
+        dims.append(("n_heads (MLA heads)" if cfg.mla is not None
+                     else "n_heads (query heads)", cfg.n_heads))
+    dense_mlp = {"local", "cross", "rglru"} | ({"attn"} if cfg.moe is None
+                                               else set())
+    if cfg.mlp != "none" and kinds & dense_mlp:
+        dims.append(("d_ff", cfg.d_ff))
+    if cfg.moe is not None:
+        if "attn" in kinds:
+            dims.append(("d_ff_dense", cfg.moe.d_ff_dense))
+        dims += [("n_routed (experts)", cfg.moe.n_routed),
+                 ("d_expert (shared experts)", cfg.moe.d_expert)]
+    if "rglru" in kinds:
+        dims.append(("lru_width", cfg.lru_width or cfg.d_model))
+    if "mlstm" in kinds:
+        dims.append(("mlstm_heads", cfg.mlstm_heads))
+    if "slstm" in kinds:
+        dims.append(("slstm_heads", cfg.slstm_heads))
+    dims.append(("vocab", cfg.vocab))
+    for what, n in dims:
         if n % tp:
             raise ValueError(f"{cfg.name}: model={tp} does not divide "
                              f"{what} = {n}; tensor parallelism splits it "

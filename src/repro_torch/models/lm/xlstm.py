@@ -15,10 +15,23 @@ The stabiliser starts at -1e30, so the first step's old state is scaled
 by ``exp(-1e30 - m) = 0``. sLSTM is a sequential loop over positions with
 per-head recurrent matrices, as the reference's scan is; each step takes
 its four gates' recurrent products in one batched product.
+
+Tensor parallel over ``model`` (training only), each rank its heads:
+mLSTM's ``up`` packs the cell input and the output gate ``z`` side by
+side, so it is used whole and each rank takes its columns of both
+halves; the conv runs on them, ``wq``, ``wk``, ``wv`` read the whole
+conv output and cell input (gathered over ``model``) into the rank's
+heads, ``wgate`` is whole and each rank takes its heads' gates, and the
+row-parallel ``down``'s partial output is summed over ``model``. sLSTM's
+gate projections and recurrent matrices serve the rank's heads (``wo`` is
+stored split by rows, so it too is used whole and sliced), the cell's
+output is gathered whole for ``out_norm``, and its FFN is tensor parallel
+as the dense MLP.
 """
 from __future__ import annotations
 
 import math
+import types
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +39,9 @@ from torch import nn
 
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Linear, Norm, apply_norm, \
-    causal_conv, gelu, linear, normal, sigmoid, silu
+    causal_conv, linear, mlp_apply, normal, row_linear, sigmoid, silu
+from repro_torch.models.lm.sharding import check_train_only, \
+    copy_to_model, gather_from_model, model_slice, tp_size
 
 NEG = -1e30
 
@@ -156,25 +171,38 @@ def mlstm_block(p: MLSTM, cfg: LMConfig, x, *, cache=None, mode="train"):
     """cache = {"C", "n", "m" (f32), "conv"}; returns (y, new_cache)."""
     b, t, _ = x.shape
     nh = cfg.mlstm_heads
+    ud = 2 * cfg.d_model
+    dk = ud // nh
+    tp = tp_size() > 1
     xn = apply_norm(p.norm, x, cfg.norm_eps)
-    up = linear(p.up, xn)
-    ud = up.shape[-1] // 2
-    xm, z = up[..., :ud], up[..., ud:]
+    if tp:   # this rank's columns of the cell input and of z
+        check_train_only(mode, "mLSTM")
+        xn = copy_to_model(xn)
+        cols = model_slice(ud)
+        up = xn @ torch.cat([p.up.w[:, cols],
+                             p.up.w[:, ud + cols.start:ud + cols.stop]], 1)
+        heads = model_slice(nh)
+    else:
+        up = linear(p.up, xn)
+        heads = slice(0, nh)
+    xm, z = up.chunk(2, dim=-1)
     conv_state = cache.get("conv") if cache else None
     xc, conv_tail = causal_conv(p.conv_w, p.conv_b, xm, conv_state)
     xc = silu(xc)
-    q = linear(p.wq, xc).reshape(b, t, nh, ud // nh)
-    k = linear(p.wk, xc).reshape(b, t, nh, ud // nh)
-    v = linear(p.wv, xm).reshape(b, t, nh, ud // nh)
-    gates = linear(p.wgate, xc).float()
-    ig, fg = gates[..., :nh], gates[..., nh:]
+    xc_all = gather_from_model(xc, partial=True) if tp else xc
+    xm_all = gather_from_model(xm, partial=True) if tp else xm
+    q = linear(p.wq, xc_all).reshape(b, t, -1, dk)
+    k = linear(p.wk, xc_all).reshape(b, t, -1, dk)
+    v = linear(p.wv, xm_all).reshape(b, t, -1, dk)
+    gates = linear(p.wgate, xc_all).float()
+    ig, fg = gates[..., heads], gates[..., nh + heads.start:nh + heads.stop]
     if mode == "decode":
         h, carry = mlstm_recurrent(q, k, v, ig, fg,
                                    (cache["C"], cache["n"], cache["m"]))
     else:
         h, carry = mlstm_chunkwise(q, k, v, ig, fg, chunk=128)
     h = apply_norm(p.head_norm, h.to(x.dtype), cfg.norm_eps)
-    out = linear(p.down, h.reshape(b, t, ud) * silu(z))
+    out = row_linear(p.down, h.reshape(b, t, -1) * silu(z))
     new_cache = None
     if mode in ("prefill", "decode"):
         new_cache = {"C": carry[0], "n": carry[1], "m": carry[2],
@@ -208,10 +236,14 @@ class SLSTM(nn.Module):
 
 def slstm_cell(p: SLSTM, cfg: LMConfig, x, carry=None):
     """x: (b, t, d); a sequential loop over t. carry = (c, n, h, m), each
-    (b, nh, dh) f32. Returns (h (b, t, d) in x's dtype, carry)."""
+    (b, nh, dh) f32. Returns (h (b, t, d) in x's dtype, carry). Under
+    tensor parallelism ``nh`` is this rank's heads and ``h`` their
+    ``nh·dh`` columns."""
     b, t, d = x.shape
-    nh = cfg.slstm_heads
-    dh = d // nh
+    dh = d // cfg.slstm_heads
+    heads = model_slice(cfg.slstm_heads)
+    nh = heads.stop - heads.start
+    cols = slice(heads.start * dh, heads.stop * dh)
     if carry is None:
         zero = torch.zeros((b, nh, dh), dtype=torch.float32, device=x.device)
         carry = (zero, zero, zero,
@@ -220,9 +252,12 @@ def slstm_cell(p: SLSTM, cfg: LMConfig, x, carry=None):
     c, n, h, m = carry
     # input projections of every position, (t, b, nh, 4·dh) in gate order
     # z, i, f, o; the recurrent matrices side by side, (nh, dh, 4·dh)
-    wx = torch.cat([linear(getattr(p, f"w{g}"), x).reshape(b, t, nh, dh)
+    def proj(w):    # this rank's heads of a whole (stored row-split) w
+        return x @ (w.w if w.w.shape[1] == nh * dh else w.w[:, cols])
+    wx = torch.cat([proj(getattr(p, f"w{g}")).reshape(b, t, nh, dh)
                     .float() for g in "zifo"], dim=-1).transpose(0, 1)
-    r = torch.cat([getattr(p, f"r{g}").float() for g in "zifo"], dim=-1)
+    r = torch.cat([getattr(p, f"r{g}")[heads].float() for g in "zifo"],
+                  dim=-1)
     hs = []
     for i in range(t):
         pre = wx[i] + torch.einsum("bhd,hde->bhe", h, r)
@@ -237,20 +272,27 @@ def slstm_cell(p: SLSTM, cfg: LMConfig, x, carry=None):
         h = ot * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
-    out = torch.stack(hs, dim=1).reshape(b, t, d).to(x.dtype)
+    out = torch.stack(hs, dim=1).reshape(b, t, nh * dh).to(x.dtype)
     return out, (c, n, h, m)
 
 
 def slstm_block(p: SLSTM, cfg: LMConfig, x, *, cache=None, mode="train"):
     """cache = {"c", "n", "h", "m"} (f32); returns (y, new_cache)."""
     xn = apply_norm(p.norm, x, cfg.norm_eps)
+    tp = tp_size() > 1
+    if tp:
+        check_train_only(mode, "sLSTM")
+        xn = copy_to_model(xn)
     carry = None
     if cache is not None and mode == "decode":
         carry = (cache["c"], cache["n"], cache["h"], cache["m"])
     h, carry = slstm_cell(p, cfg, xn, carry)
+    if tp:   # out_norm and what follows it run alike on every rank
+        h = gather_from_model(h)
     h = apply_norm(p.out_norm, h, cfg.norm_eps)
-    g = gelu(linear(p.ffn_gate, h)) * linear(p.ffn_up, h)
-    out = linear(p.ffn_down, g)
+    ffn = types.SimpleNamespace(gate=p.ffn_gate, up=p.ffn_up,
+                                down=p.ffn_down)
+    out = mlp_apply(ffn, h, "geglu")
     new_cache = None
     if mode in ("prefill", "decode"):
         new_cache = dict(zip(("c", "n", "h", "m"), carry))

@@ -7,9 +7,10 @@ them; prefill and decode run under ``torch.inference_mode``.
 
 ``make_sharded_train_step`` is the train step on a (data × model) mesh,
 one process per rank (the reference jits its one step with the mesh's
-shardings): FSDP over the batch axes for every family, tensor parallelism
-over ``model`` for the dense family, the reference's global RSC block
-selection, and a vocab-parallel cross-entropy. ``abstract_state`` and
+shardings): FSDP over the batch axes and tensor parallelism over
+``model`` for every family (heads, ffn columns, experts, the LRU width;
+``models.lm.sharding``), the reference's global RSC block selection, and
+a vocab-parallel cross-entropy. ``abstract_state`` and
 ``abstract_cache`` size a cell on the ``meta`` device, allocating nothing.
 """
 from __future__ import annotations
@@ -184,8 +185,8 @@ def make_sharded_train_step(cfg: LMConfig, opt: Adam, mesh,
     share, completed by the reductions of ``gather_params``), accumulated
     in f32 over the microbatches and divided by their count as the
     reference does; the loss returned is the global mean, equal on every
-    rank. Raises if ``cfg`` cannot run tensor parallel on the mesh's
-    ``model`` axis (``check_tensor_parallel``)."""
+    rank. Raises if ``model`` does not divide a dimension of ``cfg`` that
+    tensor parallelism splits whole (``check_tensor_parallel``)."""
     check_tensor_parallel(cfg, mesh)
     dp = mesh.axis_size(mesh.dp_axes)
 
@@ -199,6 +200,8 @@ def make_sharded_train_step(cfg: LMConfig, opt: Adam, mesh,
         sizes = {"batch": per * dp, "heads": cfg.n_heads,
                  "kv_heads": cfg.n_kv, "vocab": cfg.vocab,
                  "embed": cfg.d_model}
+        if cfg.moe is not None:
+            sizes["experts"] = cfg.moe.n_routed
         gsum, lsum = None, 0.0
         with mesh_context(mesh, TRAIN_RULES, sizes):
             for i in range(n_microbatches):

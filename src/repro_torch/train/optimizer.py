@@ -49,9 +49,14 @@ def clip_by_global_norm(grads: Tensors, max_norm: float,
     (a bf16 gradient times the reference's f32 scale is f32 there too),
     and the global norm ``sqrt(Σ g²)`` (f32, left on the device; over a
     mesh, ``shardings`` as ``global_sq_norm`` takes them)."""
-    gn = torch.sqrt(global_sq_norm(grads, shardings))
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+    scale, gn = _clip_scale(grads, max_norm, shardings)
     return {k: g.float() * scale for k, g in grads.items()}, gn
+
+
+def _clip_scale(grads: Tensors, max_norm: float, shardings=None):
+    """``min(1, max_norm / max(norm, 1e-12))`` and the global norm."""
+    gn = torch.sqrt(global_sq_norm(grads, shardings))
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0), gn
 
 
 @torch.no_grad()
@@ -82,15 +87,18 @@ class Adam:
         moments are updated in place. On a mesh the tensors are this
         rank's blocks (Adam is elementwise) and ``shardings`` say how, for
         the clip's global norm."""
+        scale = None
         if self.clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, self.clip_norm, shardings)
+            # clip_by_global_norm leaf by leaf: no clipped copy of every
+            # gradient is held at once
+            scale, _ = _clip_scale(grads, self.clip_norm, shardings)
         count = state["count"] + 1
         # bias corrections in f32, as the reference computes them
         b1c = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(count))
         b2c = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(count))
         steps = {}
         for k, g in grads.items():
-            g32 = g.float()
+            g32 = g.float() if scale is None else g.float() * scale
             m = state["m"][k].mul_(self.b1).add_((1 - self.b1) * g32)
             v = state["v"][k].mul_(self.b2).add_((1 - self.b2) * g32 * g32)
             mh, vh = m / b1c, v / b2c

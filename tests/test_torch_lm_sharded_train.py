@@ -35,9 +35,13 @@ asserted by its own test:
     whole arrays and placed on (2, 1) and (1, 1), gathers back bit for
     bit (parameters and moments); one more step on each new mesh tracks
     the reference's third step within the limits of (a);
-(e) no fallback: a non-dense family on (1, 2) raises, naming its module;
-    a dense config whose query heads ``model`` does not divide raises,
-    naming the dimension.
+(e) no fallback: a config with a dimension that tensor parallelism
+    splits whole per rank and ``model`` does not divide raises, naming
+    the dimension: query heads (dense and MLA), experts, the shared
+    experts' width, the LRU width, mLSTM and sLSTM heads.
+
+The non-dense families on the ``model`` axis are held against the
+reference in ``test_torch_lm_sharded_families.py``.
 """
 import dataclasses
 import functools
@@ -412,17 +416,28 @@ def test_elastic_reshard_is_exact_and_continues(result, target):
 
 
 # ------------------------------------------------------------ (e) raises
-@pytest.mark.parametrize("arch,match", [
-    ("deepseek-v2-lite-16b", "models/lm/mla.py"),
-    ("xlstm-125m", "models/lm/xlstm.py"),
-    ("recurrentgemma-9b", "models/lm/rglru.py"),
-    ("llama-3.2-vision-11b", "cross_attention"),
-    ("musicgen-medium", "embedding inputs"),
-])
-def test_non_dense_family_on_model_axis_raises(arch, match):
+def _moe(cfg, **kw):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **kw))
+
+
+@pytest.mark.parametrize("arch,change,model,match", [
+    ("deepseek-v2-lite-16b", lambda c: _moe(c, n_routed=6), 4, "n_routed"),
+    ("deepseek-v2-236b", lambda c: _moe(c, d_expert=30), 4, "d_expert"),
+    ("recurrentgemma-9b", lambda c: dataclasses.replace(c, lru_width=66),
+     4, "lru_width"),
+    ("xlstm-125m", lambda c: dataclasses.replace(c, mlstm_heads=3), 2,
+     "mlstm_heads"),
+    ("xlstm-125m", lambda c: dataclasses.replace(c, slstm_heads=2), 4,
+     "slstm_heads"),
+    ("deepseek-v2-lite-16b", lambda c: dataclasses.replace(
+        c, n_heads=6, n_kv=6), 4, r"n_heads \(MLA heads\)"),
+], ids=["n_routed", "d_expert", "lru_width", "mlstm_heads", "slstm_heads",
+        "mla_heads"])
+def test_model_axis_not_dividing_a_dimension_raises(arch, change, model,
+                                                    match):
     with pytest.raises(ValueError, match=match):
-        make_sharded_train_step(_cfg(arch), Adam(),
-                                Mesh((1, 2), ("data", "model")))
+        make_sharded_train_step(change(_cfg(arch)), Adam(),
+                                Mesh((1, model), ("data", "model")))
 
 
 def test_heads_model_does_not_divide_raise():
