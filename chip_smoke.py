@@ -294,17 +294,43 @@ without the final ``{"ok": true, ...}`` line:
     parameter and moment bytes against the spec's share, peak memory,
     step time and host-clock collectives; the kernel against its plain
     version on the path's own operands and timed at those shapes;
+13d. serving on the same mesh and ranks (after 13c), under
+    ``DECODE_RULES`` (the KV cache sequence parallel over ``model``),
+    through ``make_sharded_prefill_step``, ``launch.serve.sharded_graft``
+    and ``make_sharded_decode_step``. (a) the 10 architectures' f32 smoke
+    configs (cross gates 0.5), 4 rows, a prompt of 14 or 13 positions
+    (``model`` does not divide 13: the prefill's cache is whole on each
+    rank), grafted into 32 positions, 4 decode steps fed seeded tokens
+    (the write crosses into ``model`` rank 1's block at position 16;
+    recurrentgemma's 16-slot ring wraps there), against the one-process
+    prefill / graft / decode on the card: logits within 1e-5 of the row's
+    max |logit| (or twice the one-process run's own move from weights one
+    unit in the last place away: xLSTM), the caches gathered back within
+    the same rule, each rank's blocks of the sanitized spec's shape, MoE
+    routing equal along each ``model`` line. (b) qwen3-1.7b at its
+    published widths, bf16, phase 13's seed: 4 rows (2 a data rank), a
+    4,096-token prompt, 8 tokens, ``max_len`` 4,104 (2,052 positions a
+    ``model`` rank) through ``launch.serve.sharded_generate``, teacher-
+    forced with the one-process ``greedy_generate``'s tokens: every
+    step's logits within 5e-2 of the row's max |logit|; the greedy tokens
+    reported with the first step at which they differ, if any, and the
+    one-process top-2 margin there; 28 ``flash_attention`` launches a
+    rank, all ``wgmma`` at 8 / 4 heads and hd 128, the first held against
+    its plain version on its own q / k / v and timed with its bound and
+    SDPA's time; each rank's cache bytes = the spec's share; peak memory,
+    prefill, graft and decode seconds, host-clock collectives;
 15. print each slice's JSON line (``slice``, ``bcoo_spmm_shapes``,
     ``frontend_slice``,
     ``gnn_train_slice``, ``gnn_models_slice``, ``minibatch_slice``,
     ``obs_slice``, ``dp_slice``, ``lm_slice``, ``lm_families_slice``,
     ``lm_train_slice``, ``lm_mesh_slice`` with 13c's ``families`` and
-    ``moe_full_width``), the build report, the kernel
+    ``moe_full_width`` and 13d's ``serve``), the build report, the kernel
     line (with the
     variant each kernel ran on its main path; ``bcoo_spmm``'s launches are
     the three models' serving and RSC training runs', the frontend's, the
     minibatch run's, phase 8e's and both ranks' of phase 8f (b);
-    ``flash_attention``'s qwen3-1.7b's and the families' of phase 10b;
+    ``flash_attention``'s qwen3-1.7b's, the families' of phase 10b and
+    every rank's of 13d;
     ``gather_matmul``'s phase 13's and every rank's of phase 13b (b)
     and of 13c (a) and (b)),
     the card line and, last, the result line.
@@ -449,6 +475,31 @@ MOE_FULL = ("deepseek-v2-lite-16b", 4, 4096, 2)   # arch, batch, seq, mb
 MOE_FULL_LAYERS = 2
 MOE_FULL_STEPS = 1
 MOE_SNAPSHOT = ROOT / "build" / "phase13c_params.pt"
+# Phase 13d: serving on MESH through the sharded prefill, graft and decode
+# steps (DECODE_RULES: the KV cache sequence parallel over model), on the
+# ranks of 13b / 13c. (a) the 10 architectures' f32 smoke configs (cross
+# gates 0.5), SERVE_SMALL's batch, a prompt of 14 positions, or 13 for
+# every second architecture (model = 2 does not divide 13: the prefill's
+# cache is whole on each rank), grafted into SERVE_SMALL's max_len and fed
+# SERVE_SMALL's decode tokens (seeded, the same for both runs, so a near-
+# tie cannot fork them), against the one-process prefill / graft / decode
+# on the card: logits within SERVE_TOL of the row's max |logit|, or twice
+# the one-process run's own move from weights one unit in the last place
+# away where that is more (the xLSTM smoke model's logits move ~4e-5 that
+# way), and the caches gathered back within the same rule. (b) SERVE_FULL:
+# qwen3-1.7b at its published widths (bf16, phase 13's seed) against the
+# one-process greedy_generate on the card; its max_len gives each model
+# rank 2,052 positions, so the prompt spans both blocks and the generated
+# tokens land on rank 1. Its logits within SERVE_BF16_TOL of the row's max
+# |logit|: the mesh sums the row-parallel products' bf16 partial outputs
+# over model and the softmax in other orders, ~2^-8 relative per rounding
+# through 28 layers.
+SERVE_ARCHS = ["qwen3-1.7b", "qwen2-0.5b", "qwen3-32b",
+               "internlm2-20b"] + MESH_FAMILIES
+SERVE_SMALL = (4, 32, 4)       # batch, max_len, decode steps
+SERVE_TOL = 1e-5
+SERVE_FULL = ("qwen3-1.7b", 4, 4096, 8)   # arch, batch, prompt, tokens
+SERVE_BF16_TOL = 5e-2
 # The small GNN training run held on the card against the CPU: the graph
 # and model of tests/test_torch_gnn_train.py's trajectory (GCN 2 × 48,
 # block 32, so tf32x3; batchnorm; dropout 0; RSC at budget 0.3; 30 epochs).
@@ -4007,9 +4058,9 @@ def mesh_full_rank(group, mesh, snapshot: str, cfg, shape: tuple,
 
 
 def mesh_rank(group, starts: dict, snapshot: str, family_starts: dict,
-              moe_snapshot: str) -> dict:
-    """Phases 13b and 13c on one of the 4 ranks: 13b (a) and (b), then
-    13c (a) and (b)."""
+              moe_snapshot: str, serve_inputs: dict, serve_feed) -> dict:
+    """Phases 13b, 13c and 13d on one of the 4 ranks: 13b (a) and (b),
+    13c (a) and (b), then 13d (a) and (b)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import Mesh
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4026,8 +4077,18 @@ def mesh_rank(group, starts: dict, snapshot: str, family_starts: dict,
     torch.cuda.empty_cache()
     moe = mesh_full_rank(group, meshes[MESH], moe_snapshot,
                          moe_full_config(), MOE_FULL[1:], MOE_FULL_STEPS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve_small = mesh_serve_small_rank(meshes[MESH], serve_inputs)
+    serve_small_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve_full = mesh_serve_full_rank(group, meshes[MESH], serve_feed)
     return {"rank": group.rank, "small": small, "full": full,
-            "families": families, "moe_full": moe}
+            "families": families, "moe_full": moe,
+            "serve_small": serve_small, "serve_full": serve_full,
+            "serve_s": {"small": serve_small_s,
+                        "full": time.perf_counter() - t0}}
 
 
 def mesh_small_reference(ops, gmod, dev) -> tuple[dict, dict]:
@@ -4088,18 +4149,19 @@ def _tree_leaves(tree) -> list:
 
 
 def lm_mesh_phase(train_losses: list, ops, gmod, dev, smi: str,
-                  family_starts: dict) -> tuple[dict, list]:
+                  family_starts: dict, serve_inputs: dict,
+                  serve_feed) -> tuple[dict, list]:
     """Phase 13b: the one-process references, then the 4 ranks (which
-    go on to 13c with ``family_starts`` and MOE_SNAPSHOT); every check of
-    (a) and (b) against their results. Returns 13b's slice and the
-    ranks' results."""
+    go on to 13c with ``family_starts`` and MOE_SNAPSHOT, and to 13d with
+    ``serve_inputs`` and ``serve_feed``); every check of (a) and (b)
+    against their results. Returns 13b's slice and the ranks' results."""
     from repro_torch.distributed import launch, plan_group
     starts, refs = mesh_small_reference(ops, gmod, dev)
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     ranks = launch(mesh_rank, (starts, str(MESH_SNAPSHOT), family_starts,
-                               str(MOE_SNAPSHOT)),
+                               str(MOE_SNAPSHOT), serve_inputs, serve_feed),
                    plan=plan_group(4, force_host_devices=4, device=str(dev)),
                    threads=2)
     run_s = time.perf_counter() - t0
@@ -4575,6 +4637,363 @@ def lm_mesh_moe_check(ranks: list, ref: dict, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------- serving on a mesh
+
+class FlashTap:
+    """Stands in for ``kernels.ops.flash_attention`` while a run is
+    driven: every call passes through (and launches, and is counted, as
+    before); the first call's q, k, v and window are kept."""
+
+    def __enter__(self):
+        import importlib
+        self.mod = importlib.import_module("repro_torch.kernels.ops")
+        self.inner, self.first, self.shapes = self.mod.flash_attention, \
+            None, []
+        self.mod.flash_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.inner
+
+    def __call__(self, q, k, v, **kw):
+        if self.first is None:
+            self.first = (q.detach().clone(), k.detach().clone(),
+                          v.detach().clone(), kw.get("window"))
+        self.shapes.append((tuple(q.shape), tuple(k.shape)))
+        return self.inner(q, k, v, **kw)
+
+
+def serve_one_process(cfg, tree, batch: dict, feed, dev) -> dict:
+    """13d (a)'s one-process run on the card: prefill, graft into
+    SERVE_SMALL's max_len, a decode step per column of ``feed``; every
+    step's logits and the caches after the prefill and the last step
+    (numpy, the reference's layout)."""
+    from repro_torch import convert
+    from repro_torch.launch import serve
+    from repro_torch.train.lm_steps import make_decode_step, \
+        make_prefill_step
+    rows, max_len, _ = SERVE_SMALL
+    net = convert.lm_params_from_numpy(cfg, tree, dev)
+    logits, cache = make_prefill_step(cfg)(
+        net, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    out = {"logits": [logits.cpu().numpy()],
+           "caches": [convert.lm_cache_to_numpy(cache, cfg)]}
+    cache = serve.graft(cfg, cache, rows, max_len, dev)
+    decode = make_decode_step(cfg)
+    for i in range(feed.shape[1]):
+        logits, cache = decode(net, cache, {"tokens": torch.from_numpy(
+            feed[:, i:i + 1]).to(dev)})
+        out["logits"].append(logits.cpu().numpy())
+    out["caches"].append(convert.lm_cache_to_numpy(cache, cfg))
+    return out
+
+
+def mesh_serve_reference(dev) -> tuple[dict, dict, dict]:
+    """13d's one-process runs on the card: (a) each architecture's f32
+    smoke config from its seeded parameters and from those one unit in
+    the last place away; (b) SERVE_FULL's greedy_generate, every step's
+    logits kept. Returns the ranks' inputs (numpy) and both records."""
+    from repro_torch import convert
+    from repro_torch.configs import get_arch, make_batch, smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models.lm.backbone import init_params
+    rows, _, n_dec = SERVE_SMALL
+    rng = np.random.default_rng(1)
+    inputs, refs = {}, {}
+    for i, arch in enumerate(SERVE_ARCHS):
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        net = init_params(cfg, seed=0, device="cpu")
+        set_gates(net)
+        tree = convert.lm_params_to_numpy(net, cfg)
+        batch = {k: v.numpy() for k, v in make_batch(
+            cfg, "prefill_32k", rows, 14 - i % 2, seed=i).items()}
+        feed = rng.integers(0, cfg.vocab, (rows, n_dec)).astype(np.int32)
+        inputs[arch] = (tree, batch, feed)
+        refs[arch] = [serve_one_process(cfg, t, batch, feed, dev)
+                      for t in (tree, _nudge_tree(tree, rng))]
+    arch, b, t, gen = SERVE_FULL
+    cfg = get_arch(arch)
+    net = init_params(cfg, seed=0, device=dev)
+    prompt = make_batch(cfg, "prefill_32k", b, t, seed=0, device=dev)
+    toks, stats, rec = serve.greedy_generate(cfg, net, prompt, t + gen,
+                                             gen, keep_logits=True)
+    logits = [rec["logits"]["prefill"]] + rec["logits"]["steps"]
+    full = {"tokens": toks.numpy(), "stats": stats,
+            "logits": [x[:, -1].float().cpu().numpy() for x in logits]}
+    del net, prompt, rec, logits
+    torch.cuda.empty_cache()
+    say(f"[mesh serve reference] {arch} bf16 batch {b} x {t} + {gen} "
+        f"tokens, one process: prefill {stats['prefill_s']:.3f} s, decode "
+        f"{stats['decode_s']:.3f} s; the f32 smoke configs of "
+        f"{len(SERVE_ARCHS)} architectures")
+    return inputs, refs, full
+
+
+def mesh_serve_small_rank(mesh, inputs: dict) -> dict:
+    """13d (a) on one rank: each architecture's sharded prefill, graft
+    and decode steps, launch counts set to 0 just before and read just
+    after; its logits, gathered caches (first rank), blocks against the
+    spec's share and MoE routing."""
+    from repro_torch import convert
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import sharded_graft
+    from repro_torch.train.lm_steps import abstract_cache, local_batch, \
+        make_sharded_decode_step, make_sharded_prefill_step
+    dev = mesh.device
+    rows, max_len, _ = SERVE_SMALL
+    out = {}
+    for arch in SERVE_ARCHS:
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        tree, batch, feed = inputs[arch]
+        state = convert.lm_sharded_from_numpy(cfg, tree, mesh, dev)
+        mine = local_batch({k: torch.from_numpy(v).to(dev)
+                            for k, v in batch.items()}, mesh)
+        fed = local_batch({"f": torch.from_numpy(feed).to(dev)}, mesh)["f"]
+        prefill = make_sharded_prefill_step(cfg, mesh)
+        decode = make_sharded_decode_step(cfg, mesh)
+        ops.reset_launch_counts()
+        shapes_ok = []
+        with RouteTap() as routes:
+            logits, cache = prefill(state, mine)
+            got = {"logits": [logits.cpu().numpy()], "caches": [
+                convert.lm_sharded_cache_to_numpy(cfg, cache, mesh)]}
+            whole = abstract_cache(cfg, rows, cache["max_len"],
+                                   cfg.local_window)
+            shapes_ok.append(cache_blocks_ok(cfg, mesh, cache, whole))
+            cache = sharded_graft(cfg, cache, max_len, mesh)
+            for i in range(feed.shape[1]):
+                logits, cache = decode(state, cache,
+                                       {"tokens": fed[:, i:i + 1]})
+                got["logits"].append(logits.cpu().numpy())
+        got["caches"].append(convert.lm_sharded_cache_to_numpy(cfg, cache,
+                                                               mesh))
+        shapes_ok.append(cache_blocks_ok(cfg, mesh, cache, abstract_cache(
+            cfg, rows, max_len)))
+        got.update(shapes_ok=all(shapes_ok), routes=routes.log,
+                   launches=ops.launch_counts()["flash_attention"],
+                   data_index=mesh.index(mesh.dp_axes))
+        out[arch] = got
+        del state, cache
+    return out
+
+
+def cache_blocks_ok(cfg, mesh, cache: dict, whole: dict) -> bool:
+    """Whether every block of this rank's ``cache`` has the shape the
+    sanitized cache spec gives it of the ``whole`` (abstract) cache."""
+    from repro_torch.convert import lm_cache_shardings
+    sh = lm_cache_shardings(cfg, mesh, whole)["layers"]
+    return all(tuple(t.shape) == sh[i][k].local_shape(
+        tuple(whole["layers"][i][k].shape))
+        for i, c in enumerate(cache["layers"]) for k, t in c.items())
+
+
+def mesh_serve_full_rank(group, mesh, feed) -> dict:
+    """13d (b) on one rank: SERVE_FULL through ``sharded_generate``,
+    teacher-forced with the one-process tokens ``feed``, launch counts and
+    collective statistics set to 0 just before and read just after; the
+    rank's cache bytes against the spec's share, peak memory, and the
+    first flash call's q / k / v held against the plain version and timed
+    (first rank)."""
+    from repro_torch.configs import get_arch, make_batch
+    from repro_torch.convert import lm_cache_shardings
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.launch.serve import sharded_generate
+    from repro_torch.models.lm.backbone import init_sharded_params
+    from repro_torch.train.lm_steps import abstract_cache, local_batch
+    arch, b, t, gen = SERVE_FULL
+    cfg = get_arch(arch)
+    dev = mesh.device
+    state = init_sharded_params(cfg, mesh, seed=0, device=dev)
+    prompt = local_batch(make_batch(cfg, "prefill_32k", b, t, seed=0,
+                                    device=dev), mesh)
+    fed = local_batch({"f": torch.as_tensor(feed)}, mesh)["f"]
+    group.barrier()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    with FlashTap() as tap:
+        toks, stats, rec = sharded_generate(cfg, state, prompt, t + gen, gen,
+                                            mesh, feed=fed, keep_logits=True)
+    counts = ops.launch_counts()
+    by_var = ops.launch_counts_by_variant()["flash_attention"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    cache = rec["cache"]
+    whole = abstract_cache(cfg, b, t + gen)
+    sh = lm_cache_shardings(cfg, mesh, whole)["layers"]
+    cache_bytes = sum(x.numel() * x.element_size()
+                      for c in cache["layers"] for x in c.values())
+    spec_bytes = sum(math.prod(sh[i][k].local_shape(tuple(x.shape)))
+                     * x.element_size()
+                     for i, c in enumerate(whole["layers"])
+                     for k, x in c.items())
+    full_bytes = sum(math.prod(x.shape) * x.element_size()
+                     for c in whole["layers"] for x in c.values())
+    logits = [rec["logits"]["prefill"]] + rec["logits"]["steps"]
+    coll = {"prefill": rec["collectives"]["prefill"],
+            "graft": rec["collectives"]["graft"],
+            "decode_per_step": {
+                op: {k: v / (gen - 1) for k, v in st.items()}
+                for op, st in rec["collectives"]["decode"].items()}}
+    del rec, cache, state
+    torch.cuda.empty_cache()
+    row = None
+    group.barrier()
+    if group.rank == 0:    # the other ranks wait at the next barrier
+        q, k, v, window = tap.first
+        row = flash_row(q, k, v, fmod, flash_attention_ref, None, reps=20,
+                        window=window)
+    group.barrier()
+    return {"tokens": toks.numpy(), "stats": stats,
+            "logits": [x[:, -1].float().cpu().numpy() for x in logits],
+            "launches": counts, "flash_by_variant": by_var,
+            "flash_shapes": sorted(set(tap.shapes)),
+            "collectives": coll,
+            "peak_mem_bytes": peak, "cache_bytes": cache_bytes,
+            "spec_cache_bytes": spec_bytes, "full_cache_bytes": full_bytes,
+            "flash_row": row, "data_index": mesh.index(mesh.dp_axes)}
+
+
+def _within(got, want, own, tol: float) -> tuple[bool, float]:
+    """Whether each row (last axis) of ``got`` is within ``tol`` of the
+    row's max |value| of ``want``, or within twice ``own``'s move from
+    ``want`` where that is more (``own`` None: ``tol`` alone); and the
+    largest error in units of the row's max."""
+    scale = np.abs(want).max(-1, keepdims=True)
+    lim = np.maximum(tol * scale, 2 * np.abs(own - want).max(
+        -1, keepdims=True)) if own is not None else tol * scale
+    err = np.abs(got - want)
+    return bool((err <= lim).all()), float((err / np.maximum(
+        scale, 1e-30)).max())
+
+
+def _flat_leaves(tree) -> list:
+    return [x.reshape(1, -1) for x in _tree_leaves(tree)]
+
+
+def lm_mesh_serve_check(ranks: list, inputs: dict, refs: dict, full: dict,
+                        smi: str) -> dict:
+    """13d's checks against the one-process runs on the card; returns
+    the ``serve`` entry of ``lm_mesh_slice``."""
+    rows, max_len, n_dec = SERVE_SMALL
+    per = rows // MESH[0]
+    out = {"mesh": MESH, "small": {}, "launches": 0,
+           "rank_s": [r["serve_s"] for r in ranks]}
+    for arch in SERVE_ARCHS:
+        ref, own = refs[arch]
+        got = [r["serve_small"][arch] for r in ranks]
+        worst = 0.0
+        for r, g in enumerate(got):
+            lo = g["data_index"] * per
+            if not g["shapes_ok"]:
+                raise AssertionError(f"13d {arch}: rank {r}'s cache blocks "
+                                     "are not its spec's share")
+            for i, (x, w, o) in enumerate(zip(g["logits"], ref["logits"],
+                                              own["logits"])):
+                ok, err = _within(x, w[lo:lo + per], o[lo:lo + per],
+                                  SERVE_TOL)
+                if not ok:
+                    raise AssertionError(f"13d {arch}: rank {r}'s step {i} "
+                                         f"logits differ by {err:.3e} of "
+                                         "the row's max")
+                worst = max(worst, err)
+            out["launches"] += g["launches"]
+        cache_err = 0.0
+        for i in range(2):
+            for x, w, o in zip(_flat_leaves(got[0]["caches"][i]),
+                               _flat_leaves(ref["caches"][i]),
+                               _flat_leaves(own["caches"][i])):
+                ok, err = _within(x, w, o, SERVE_TOL)
+                if not ok:
+                    raise AssertionError(f"13d {arch}: a gathered cache "
+                                         f"leaf differs by {err:.3e}")
+                cache_err = max(cache_err, err)
+        for a, b in ((0, 1), (2, 3)):    # the ranks of each model line
+            if len(got[a]["routes"]) != len(got[b]["routes"]) or not all(
+                    torch.equal(x, y) for x, y in zip(got[a]["routes"],
+                                                      got[b]["routes"])):
+                raise AssertionError(f"13d {arch}: MoE routing differs "
+                                     f"between ranks {a} and {b}")
+        t = inputs[arch][1][next(iter(inputs[arch][1]))].shape[1]
+        out["small"][arch] = {"prompt_len": t, "max_logit_err": worst,
+                              "max_cache_err": cache_err,
+                              "flash_launches": [g["launches"] for g in got],
+                              "moe_routings": len(got[0]["routes"])}
+        say(f"[mesh serve] {arch} f32 smoke on {MESH}: prompt {t}, max_len "
+            f"{max_len}, {n_dec} decode steps; logits within {worst:.3e} of "
+            f"the row's max, gathered caches within {cache_err:.3e}, blocks "
+            f"of the spec's shape, flash launches "
+            f"{[g['launches'] for g in got]}, MoE routings "
+            f"{len(got[0]['routes'])} equal along model")
+    # (b)
+    arch, b, t, gen = SERVE_FULL
+    fulls = [r["serve_full"] for r in ranks]
+    per = b // MESH[0]
+    worst, first_diff = [0.0] * (gen), None
+    for r, f in enumerate(fulls):
+        n = f["launches"]["flash_attention"]
+        if n != 28 or f["flash_by_variant"].get("wgmma", 0) != n \
+                or f["launches"]["gather_matmul"] or \
+                f["launches"]["bcoo_spmm"]:
+            raise AssertionError(f"13d rank {r}: launches {f['launches']}, "
+                                 f"flash by variant {f['flash_by_variant']}"
+                                 "; expected 28 wgmma flash launches")
+        want_shapes = [((per, t, 8, 128), (per, t, 4, 128))]
+        if f["flash_shapes"] != want_shapes:
+            raise AssertionError(f"13d rank {r}: flash shapes "
+                                 f"{f['flash_shapes']}")
+        if f["cache_bytes"] != f["spec_cache_bytes"]:
+            raise AssertionError(f"13d rank {r}: {f['cache_bytes']} cache "
+                                 f"bytes, the spec's share is "
+                                 f"{f['spec_cache_bytes']}")
+        lo = f["data_index"] * per
+        for i, (x, w) in enumerate(zip(f["logits"], full["logits"])):
+            ok, err = _within(x, w[lo:lo + per], None, SERVE_BF16_TOL)
+            if not ok:
+                raise AssertionError(f"13d rank {r}: step {i}'s logits "
+                                     f"differ by {err:.3e} of the row's max")
+            worst[i] = max(worst[i], err)
+        mine = full["tokens"][lo:lo + per]
+        diff = np.nonzero((f["tokens"] != mine).any(0))[0]
+        if len(diff) and (first_diff is None or diff[0] < first_diff[0]):
+            i = int(diff[0])
+            top2 = np.sort(full["logits"][i][lo:lo + per], -1)[:, -2:]
+            first_diff = (i, float((top2[:, 1] - top2[:, 0]).min()))
+    row = fulls[0]["flash_row"]
+    per_step = fulls[0]["collectives"]["decode_per_step"]
+    out["full"] = {
+        "arch": arch, "batch": b, "prompt_len": t, "gen": gen,
+        "max_len": t + gen, "card": smi, "max_logit_err_by_step": worst,
+        "first_token_difference": first_diff,
+        "one_process": {"prefill_s": full["stats"]["prefill_s"],
+                        "decode_s": full["stats"]["decode_s"]},
+        "ranks": [{k: f[k] for k in ("stats", "launches", "flash_by_variant",
+                                     "collectives", "peak_mem_bytes",
+                                     "cache_bytes", "spec_cache_bytes",
+                                     "full_cache_bytes")} for f in fulls],
+        "flash_row": row}
+    out["launches"] += sum(f["launches"]["flash_attention"] for f in fulls)
+    say(f"[mesh serve full] {arch} bf16 on {MESH} ({smi}): batch {b} x {t} "
+        f"+ {gen} tokens, max_len {t + gen}; logits within "
+        f"{max(worst):.3e} of the row's max (by step "
+        f"{[round(w, 5) for w in worst]}); greedy tokens "
+        f"{'equal' if first_diff is None else 'first differ at step %d (one-process top-2 margin %.3e)' % first_diff}"
+        f"; flash per rank {[f['launches']['flash_attention'] for f in fulls]}"
+        f" (all wgmma at 8 / 4 heads, hd 128); prefill s "
+        f"{[round(f['stats']['prefill_s'], 3) for f in fulls]}, graft s "
+        f"{[round(f['stats']['graft_s'], 3) for f in fulls]}, decode ms per "
+        f"token {[round(f['stats']['decode_s'] / (gen - 1) * 1e3, 1) for f in fulls]}"
+        f" (one process: prefill {full['stats']['prefill_s']:.3f} s, decode "
+        f"{full['stats']['decode_s'] / (gen - 1) * 1e3:.1f} ms per token); "
+        f"peak GiB {[round(f['peak_mem_bytes'] / 2 ** 30, 2) for f in fulls]}"
+        f"; cache bytes per rank {fulls[0]['cache_bytes']} of "
+        f"{fulls[0]['full_cache_bytes']}; rank 0 collectives per decode "
+        f"step {json.dumps(per_step)}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=0.1,
@@ -4749,13 +5168,22 @@ def main(argv=None) -> int:
     t13c = time.perf_counter() - t13c
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_slice, mesh_ranks = lm_mesh_phase(train_losses, ops, gmod, dev,
-                                           smi, family_starts)
+    t13d = time.perf_counter()
+    serve_inputs, serve_refs, serve_full = mesh_serve_reference(dev)
+    t13d = time.perf_counter() - t13d
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_slice, mesh_ranks = lm_mesh_phase(
+        train_losses, ops, gmod, dev, smi, family_starts, serve_inputs,
+        serve_full["tokens"])
     mesh_slice["families"] = lm_mesh_families_check(
         mesh_ranks, family_starts, family_refs)
     mesh_slice["moe_full_width"] = lm_mesh_moe_check(mesh_ranks, moe_ref,
                                                      smi)
     mesh_slice["phase13c_reference_s"] = t13c
+    mesh_slice["serve"] = lm_mesh_serve_check(mesh_ranks, serve_inputs,
+                                              serve_refs, serve_full, smi)
+    mesh_slice["serve"]["reference_s"] = t13d
     del mesh_ranks
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -4782,7 +5210,8 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:31",
         "variant": flash_rows[0]["variant"],
-        "launches": flash_launches + family_launches,
+        "launches": flash_launches + family_launches
+        + mesh_slice["serve"]["launches"],
         "max_abs_err": flash_rows[0]["max_abs_err"],
         "ms": flash_rows[0]["ms"], "plain_ms": flash_rows[0]["plain_ms"],
         "bound_ms": flash_rows[0]["bound_ms"],

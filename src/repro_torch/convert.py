@@ -541,3 +541,94 @@ def _numpy_tree(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_numpy_tree(v) for v in tree)
     return tree.float().numpy()
+
+
+# ------------------------------------------------------------ LM caches
+def lm_cache_to_numpy(cache: dict, cfg) -> dict:
+    """A whole cache of the port (``{"layers": [one dict per layer],
+    "len"}``) in the reference's layout: ``prefix``, ``blocks`` (stacked
+    over the repeats), ``suffix`` and ``len``, f32 numpy leaves."""
+    named = {f"layers.{i}.{k}": t for i, c in enumerate(cache["layers"])
+             for k, t in c.items()}
+    return {**_numpy_tree(lm_tree(named, cfg)),
+            "len": np.int32(cache["len"])}
+
+
+def lm_cache_shardings(cfg, mesh, cache: dict) -> dict:
+    """A ``launch.shardings.Sharding`` for every leaf of the port's
+    ``cache`` (whole shapes: numpy or ``meta`` leaves; ``{"layers",
+    "len"}``) on ``mesh``: the reference's ``cache_shardings`` of each
+    layer (a stacked block's spec without its leading None), batch over
+    the mesh's batch axes that divide the rows, sanitized against the
+    layer's shapes as ``sanitize_shardings`` does (an axis the mesh does
+    not divide is whole)."""
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.launch.shardings import P, Sharding, cache_shardings, \
+        sanitize_shardings
+    rows = next(iter(cache["layers"][0].values())).shape[0]
+    ref = cache_shardings(cfg, mesh, dp_axes(mesh, rows))
+    n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
+    body = cfg.repeats * n_pat
+    out = []
+    for i, layer in enumerate(cache["layers"]):
+        if i < n_pre:
+            specs = ref["prefix"][i]
+        elif i < n_pre + body:
+            specs = {k: Sharding(mesh, P(*s.spec[1:])) for k, s in
+                     ref["blocks"][(i - n_pre) % n_pat].items()}
+        else:
+            specs = ref["suffix"][i - n_pre - body]
+        out.append(sanitize_shardings(specs, layer))
+    return {"layers": out, "len": Sharding(mesh, P())}
+
+
+def _full_length(layers: list, cfg) -> int | None:
+    """The sequence length of the first full-attention (or MLA) cache,
+    None where the model has none."""
+    for kind, c in zip(cfg.layer_plan(), layers):
+        if kind in ("attn", "attn_moe"):
+            return int(c["ckv" if "ckv" in c else "k"].shape[1])
+    return None
+
+
+def lm_sharded_cache_from_numpy(cfg, tree: dict, mesh,
+                                device="cuda") -> dict:
+    """This rank's blocks of the reference's whole cache ``tree`` (numpy,
+    its layout: ``prefix``, stacked ``blocks``, ``suffix``, ``len``) on
+    ``mesh`` (bound), as the sharded decode step takes them: ``{"layers":
+    [one dict per layer], "len", "max_len"}`` (``max_len`` the global
+    length of the full-attention caches), each leaf cut by
+    ``lm_cache_shardings`` and cast to the port's cache dtype."""
+    from repro_torch.distributed.elastic import reshard_tree
+    from repro_torch.models.lm.backbone import layer_cache
+    mesh.device = resolve_device(device)
+    layers = [{k: np.asarray(v, np.float32) for k, v in c.items()}
+              for c in _unstack(tree, cfg)]
+    blocks = reshard_tree(layers, lm_cache_shardings(
+        cfg, mesh, {"layers": layers})["layers"])
+    dtypes = {kind: {k: t.dtype for k, t in
+                     layer_cache(cfg, kind, 1, 1, "meta").items()}
+              for kind in set(cfg.layer_plan())}
+    return {"layers": [{k: t.to(dtypes[kind][k]) for k, t in c.items()}
+                       for kind, c in zip(cfg.layer_plan(), blocks)],
+            "len": int(tree["len"]), "max_len": _full_length(layers, cfg)}
+
+
+def lm_sharded_cache_to_numpy(cfg, cache: dict, mesh) -> dict | None:
+    """The inverse of ``lm_sharded_cache_from_numpy``: every rank's blocks
+    of a sharded cache gathered into the reference's whole cache (f32
+    numpy, its layout), on the mesh's first rank; ``None`` on the others.
+    Every rank of the mesh must call it."""
+    from repro_torch.distributed.elastic import gather_tree
+    from repro_torch.train.lm_steps import abstract_cache
+    layers = cache["layers"]
+    some = next(iter(layers[0].values()))
+    rows = some.shape[0] * mesh.axis_size(mesh.dp_axes)
+    ring = next((int(c["pos"].shape[0]) for c in layers if "pos" in c),
+                None)
+    whole = abstract_cache(cfg, rows, cache.get("max_len") or 1, ring)
+    full = gather_tree({"layers": layers, "len": cache["len"]},
+                       lm_cache_shardings(cfg, mesh, whole))
+    if mesh.rank != mesh.ranks[0]:
+        return None
+    return lm_cache_to_numpy(full, cfg)

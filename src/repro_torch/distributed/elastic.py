@@ -48,12 +48,14 @@ def reshard_tree(tree, targets):
 def gather_tree(tree, shardings):
     """The inverse of ``reshard_tree`` with ``Sharding`` targets: every
     leaf's blocks all-gathered over the mesh axes of its spec into the
-    whole array, on every rank of the mesh (each must call it)."""
+    whole array, on every rank of the mesh (each must call it). A leaf
+    that is no tensor (a cache's ``len``, a host int) is whole already."""
     if isinstance(tree, dict):
         return {k: gather_tree(v, shardings[k]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(gather_tree(v, s) for v, s in zip(tree, shardings))
-    if tree is None or not isinstance(shardings, Sharding):
+    if not isinstance(tree, torch.Tensor) or \
+            not isinstance(shardings, Sharding):
         return tree
     x = tree.detach()
     for d, a in enumerate(shardings.spec):

@@ -259,8 +259,8 @@ def _layer_cache_spec(cfg: LMConfig, kind: str, dp, mesh: Mesh) -> dict:
 def cache_shardings(cfg: LMConfig, mesh: Mesh, dp) -> dict:
     """The decode caches' shardings in the reference's cache layout
     (``prefix`` and ``suffix`` lists, ``blocks`` stacked over the
-    repeats with a leading None, ``len``). Host-side only: the port's
-    decode does not run sharded yet."""
+    repeats with a leading None, ``len``); ``convert.lm_cache_shardings``
+    lays them over the port's per-layer caches for sharded serving."""
     def layer(kind, stacked=False):
         specs = _layer_cache_spec(cfg, kind, dp, mesh)
         return {k: Sharding(mesh, P(None, *s) if stacked else s)

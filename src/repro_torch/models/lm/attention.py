@@ -15,7 +15,10 @@ Caches (one dict per layer):
   cross : {"k","v": (b, S_cross, n_kv, hd)} computed once at prefill and
           read as they are in decode.
 Decode writes the new token's k/v into the cache in place and returns the
-same dict; the reference returns updated copies.
+same dict; the reference returns updated copies. On a mesh under
+``DECODE_RULES`` each rank holds its ``kv_seq`` block of a cache's
+positions (slots), and decode attention is sequence parallel
+(``decode_attention`` with ``mesh``).
 """
 from __future__ import annotations
 
@@ -28,8 +31,9 @@ from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Linear, Norm, apply_norm, \
     apply_rope, linear, row_linear
-from repro_torch.models.lm.sharding import check_train_only, \
-    copy_to_model, current_mesh, shard, tp_size
+from repro_torch.models.lm.sharding import copy_to_model, current_mesh, \
+    gather_heads, kv_seq_block, kv_seq_length, kv_seq_slice, shard, \
+    softmax_over_model, tp_size
 
 class Attention(nn.Module):
     """Projections ``wq, wk, wv, wo`` (``x @ w`` layout), with
@@ -134,12 +138,25 @@ def decode_attention(
     kv_positions: torch.Tensor,  # (S,) absolute (-1 ⇒ invalid)
     q_position: int | None,
     window: int | None = None,
+    mesh=None,
 ) -> torch.Tensor:
-    """Single-token attention over the whole cache, in f32."""
+    """Single-token attention over the whole cache, in f32.
+
+    With ``mesh`` it is sequence parallel, as the reference's docstring
+    has it: ``q`` holds this rank's query heads, ``k`` / ``v`` /
+    ``kv_positions`` this rank's block of the cache's sequence (every kv
+    head); the queries are gathered over ``model``, every head is scored
+    against the block, the softmax is merged over ``model``
+    (``sharding.softmax_over_model``) and the rank's heads of the output
+    are returned. The scores and probabilities stay on their rank: the
+    only traffic is the queries, the row maxima and sums, and the f32
+    partial outputs, all ``(b, heads)``-sized."""
     b, _, nq, hd = q.shape
     nkv, hv = k.shape[2], v.shape[-1]
-    g = nq // nkv
-    qf = (q.float() * hd ** -0.5).reshape(b, nkv, g, hd)
+    qf = q.float() * hd ** -0.5
+    if mesh is not None:
+        qf = gather_heads(qf, mesh)
+    qf = qf.reshape(b, nkv, -1, hd)
     s = torch.einsum("bkgh,bskh->bkgs", qf, k.float())
     ok = kv_positions >= 0
     if q_position is not None:
@@ -147,9 +164,14 @@ def decode_attention(
         if window is not None:
             ok &= kv_positions > q_position - window
     s = torch.where(ok, s, torch.full((), NEG_INF, device=s.device))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskh->bkgh", p, v.float())
-    return out.reshape(b, 1, nq, hv).to(q.dtype)
+    if mesh is None:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgs,bskh->bkgh", p, v.float())
+        return out.reshape(b, 1, nq, hv).to(q.dtype)
+    out = softmax_over_model(
+        s, lambda p: torch.einsum("bkgs,bskh->bkgh", p, v.float()), mesh)
+    h0 = mesh.index("model") * nq
+    return out.reshape(b, 1, -1, hv)[:, :, h0:h0 + nq].to(q.dtype)
 
 
 def _project_qkv(p: Attention, cfg: LMConfig, x, positions):
@@ -172,12 +194,14 @@ def _local_kv(cfg: LMConfig, k, v, nq_local: int, mesh):
     """The kv heads this rank's query heads read (GQA: global query head
     ``h`` reads kv head ``h // (n_heads / n_kv)``), in the grouping
     ``flash_attention`` expects: a slice when the local heads cover
-    whole groups, else one kv head per query head."""
+    whole groups or lie in one group, else one kv head per query head."""
     g = cfg.n_heads // cfg.n_kv
     h0 = mesh.index("model") * nq_local
     if nq_local % g == 0:
         return (k[:, :, h0 // g:(h0 + nq_local) // g],
                 v[:, :, h0 // g:(h0 + nq_local) // g])
+    if g % nq_local == 0:
+        return k[:, :, h0 // g:h0 // g + 1], v[:, :, h0 // g:h0 // g + 1]
     ids = (torch.arange(h0, h0 + nq_local, device=k.device) // g)
     return k[:, :, ids], v[:, :, ids]
 
@@ -207,49 +231,74 @@ def self_attention(
 ):
     """Returns (out, new_cache). Modes: train | prefill | decode.
 
-    Under a mesh context with ``model`` > 1 (training only) the layer is
-    tensor parallel: ``wq`` holds this rank's query heads, ``wk`` / ``wv``
-    are whole (kv heads replicated, ``TRAIN_RULES["kv_heads"]``), each
-    local query head reads its own kv head, and the row-parallel ``wo``'s
-    partial output is summed over ``model``."""
+    Under a mesh context with ``model`` > 1 the layer is tensor parallel:
+    ``wq`` holds this rank's query heads, ``wk`` / ``wv`` are whole (kv
+    heads replicated, ``kv_heads`` of the rules), each local query head
+    reads its own kv head, and the row-parallel ``wo``'s partial output
+    is summed over ``model``. Serving (``DECODE_RULES``) keeps the cache
+    sequence parallel: prefill caches this rank's ``kv_seq`` block of the
+    whole k/v (every kv head; the ring buffer's block of slots), decode
+    writes the new token where its position (slot) falls, on that rank
+    only, updates the replicated ``pos`` on every rank, and attends with
+    ``decode_attention``'s sequence-parallel merge. Where ``model`` does
+    not divide the axis the cache is whole on every rank and decode
+    attends over it with the rank's heads alone."""
     b, t, _ = x.shape
     mesh = current_mesh()
     tp = tp_size(mesh) > 1
     if tp:
-        check_train_only(mode, "attention")
         x = copy_to_model(x)
     q, k, v = _project_qkv(p, cfg, x, positions)
     shard(q, "batch", "seq", "heads", None)
     shard(k, "batch", "seq", "kv_heads", None)
-    if tp:
-        k, v = _local_kv(cfg, k, v, q.shape[2], mesh)
 
     if mode == "train":
+        if tp:
+            k, v = _local_kv(cfg, k, v, q.shape[2], mesh)
         out = flash_attention(q, k, v, q_positions=positions,
                               kv_positions=positions, window=window,
                               chunk=cfg.attn_chunk)
         new_cache = None
     elif mode == "prefill":
-        new_cache = {"k": k, "v": v} if window is None \
-            else _ring(cfg, k, v, positions, window)
+        if window is None:
+            new_cache = {"k": kv_seq_block(k, t), "v": kv_seq_block(v, t)}
+        else:
+            new_cache = _ring(cfg, k, v, positions, window)
+            for name in ("k", "v"):
+                new_cache[name] = kv_seq_block(new_cache[name], window)
+        if tp:
+            k, v = (z.contiguous() for z in
+                    _local_kv(cfg, k, v, q.shape[2], mesh))
         out = ops.flash_attention(q, k, v, causal=True, window=window)
     elif mode == "decode":  # t == 1: write into the cache, attend over it
         if cache is None or cache_len is None:
             raise ValueError("decode needs a cache and its length")
         if window is None:
-            cache["k"][:, cache_len] = k[:, 0]
-            cache["v"][:, cache_len] = v[:, 0]
-            kv_pos = torch.arange(cache["k"].shape[1], dtype=torch.int32,
-                                  device=x.device)
-            kv_pos = torch.where(kv_pos <= cache_len, kv_pos, -1)
+            n = kv_seq_length(cache["k"]) if tp else cache["k"].shape[1]
+            sl = kv_seq_slice(n)
+            pos = torch.arange(sl.start, sl.stop, dtype=torch.int32,
+                               device=x.device)
+            kv_pos = torch.where(pos <= cache_len, pos, -1)
+            at = cache_len - sl.start
         else:
-            slot = cache_len % window
-            cache["k"][:, slot] = k[:, 0]
-            cache["v"][:, slot] = v[:, 0]
-            cache["pos"][slot] = cache_len
-            kv_pos = cache["pos"]
-        out = decode_attention(q, cache["k"], cache["v"], kv_pos, cache_len,
-                               window=window)
+            n = cache["pos"].shape[0]
+            sl = kv_seq_slice(n)
+            at = cache_len % window - sl.start
+            cache["pos"][cache_len % window] = cache_len
+            kv_pos = cache["pos"][sl]
+        if 0 <= at < sl.stop - sl.start:   # the rank that holds the slot
+            cache["k"][:, at] = k[:, 0]
+            cache["v"][:, at] = v[:, 0]
+        if not tp:
+            out = decode_attention(q, cache["k"], cache["v"], kv_pos,
+                                   cache_len, window=window)
+        elif sl.stop - sl.start < n:
+            out = decode_attention(q, cache["k"], cache["v"], kv_pos,
+                                   cache_len, window=window, mesh=mesh)
+        else:
+            out = decode_attention(
+                q, *_local_kv(cfg, cache["k"], cache["v"], q.shape[2], mesh),
+                kv_pos, cache_len, window=window)
         new_cache = cache
     else:
         raise ValueError(f"unknown mode {mode!r}")
@@ -264,23 +313,37 @@ def cross_attention(p: Attention, cfg: LMConfig, x, cross_states, *,
     Prefill computes k/v from ``cross_states`` and caches them; decode
     reads them from the cache. Returns (out, new_cache).
 
-    Tensor parallel (training only) as ``self_attention``: ``wq`` holds
-    this rank's query heads, ``wk`` / ``wv`` are whole over the replicated
+    Tensor parallel as ``self_attention``: ``wq`` holds this rank's query
+    heads, ``wk`` / ``wv`` are whole over the replicated
     ``cross_states``, and the gate scales the output after its sum over
-    ``model`` (so the gate's gradient is whole)."""
+    ``model`` (so the gate's gradient is whole). Serving caches this
+    rank's ``kv_seq`` block of the cross states' k/v, and decode merges
+    the softmax over ``model`` as ``self_attention`` does, unmasked."""
     b, t, _ = x.shape
     hd = cfg.hd
     mesh = current_mesh()
     tp = tp_size(mesh) > 1
     if tp:
-        check_train_only(mode, "cross-attention")
         x = copy_to_model(x)
     q = linear(p.wq, x).reshape(b, t, -1, hd)
     shard(q, "batch", "seq", "heads", None)
     if cfg.qk_norm:
         q = apply_norm(p.q_norm, q, cfg.norm_eps)
-    if cache is not None and mode == "decode":
-        k, v = cache["k"], cache["v"]
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("decode needs a cache")
+        n = cfg.cross_seq if tp else cache["k"].shape[1]
+        sl = kv_seq_slice(n)
+        kv_pos = torch.arange(sl.start, sl.stop, dtype=torch.int32,
+                              device=x.device)
+        if tp and sl.stop - sl.start < n:
+            out = decode_attention(q, cache["k"], cache["v"], kv_pos, None,
+                                   mesh=mesh)
+        else:
+            k, v = cache["k"], cache["v"]
+            if tp:
+                k, v = _local_kv(cfg, k, v, q.shape[2], mesh)
+            out = decode_attention(q, k, v, kv_pos, None)
         new_cache = cache
     else:
         s = cross_states.shape[1]
@@ -288,13 +351,11 @@ def cross_attention(p: Attention, cfg: LMConfig, x, cross_states, *,
         v = linear(p.wv, cross_states).reshape(b, s, cfg.n_kv, hd)
         if cfg.qk_norm:
             k = apply_norm(p.k_norm, k, cfg.norm_eps)
-        new_cache = {"k": k, "v": v} if mode == "prefill" else None
-    if tp:
-        k, v = _local_kv(cfg, k, v, q.shape[2], mesh)
-    kv_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
-    if mode == "decode":
-        out = decode_attention(q, k, v, kv_pos, None)
-    else:
+        new_cache = {"k": kv_seq_block(k, s), "v": kv_seq_block(v, s)} \
+            if mode == "prefill" else None
+        if tp:
+            k, v = _local_kv(cfg, k, v, q.shape[2], mesh)
+        kv_pos = torch.arange(s, dtype=torch.int32, device=x.device)
         out = flash_attention(q, k, v, q_positions=None, kv_positions=kv_pos,
                               chunk=cfg.attn_chunk,
                               remat_chunks=(mode == "train"))

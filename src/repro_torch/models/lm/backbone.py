@@ -44,8 +44,9 @@ from repro_torch.models.lm.layers import MLP, Linear, Norm, apply_norm, \
 from repro_torch.models.lm.mla import MLA, mla_attention
 from repro_torch.models.lm.moe import MoE, moe_apply
 from repro_torch.models.lm.rglru import RGLRU, rglru_block
-from repro_torch.models.lm.sharding import copy_to_model, gather_params, \
-    gather_plan, reduce_from_model, shard, tp_size
+from repro_torch.models.lm.sharding import copy_to_model, \
+    gather_from_model, gather_params, gather_plan, reduce_from_model, \
+    shard, tp_size
 from repro_torch.models.lm.xlstm import MLSTM, SLSTM, mlstm_block, \
     slstm_block
 
@@ -88,10 +89,16 @@ class Block(nn.Module):
             raise ValueError(f"unknown layer kind {kind!r}")
 
     def forward(self, cfg: LMConfig, h, positions, rsc=None,
-                cross_states=None):
-        """The layer's training forward (what ``torch.func.functional_call``
-        runs with a mesh rank's gathered parameters)."""
-        return _train_layer(self, cfg, h, positions, rsc, cross_states)
+                cross_states=None, mode="train", cache=None,
+                cache_len=None):
+        """The layer's forward (what ``torch.func.functional_call`` runs
+        with a mesh rank's gathered parameters): ``h`` in training, ``(h,
+        new_cache)`` in prefill and decode."""
+        if mode == "train":
+            return _train_layer(self, cfg, h, positions, rsc, cross_states)
+        return layer_apply(self, cfg, self.kind, h, positions, cache=cache,
+                           cache_len=cache_len, cross_states=cross_states,
+                           mode=mode, rsc=rsc)
 
 
 class LM(nn.Module):
@@ -133,10 +140,11 @@ def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> LM:
 # ------------------------------- cache --------------------------------------
 
 def layer_cache(cfg: LMConfig, kind: str, batch: int, max_len: int,
-                device) -> dict:
+                device, ring: int | None = None) -> dict:
     """An empty cache of one layer, in the reference's dtypes: attention
     and RG-LRU states in the model dtype, mLSTM's ``C``, ``n``, ``m`` and
-    sLSTM's states in f32 (``m`` at -1e30)."""
+    sLSTM's states in f32 (``m`` at -1e30). A local layer's ring holds
+    ``min(local_window, max_len)`` slots, or ``ring``."""
     dt = getattr(torch, cfg.dtype)
 
     def zeros(*shape, dtype=dt):
@@ -153,7 +161,7 @@ def layer_cache(cfg: LMConfig, kind: str, batch: int, max_len: int,
         return {"k": zeros(batch, max_len, nkv, hd),
                 "v": zeros(batch, max_len, nkv, hd)}
     if kind == "local":
-        w = min(cfg.local_window, max_len)
+        w = ring or min(cfg.local_window, max_len)
         return {"k": zeros(batch, w, nkv, hd), "v": zeros(batch, w, nkv, hd),
                 "pos": torch.full((w,), -1, dtype=torch.int32, device=device)}
     if kind == "cross":
@@ -357,25 +365,37 @@ def vocab_parallel_embed(tokens: torch.Tensor, emb: torch.Tensor,
 
 
 def _sharded_layer(state: ShardedLM, i: int, rsc, h, positions,
-                   cross_states):
+                   cross_states, mode="train", cache=None, cache_len=None):
     blk = state.skeleton.layers[i]
     names = [n for n, _ in blk.named_parameters()]
     params = dict(zip(names, state.compute(*(f"layers.{i}.{n}"
                                               for n in names))))
     return torch.func.functional_call(
         blk, params, (state.cfg, h, positions),
-        {"rsc": rsc, "cross_states": cross_states})
+        {"rsc": rsc, "cross_states": cross_states, "mode": mode,
+         "cache": cache, "cache_len": cache_len})
 
 
 def forward_sharded(state: ShardedLM, *, tokens=None, embeds=None,
-                    cross_states=None, rsc: dict | None = None):
-    """The training forward of this rank's rows on the mesh installed by
+                    cross_states=None, rsc: dict | None = None,
+                    cache: dict | None = None, mode: str = "train",
+                    last_only: bool = False):
+    """The forward of this rank's rows on the mesh installed by
     ``models.lm.sharding.mesh_context`` (FSDP over the batch axes, tensor
-    parallelism over ``model``): this rank's logits,
-    f32 ``(rows, t, vocab / model)``, its vocab rows' share under tensor
-    parallelism. Each layer gathers its parameters on entry (inside the
-    layer's checkpoint with ``cfg.remat``, so the backward gathers them
-    again instead of keeping them)."""
+    parallelism over ``model``; each layer gathers its parameters on
+    entry).
+
+    ``mode="train"`` returns this rank's logits, f32 ``(rows, t, vocab /
+    model)``, its vocab rows' share under tensor parallelism; with
+    ``cfg.remat`` each layer's gather runs inside its checkpoint, so the
+    backward gathers the parameters again instead of keeping them.
+    ``prefill`` and ``decode`` (under ``DECODE_RULES``) return ``(logits,
+    new_cache)`` as ``forward`` does: the logits gathered whole over
+    ``model`` (f32 ``(rows, t or 1, vocab)``), the cache this rank's
+    blocks, one dict per layer (``{"layers", "len"}``); decode embeds its
+    token vocab-parallel."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     cfg = state.cfg
     emb = None
     if embeds is not None:
@@ -384,21 +404,44 @@ def forward_sharded(state: ShardedLM, *, tokens=None, embeds=None,
         emb, = state.compute("embed")
         h = vocab_parallel_embed(tokens, emb, state.mesh)
     shard(h, "batch", "seq", "embed")
-    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
-    for i in range(len(state.skeleton.layers)):
-        fn = functools.partial(_sharded_layer, state, i, rsc)
-        if cfg.remat:
-            h = checkpoint(fn, h, positions, cross_states,
-                           use_reentrant=False)
-        else:
-            h = fn(h, positions, cross_states)
+    cache_len = cache["len"] if cache is not None else None
+    if mode == "decode":
+        positions = torch.tensor([cache_len], dtype=torch.int32,
+                                 device=h.device)
+    else:
+        positions = torch.arange(h.shape[1], dtype=torch.int32,
+                                 device=h.device)
+    new_cache = None
+    if mode == "train":
+        for i in range(len(state.skeleton.layers)):
+            fn = functools.partial(_sharded_layer, state, i, rsc)
+            if cfg.remat:
+                h = checkpoint(fn, h, positions, cross_states,
+                               use_reentrant=False)
+            else:
+                h = fn(h, positions, cross_states)
+    else:
+        new_cache = {"layers": [], "len": h.shape[1] if cache_len is None
+                     else cache_len + h.shape[1]}
+        for i in range(len(state.skeleton.layers)):
+            h, c = _sharded_layer(
+                state, i, rsc, h, positions, cross_states, mode,
+                cache["layers"][i] if cache is not None else None,
+                cache_len)
+            new_cache["layers"].append(c)
     names = [n for n, _ in state.skeleton.final_norm.named_parameters()]
     norm = types.SimpleNamespace(**{"b": None, **dict(zip(names, state.compute(
         *(f"final_norm.{n}" for n in names))))})
-    h = copy_to_model(apply_norm(norm, h, cfg.norm_eps))
+    h = apply_norm(norm, h, cfg.norm_eps)
+    if last_only:
+        h = h[:, -1:]
+    h = copy_to_model(h)
     if state.skeleton.unembed is None:
         emb = emb if emb is not None else state.compute("embed")[0]
         logits = h.float() @ emb.float().T
     else:
         logits = (h @ state.compute("unembed.w")[0]).float()
-    return shard(logits, "batch", "seq", "vocab")
+    logits = shard(logits, "batch", "seq", "vocab")
+    if mode == "train":
+        return logits
+    return gather_from_model(logits), new_cache

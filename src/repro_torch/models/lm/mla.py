@@ -12,12 +12,17 @@ Decode uses the absorbed form in f32: ``W_uk`` folded into the query and
 Queries come through ``w_q`` or, with ``q_lora`` (deepseek-v2-236b),
 through ``w_dq`` → ``q_norm`` → ``w_uq``.
 
-Tensor parallel over ``model`` (training only): ``w_q`` / ``w_uq``,
-``w_uk`` and ``w_uv`` hold this rank's heads (a contiguous block of their
-columns is whole heads in the order the reshapes below read them), the
-latents (``w_dkv``, ``w_kr``, ``kv_norm``) and the query's down-projection
+Tensor parallel over ``model``: ``w_q`` / ``w_uq``, ``w_uk`` and
+``w_uv`` hold this rank's heads (a contiguous block of their columns is
+whole heads in the order the reshapes below read them), the latents
+(``w_dkv``, ``w_kr``, ``kv_norm``) and the query's down-projection
 (``w_dq``, ``q_norm``) are whole on every rank, and the row-parallel
-``wo``'s partial output is summed over ``model``.
+``wo``'s partial output is summed over ``model``. Serving keeps the
+latent cache sequence parallel (``DECODE_RULES``): prefill caches this
+rank's ``kv_seq`` block of ``ckv`` / ``krope``; absorbed decode gathers
+every head's ``q_eff`` and ``q_rope`` over ``model`` (one collective),
+scores them against the rank's latents, merges the softmax over
+``model`` and keeps its heads' ``out_lat`` for its ``w_uv`` heads.
 """
 from __future__ import annotations
 
@@ -29,8 +34,9 @@ from repro_torch.models.lm.attention import flash_attention
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Linear, Norm, apply_norm, \
     apply_rope, linear, row_linear
-from repro_torch.models.lm.sharding import check_train_only, \
-    copy_to_model, shard, tp_size
+from repro_torch.models.lm.sharding import copy_to_model, current_mesh, \
+    gather_heads, kv_seq_block, kv_seq_length, kv_seq_slice, shard, \
+    softmax_over_model, tp_size
 
 
 class MLA(nn.Module):
@@ -80,14 +86,49 @@ def _latents(p: MLA, cfg: LMConfig, x, positions):
     return ckv, krope
 
 
+def absorbed_attention(q_eff, q_rope, ckv, krope, kv_positions,
+                       q_position: int, scale: float, mesh=None):
+    """The absorbed form's attention of one query token: ``q_eff`` (b, 1,
+    h, kv_lora; ``W_uk`` folded in) and ``q_rope`` (b, 1, h, qk_rope)
+    scored against the latents ``ckv`` (b, S, kv_lora) and ``krope`` (b,
+    S, qk_rope) at ``kv_positions`` (keys past ``q_position`` masked),
+    and the f32 ``out_lat`` (b, 1, h, kv_lora) they weigh.
+
+    With ``mesh`` it is sequence parallel: the latents are this rank's
+    block of the cache, every head's ``q_eff`` and ``q_rope`` are
+    gathered over ``model`` (one collective), scored against the block,
+    the softmax merged over ``model`` (``sharding.softmax_over_model``),
+    and the rank's heads of ``out_lat`` returned."""
+    lora = ckv.shape[-1]
+    ckv, krope = ckv.float(), krope.float()
+    q_all = torch.cat([q_eff.float(), q_rope.float()], -1)
+    if mesh is not None:
+        q_all = gather_heads(q_all, mesh)
+    scores = torch.einsum("bthl,bsl->bths", q_all[..., :lora], ckv)
+    scores = scores + torch.einsum("bthr,bsr->bths", q_all[..., lora:],
+                                   krope)
+    scores = scores * scale
+    scores = torch.where(kv_positions <= q_position, scores,
+                         torch.full((), NEG_INF, device=scores.device))
+    if mesh is None:
+        probs = torch.softmax(scores, dim=-1)
+        return torch.einsum("bths,bsl->bthl", probs, ckv)
+    out = softmax_over_model(
+        scores, lambda p: torch.einsum("bths,bsl->bthl", p, ckv), mesh)
+    h = q_eff.shape[2]
+    h0 = mesh.index("model") * h
+    return out[:, :, h0:h0 + h]
+
+
 def mla_attention(p: MLA, cfg: LMConfig, x, positions, *,
                   cache: dict | None = None, cache_len: int | None = None,
                   mode: str = "train"):
     """Returns (out, new_cache). Modes: train | prefill | decode."""
     m = cfg.mla
     b, t, _ = x.shape
-    if tp_size() > 1:
-        check_train_only(mode, "MLA")
+    mesh = current_mesh()
+    tp = tp_size(mesh) > 1
+    if tp:
         x = copy_to_model(x)
     q_nope, q_rope = _queries(p, cfg, x, positions)
     h = q_nope.shape[2]          # this rank's heads
@@ -102,27 +143,26 @@ def mla_attention(p: MLA, cfg: LMConfig, x, positions, *,
         out = flash_attention(q, k, v, q_positions=positions,
                               kv_positions=positions, chunk=cfg.attn_chunk,
                               remat_chunks=(mode == "train"))
-        new_cache = {"ckv": ckv, "krope": krope} if mode == "prefill" \
-            else None
+        new_cache = {"ckv": kv_seq_block(ckv, t),
+                     "krope": kv_seq_block(krope, t)} \
+            if mode == "prefill" else None
         out = out.reshape(b, t, h * m.v_head)
     elif mode == "decode":   # t == 1: absorbed form against the latents
         if cache is None or cache_len is None:
             raise ValueError("decode needs a cache and its length")
+        n = kv_seq_length(cache["ckv"]) if tp else cache["ckv"].shape[1]
+        sl = kv_seq_slice(n)
         ckv_t, krope_t = _latents(p, cfg, x, positions)
-        cache["ckv"][:, cache_len] = ckv_t[:, 0]
-        cache["krope"][:, cache_len] = krope_t[:, 0]
-        ckv, krope = cache["ckv"].float(), cache["krope"].float()
+        if sl.start <= cache_len < sl.stop:  # the rank that holds it
+            cache["ckv"][:, cache_len - sl.start] = ckv_t[:, 0]
+            cache["krope"][:, cache_len - sl.start] = krope_t[:, 0]
         w_uk = p.w_uk.w.reshape(m.kv_lora, h, m.qk_nope).float()
         q_eff = torch.einsum("bthn,lhn->bthl", q_nope.float(), w_uk)
-        scores = torch.einsum("bthl,bsl->bths", q_eff, ckv)
-        scores = scores + torch.einsum("bthr,bsr->bths", q_rope.float(),
-                                       krope)
-        scores = scores * (m.qk_nope + m.qk_rope) ** -0.5
-        kv_pos = torch.arange(ckv.shape[1], device=x.device)
-        scores = torch.where(kv_pos <= cache_len, scores,
-                             torch.full((), NEG_INF, device=x.device))
-        probs = torch.softmax(scores, dim=-1)
-        out_lat = torch.einsum("bths,bsl->bthl", probs, ckv)
+        kv_pos = torch.arange(sl.start, sl.stop, device=x.device)
+        out_lat = absorbed_attention(
+            q_eff, q_rope, cache["ckv"], cache["krope"], kv_pos, cache_len,
+            (m.qk_nope + m.qk_rope) ** -0.5,
+            mesh if tp and sl.stop - sl.start < n else None)
         w_uv = p.w_uv.w.reshape(m.kv_lora, h, m.v_head).float()
         out = torch.einsum("bthl,lhv->bthv", out_lat, w_uv).to(x.dtype)
         out = out.reshape(b, t, h * m.v_head)

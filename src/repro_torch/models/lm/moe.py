@@ -18,7 +18,9 @@ and the capacity scatter are per batch row:
 
 Experts take no RSC, as in the reference.
 
-Expert parallel over ``model`` (training only): every rank holds the
+Expert parallel over ``model`` in training, prefill and decode (each
+row routes on its own: ``capacity`` counts a row's tokens, so a decode
+step's one token needs no count across ranks): every rank holds the
 whole router and computes the same routing (its input is replicated over
 ``model``; each layer checks that the expert ids agree), runs only the
 ``n_routed / model`` experts it holds (its slots of the dispatch buffer;

@@ -17,12 +17,14 @@ branch (GeLU) × recurrent branch (conv → LRU), merged, then
 down-projected. The parameter ``lambda`` (Λ, f32) is registered under the
 reference's name, a Python keyword.
 
-Tensor parallel over ``model`` (training only): each rank holds its share
-of the LRU width (``in_gate``, ``in_rec``, ``conv_w``, ``conv_b``,
-``lambda`` and the columns of ``wa`` / ``wx``), so the conv and the scan,
+Tensor parallel over ``model``: each rank holds its share of the LRU
+width (``in_gate``, ``in_rec``, ``conv_w``, ``conv_b``, ``lambda`` and the
+columns of ``wa`` / ``wx``), so the conv and the scan (or decode's step),
 which are per channel, run on it; ``wa`` and ``wx`` read the whole conv
 output (gathered over ``model``, its gradient reduce-scattered back), and
-the row-parallel ``out``'s partial output is summed over ``model``.
+the row-parallel ``out``'s partial output is summed over ``model``. The
+cache is the rank's share of the width: ``h`` (b, w/model) and ``conv``
+(b, cw-1, w/model), as ``DECODE_RULES`` lay them out.
 """
 from __future__ import annotations
 
@@ -32,8 +34,8 @@ from torch import nn
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Linear, causal_conv, gelu, \
     linear, normal, row_linear, sigmoid
-from repro_torch.models.lm.sharding import check_train_only, \
-    copy_to_model, gather_from_model, tp_size
+from repro_torch.models.lm.sharding import copy_to_model, \
+    gather_from_model, tp_size
 
 _C = 8.0
 
@@ -106,9 +108,10 @@ def _rg_lru_scan(p: RGLRU, x, x_all=None):
     return y.to(x.dtype), y[:, -1]
 
 
-def _rg_lru_step(p: RGLRU, x, h_prev):
-    """x: (b, 1, w); h_prev: (b, w). Returns (y (b, 1, w), f32 h)."""
-    a, gated = _gates(p, x)
+def _rg_lru_step(p: RGLRU, x, h_prev, x_all=None):
+    """x: (b, 1, w); h_prev: (b, w); the gates read ``x_all`` as in
+    ``_gates``. Returns (y (b, 1, w), f32 h)."""
+    a, gated = _gates(p, x, x_all)
     h = a[:, 0] * h_prev.float() + gated[:, 0]
     return h[:, None].to(x.dtype), h
 
@@ -118,14 +121,15 @@ def rglru_block(p: RGLRU, cfg: LMConfig, x, *, cache=None, mode="train"):
     both in the model dtype. Returns (out, new_cache)."""
     tp = tp_size() > 1
     if tp:
-        check_train_only(mode, "RG-LRU")
         x = copy_to_model(x)
     gate = gelu(linear(p.in_gate, x))
     rec = linear(p.in_rec, x)
     if mode == "decode":
         rec_conv, conv_state = causal_conv(p.conv_w, p.conv_b, rec,
                                            cache["conv"])
-        y, h_last = _rg_lru_step(p, rec_conv, cache["h"])
+        y, h_last = _rg_lru_step(
+            p, rec_conv, cache["h"], gather_from_model(rec_conv, partial=True)
+            if tp else None)
         new_cache = {"h": h_last.to(x.dtype), "conv": conv_state}
     else:
         rec_conv, conv_tail = causal_conv(p.conv_w, p.conv_b, rec)

@@ -24,7 +24,14 @@ The port runs one process per rank, so nothing can be laid out for it:
 * ``gather_from_model`` turns a ``model``-split activation whole (an
   all-gather forward), its backward either this rank's slice of a
   gradient that is whole on every rank, or the reduce-scatter of one
-  that each rank holds only a share of.
+  that each rank holds only a share of;
+* serving under ``DECODE_RULES`` keeps the KV cache sequence parallel
+  (``kv_seq`` over ``model``): ``kv_seq_slice`` is a rank's range of
+  such an axis (the whole axis where ``model`` does not divide it), and
+  decode attention gathers the queries over ``model`` (``gather_heads``)
+  and merges the softmax of the ranks' blocks (``softmax_over_model``:
+  an all-reduce max of the row maxima, then one all-reduce sum of the
+  exponential sums and the f32 partial outputs).
 
 The context is process-wide, not thread-local as in the reference: the
 autograd engine runs a CUDA backward (and the recomputation of a
@@ -120,12 +127,49 @@ def tp_size(mesh=None) -> int:
     return 1 if mesh is None else mesh.axis_size("model")
 
 
-def check_train_only(mode: str, what: str) -> None:
-    """Raise unless ``mode`` is ``train``: the tensor-parallel layers run
-    the training path only."""
-    if mode != "train":
-        raise ValueError(f"tensor-parallel {what} runs the training path "
-                         "only: sharded prefill and decode are not ported")
+def global_size(name: str) -> int | None:
+    """The global size of logical axis ``name`` the current context was
+    given (``mesh_context``'s ``sizes``), or None."""
+    return _STACK[-1][2].get(name) if _STACK else None
+
+
+def kv_seq_slice(n: int) -> slice:
+    """This rank's range of a ``kv_seq`` axis of global length ``n``: its
+    block where the rules split ``kv_seq`` (``DECODE_RULES``: over
+    ``model``) and the mesh divides ``n``, else the whole axis (as
+    ``launch.shardings.sanitize_shardings`` replicates it)."""
+    if not _STACK:
+        return slice(0, n)
+    mesh, rules, _ = _STACK[-1]
+    axes = _axes_in_mesh(mesh, rules.get("kv_seq"))
+    k = mesh.axis_size(axes)
+    if k == 1 or n % k:
+        return slice(0, n)
+    i = mesh.index(axes)
+    return slice(i * n // k, (i + 1) * n // k)
+
+
+def kv_seq_block(x: torch.Tensor, n: int) -> torch.Tensor:
+    """This rank's ``kv_seq`` block (``kv_seq_slice``) of the whole ``x``
+    (b, n, ...): a copy that owns its memory, or ``x`` itself where the
+    axis is not split."""
+    sl = kv_seq_slice(n)
+    return x if sl.stop - sl.start == n else x[:, sl].clone()
+
+
+def kv_seq_length(block: torch.Tensor) -> int:
+    """The global sequence length of a full-attention (or MLA) cache of
+    which ``block`` (b, S, ...) is this rank's share: the context's
+    ``kv_seq`` size, which the sharded serving steps set."""
+    n = global_size("kv_seq")
+    if n is None:
+        raise ValueError("sharded decode needs the cache's global length "
+                         "(mesh_context sizes['kv_seq'])")
+    sl = kv_seq_slice(n)
+    if block.shape[1] != sl.stop - sl.start:
+        raise ValueError(f"a cache block of {block.shape[1]} positions, "
+                         f"this rank's share of {n} is {sl}")
+    return n
 
 
 # ------------------------------------------------------------ TP collectives
@@ -204,6 +248,30 @@ def model_slice(n: int) -> slice:
     k = n // tp
     i = current_mesh().index("model") if tp > 1 else 0
     return slice(i * k, (i + 1) * k)
+
+
+def gather_heads(q: torch.Tensor, mesh, dim: int = 2) -> torch.Tensor:
+    """Every ``model`` rank's heads of ``q`` (split over ``model`` along
+    ``dim``), in rank order: the first collective of sequence-parallel
+    decode, which scores every head against this rank's share of the
+    cache."""
+    return mesh.all_gather(q, "model", dim)
+
+
+def softmax_over_model(s: torch.Tensor, pv, mesh) -> torch.Tensor:
+    """``softmax(s) @ values`` along the last axis of ``s`` (f32 scores,
+    masked to ``NEG_INF``) when each ``model`` rank holds a block of that
+    axis: ``pv(p)`` is the rank's partial product of ``p`` (its block's
+    weights) with its block's values. The row maximum is reduced over
+    ``model`` before any exponential (a rank whose block holds no valid
+    key would otherwise weigh each masked key ``exp(0) = 1``), then the
+    sums of exponentials and the f32 partial products in one all-reduce:
+    the only traffic, all the size of the rows of ``s`` times the
+    values' width."""
+    mx = mesh.all_reduce(s.amax(-1), "model", "max")
+    p = torch.exp(s - mx[..., None])
+    l, acc = mesh.all_reduce_many([p.sum(-1), pv(p)], "model")
+    return acc / l[..., None]
 
 
 def check_same_over_model(t: torch.Tensor, what: str) -> None:

@@ -16,7 +16,7 @@ by ``exp(-1e30 - m) = 0``. sLSTM is a sequential loop over positions with
 per-head recurrent matrices, as the reference's scan is; each step takes
 its four gates' recurrent products in one batched product.
 
-Tensor parallel over ``model`` (training only), each rank its heads:
+Tensor parallel over ``model``, each rank its heads:
 mLSTM's ``up`` packs the cell input and the output gate ``z`` side by
 side, so it is used whole and each rank takes its columns of both
 halves; the conv runs on them, ``wq``, ``wk``, ``wv`` read the whole
@@ -26,7 +26,10 @@ row-parallel ``down``'s partial output is summed over ``model``. sLSTM's
 gate projections and recurrent matrices serve the rank's heads (``wo`` is
 stored split by rows, so it too is used whole and sliced), the cell's
 output is gathered whole for ``out_norm``, and its FFN is tensor parallel
-as the dense MLP.
+as the dense MLP. Serving keeps the cells' states replicated, as
+``DECODE_RULES`` lay them out: each rank's heads' carry is gathered over
+``model`` to store, and decode reads the rank's heads back; the mLSTM's
+conv tail is the rank's columns.
 """
 from __future__ import annotations
 
@@ -40,8 +43,8 @@ from torch import nn
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.layers import Linear, Norm, apply_norm, \
     causal_conv, linear, mlp_apply, normal, row_linear, sigmoid, silu
-from repro_torch.models.lm.sharding import check_train_only, \
-    copy_to_model, gather_from_model, model_slice, tp_size
+from repro_torch.models.lm.sharding import copy_to_model, \
+    gather_from_model, model_slice, tp_size
 
 NEG = -1e30
 
@@ -176,7 +179,6 @@ def mlstm_block(p: MLSTM, cfg: LMConfig, x, *, cache=None, mode="train"):
     tp = tp_size() > 1
     xn = apply_norm(p.norm, x, cfg.norm_eps)
     if tp:   # this rank's columns of the cell input and of z
-        check_train_only(mode, "mLSTM")
         xn = copy_to_model(xn)
         cols = model_slice(ud)
         up = xn @ torch.cat([p.up.w[:, cols],
@@ -197,16 +199,16 @@ def mlstm_block(p: MLSTM, cfg: LMConfig, x, *, cache=None, mode="train"):
     gates = linear(p.wgate, xc_all).float()
     ig, fg = gates[..., heads], gates[..., nh + heads.start:nh + heads.stop]
     if mode == "decode":
-        h, carry = mlstm_recurrent(q, k, v, ig, fg,
-                                   (cache["C"], cache["n"], cache["m"]))
+        h, carry = mlstm_recurrent(q, k, v, ig, fg, tuple(
+            cache[c][:, heads] for c in ("C", "n", "m")))
     else:
         h, carry = mlstm_chunkwise(q, k, v, ig, fg, chunk=128)
     h = apply_norm(p.head_norm, h.to(x.dtype), cfg.norm_eps)
     out = row_linear(p.down, h.reshape(b, t, -1) * silu(z))
     new_cache = None
-    if mode in ("prefill", "decode"):
-        new_cache = {"C": carry[0], "n": carry[1], "m": carry[2],
-                     "conv": conv_tail}
+    if mode in ("prefill", "decode"):   # the carry replicated: every head
+        C, n, m = (gather_from_model(c, 1) for c in carry)
+        new_cache = {"C": C, "n": n, "m": m, "conv": conv_tail}
     return out, new_cache
 
 
@@ -281,11 +283,11 @@ def slstm_block(p: SLSTM, cfg: LMConfig, x, *, cache=None, mode="train"):
     xn = apply_norm(p.norm, x, cfg.norm_eps)
     tp = tp_size() > 1
     if tp:
-        check_train_only(mode, "sLSTM")
         xn = copy_to_model(xn)
     carry = None
     if cache is not None and mode == "decode":
-        carry = (cache["c"], cache["n"], cache["h"], cache["m"])
+        heads = model_slice(cfg.slstm_heads)
+        carry = tuple(cache[c][:, heads] for c in ("c", "n", "h", "m"))
     h, carry = slstm_cell(p, cfg, xn, carry)
     if tp:   # out_norm and what follows it run alike on every rank
         h = gather_from_model(h)
@@ -294,6 +296,7 @@ def slstm_block(p: SLSTM, cfg: LMConfig, x, *, cache=None, mode="train"):
                                 down=p.ffn_down)
     out = mlp_apply(ffn, h, "geglu")
     new_cache = None
-    if mode in ("prefill", "decode"):
-        new_cache = dict(zip(("c", "n", "h", "m"), carry))
+    if mode in ("prefill", "decode"):   # the carry replicated: every head
+        new_cache = {c: gather_from_model(z, 1)
+                     for c, z in zip(("c", "n", "h", "m"), carry)}
     return out, new_cache

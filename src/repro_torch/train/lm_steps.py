@@ -10,8 +10,11 @@ one process per rank (the reference jits its one step with the mesh's
 shardings): FSDP over the batch axes and tensor parallelism over
 ``model`` for every family (heads, ffn columns, experts, the LRU width;
 ``models.lm.sharding``), the reference's global RSC block selection, and
-a vocab-parallel cross-entropy. ``abstract_state`` and
-``abstract_cache`` size a cell on the ``meta`` device, allocating nothing.
+a vocab-parallel cross-entropy. ``make_sharded_prefill_step`` and
+``make_sharded_decode_step`` serve on the same mesh and parameter layout
+under ``DECODE_RULES``, the KV cache sequence parallel over ``model``.
+``abstract_state`` and ``abstract_cache`` size a cell on the ``meta``
+device, allocating nothing.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 from repro_torch.models.lm.backbone import LM, ShardedLM, forward, \
     forward_sharded, layer_cache
 from repro_torch.models.lm.config import LMConfig
-from repro_torch.models.lm.sharding import TRAIN_RULES, \
+from repro_torch.models.lm.sharding import DECODE_RULES, TRAIN_RULES, \
     check_tensor_parallel, mesh_context
 from repro_torch.train.optimizer import Adam, apply_updates
 
@@ -174,6 +177,15 @@ def local_batch(batch: dict, mesh, n_microbatches: int = 1) -> dict:
             for name, x in batch.items()}
 
 
+def _sizes(cfg: LMConfig, rows: int) -> dict:
+    """The global sizes ``shard`` checks, for ``rows`` global batch rows."""
+    sizes = {"batch": rows, "heads": cfg.n_heads, "kv_heads": cfg.n_kv,
+             "vocab": cfg.vocab, "embed": cfg.d_model}
+    if cfg.moe is not None:
+        sizes["experts"] = cfg.moe.n_routed
+    return sizes
+
+
 def make_sharded_train_step(cfg: LMConfig, opt: Adam, mesh,
                             n_microbatches: int = 1,
                             rsc: dict | None = None):
@@ -197,13 +209,8 @@ def make_sharded_train_step(cfg: LMConfig, opt: Adam, mesh,
             raise ValueError(f"{rows} rows are not a multiple of "
                              f"{n_microbatches} microbatches")
         per = rows // n_microbatches
-        sizes = {"batch": per * dp, "heads": cfg.n_heads,
-                 "kv_heads": cfg.n_kv, "vocab": cfg.vocab,
-                 "embed": cfg.d_model}
-        if cfg.moe is not None:
-            sizes["experts"] = cfg.moe.n_routed
         gsum, lsum = None, 0.0
-        with mesh_context(mesh, TRAIN_RULES, sizes):
+        with mesh_context(mesh, TRAIN_RULES, _sizes(cfg, per * dp)):
             for i in range(n_microbatches):
                 mb = {k: x[i * per:(i + 1) * per] for k, x in batch.items()}
                 logits = forward_sharded(state, rsc=rsc, **_fwd_kwargs(mb))
@@ -235,6 +242,62 @@ def make_sharded_train_step(cfg: LMConfig, opt: Adam, mesh,
     return train_step
 
 
+def make_sharded_prefill_step(cfg: LMConfig, mesh):
+    """``prefill_step(state, batch) -> (logits, cache)`` on ``mesh``
+    (bound), the counterpart of ``make_prefill_step`` run under
+    ``DECODE_RULES`` (the reference jits its one prefill step with the
+    mesh's shardings): ``state`` a ``ShardedLM`` in its training layout,
+    ``batch`` this rank's rows (``local_batch``, one microbatch). Returns
+    the last position's logits gathered whole over ``model`` (f32
+    ``(rows, 1, vocab)``, equal on the ranks of a ``model`` line) and this
+    rank's blocks of the cache, laid out as
+    ``convert.lm_cache_shardings`` gives it (the reference's sanitized
+    ``cache_shardings``), with ``"max_len"``: the global length of its
+    sequence-split caches, here the prompt's. Raises as the train step
+    does where ``model`` does not divide a dimension tensor parallelism
+    splits whole (``check_tensor_parallel``)."""
+    check_tensor_parallel(cfg, mesh)
+    dp = mesh.axis_size(mesh.dp_axes)
+
+    def prefill_step(state: ShardedLM, batch: dict):
+        rows, t = next(iter(batch.values())).shape[:2]
+        sizes = dict(_sizes(cfg, rows * dp), kv_seq=t)
+        with torch.inference_mode(), \
+                mesh_context(mesh, DECODE_RULES, sizes):
+            logits, cache = forward_sharded(state, mode="prefill",
+                                            last_only=True,
+                                            **_fwd_kwargs(batch))
+        cache["max_len"] = t
+        return logits, cache
+
+    return prefill_step
+
+
+def make_sharded_decode_step(cfg: LMConfig, mesh):
+    """``decode_step(state, cache, batch) -> (logits, cache)`` on
+    ``mesh``, the counterpart of ``make_decode_step`` under
+    ``DECODE_RULES``: ``cache`` this rank's blocks of a ``max_len`` cache
+    (``launch.serve.sharded_graft``), ``batch`` this rank's rows' tokens
+    ``(rows, 1)``. Attention reads its share of the cache's sequence and
+    merges the softmax over ``model``; the next-token logits come back
+    gathered whole over ``model``, the cache's blocks updated (attention
+    in place, recurrent states replaced)."""
+    check_tensor_parallel(cfg, mesh)
+    dp = mesh.axis_size(mesh.dp_axes)
+
+    def decode_step(state: ShardedLM, cache: dict, batch: dict):
+        rows = next(iter(batch.values())).shape[0]
+        sizes = dict(_sizes(cfg, rows * dp), kv_seq=cache["max_len"])
+        with torch.inference_mode(), \
+                mesh_context(mesh, DECODE_RULES, sizes):
+            logits, new = forward_sharded(state, mode="decode", cache=cache,
+                                          **_fwd_kwargs(batch))
+        new["max_len"] = cache["max_len"]
+        return logits, new
+
+    return decode_step
+
+
 # ------------------------------------------------------------ abstract
 def abstract_state(cfg: LMConfig, opt: Adam):
     """(parameters, optimizer state) on the ``meta`` device: the shapes
@@ -245,8 +308,11 @@ def abstract_state(cfg: LMConfig, opt: Adam):
     return params, opt.init(dict(params.named_parameters()))
 
 
-def abstract_cache(cfg: LMConfig, batch: int, max_len: int) -> dict:
-    """``init_cache``'s caches on the ``meta`` device."""
-    return {"layers": [layer_cache(cfg, k, batch, max_len, "meta")
+def abstract_cache(cfg: LMConfig, batch: int, max_len: int,
+                   ring: int | None = None) -> dict:
+    """``init_cache``'s caches on the ``meta`` device (a local layer's
+    ring of ``ring`` slots when given: a prefill's holds
+    ``cfg.local_window``)."""
+    return {"layers": [layer_cache(cfg, k, batch, max_len, "meta", ring)
                        for k in cfg.layer_plan()],
             "len": 0}
