@@ -243,6 +243,20 @@ without the final ``{"ok": true, ...}`` line:
     ``torch.matmul`` (a yardstick the port never calls) at the path's
     gate/up and down shapes, with the card's bound; report the warm step
     time, tokens/s and peak device memory;
+14b. the dry run against the card (``launch/dryrun.py``): phase 13's
+    step (qwen3-1.7b, bf16, batch 4 × 4,096 in 2 microbatches) run on
+    meta tensors without RSC, as the reference's dry run builds it; its
+    peak beside phase 13's measured ``max_memory_allocated`` (it fails
+    more than ``DRYRUN_UNDER`` below it), their ratio, and the FLOPs of
+    the step that was timed (the dry run's, less the MLP weight-gradient
+    products RSC skips) over phase 13's warm step time as TFLOP/s and as
+    a share of the card's bf16 dense peak; no kernel launches in it. Then
+    the quickstart (``examples/torch_quickstart.py``, its two 120-epoch
+    GCN trainings at its own size, in this process) through
+    ``bcoo_spmm``, with the launch counts set to 0 before it and read
+    after; the output the run got from the first call of each SpMM
+    signature (width, plan length, epilogue) is held against the plain
+    version on that call's inputs (``TOL``);
 13b. LM training on a (data 2, model 2) mesh: 4 gloo ranks sharing the
     card (NCCL refuses two ranks on one GPU), FSDP over ``data`` and
     tensor parallelism over ``model``, through
@@ -323,12 +337,14 @@ without the final ``{"ok": true, ...}`` line:
     ``frontend_slice``,
     ``gnn_train_slice``, ``gnn_models_slice``, ``minibatch_slice``,
     ``obs_slice``, ``dp_slice``, ``lm_slice``, ``lm_families_slice``,
-    ``lm_train_slice``, ``lm_mesh_slice`` with 13c's ``families`` and
+    ``lm_train_slice``, ``dryrun_slice``, ``lm_mesh_slice`` with 13c's
+    ``families`` and
     ``moe_full_width`` and 13d's ``serve``), the build report, the kernel
     line (with the
     variant each kernel ran on its main path; ``bcoo_spmm``'s launches are
     the three models' serving and RSC training runs', the frontend's, the
-    minibatch run's, phase 8e's and both ranks' of phase 8f (b);
+    minibatch run's, phase 8e's, both ranks' of phase 8f (b) and the
+    quickstart's of 14b;
     ``flash_attention``'s qwen3-1.7b's, the families' of phase 10b and
     every rank's of 13d;
     ``gather_matmul``'s phase 13's and every rank's of phase 13b (b)
@@ -344,6 +360,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -592,6 +609,12 @@ FRONTEND_RESIDENT_MB = 4096
 SLOW_LOG = ROOT / "chiprun_out" / "slow.json"
 SLOW_K = 16          # ServeFrontend's default reservoir
 FRONTEND_RTOL = 1e-4
+
+
+# Phase 14b: the dry run's peak may lie at most this far below the
+# measured one (a dry run that under-counts cannot say a cell fits).
+DRYRUN_UNDER = 0.10
+QUICKSTART = ROOT / "examples" / "torch_quickstart.py"
 
 
 def train_argv(microbatches: int) -> list[str]:
@@ -3289,9 +3312,7 @@ def flash_row(q, k, v, fmod, flash_attention_ref, q_chunk, reps,
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, **kw), reps)
     nkv = k.shape[2]
-    w = min(window or t, t)                   # unmasked (q, k) pairs
-    pairs = w * (w + 1) // 2 + (t - w) * w
-    flops = 4 * b * nq * hd * pairs
+    flops = fmod.flops(q.shape, k.shape, window=window)
     es = q.element_size()
     nbytes = (2 * b * t * nq * hd + 2 * b * t * nkv * hd) * es
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -3862,6 +3883,163 @@ def lm_train_timings(out, args, tap, gmod, gather_matmul_ref,
         f"{kernel_s * 1e3:.2f} ms per step "
         f"({warm['gather_matmul_share_of_step']:.4f} of it)")
     return rows, warm
+
+
+def rsc_skipped_flops(cfg, args) -> int:
+    """The FLOPs of the MLP weight-gradient products that RSC skips in
+    one training step of dense ``cfg`` (``train lm`` ``args``): each
+    product contracts ``keep_count`` of its microbatch's 128-token blocks
+    (``core.rsc_matmul``), not all of them."""
+    from repro_torch.core.rsc_matmul import keep_count
+    if cfg.family != "dense" or cfg.moe is not None:
+        raise ValueError(f"{cfg.family}: only a dense MLP's count is kept")
+    bk = 128
+    n = args.batch // args.microbatches * args.seq
+    if n % bk:
+        return 0                       # a ragged tail takes the exact dW
+    skipped = (n // bk - keep_count(n, args.rsc_keep, bk)) * bk
+    products = {"swiglu": 3, "geglu": 3, "gelu": 2}[cfg.mlp]
+    return (args.microbatches * cfg.n_layers * products
+            * 2 * skipped * cfg.d_model * cfg.d_ff)
+
+
+def dryrun_check(dryrun, get_arch, args, warm: dict, peak: int, ops,
+                 smi: str) -> dict:
+    """Phase 14b (a): phase 13's step on meta tensors (no RSC) against
+    the card's run of it: peaks, their ratio, and the FLOPs of the timed
+    RSC step (the dry run's less ``rsc_skipped_flops``) over the measured
+    warm step."""
+    cfg = get_arch(args.arch)
+    ops.reset_launch_counts()
+    rec = dryrun.lower_step(cfg, "train", batch=args.batch,
+                            seq=args.seq, n_microbatches=args.microbatches)
+    launched = ops.launch_counts()
+    ratio = rec["peak_bytes"] / peak
+    skipped = rsc_skipped_flops(cfg, args) if args.rsc else 0
+    step_flops = rec["flops"] - skipped
+    tflops = step_flops / warm["warm_step_s"] / 1e12
+    out = {"arch": args.arch, "batch": args.batch, "seq": args.seq,
+           "microbatches": args.microbatches,
+           "dryrun_peak_bytes": rec["peak_bytes"],
+           "measured_peak_bytes": peak, "ratio": ratio,
+           "dryrun_flops": rec["flops"], "rsc_skipped_flops": skipped,
+           "step_flops": step_flops, "lower_s": rec["lower_s"],
+           "warm_step_s": warm["warm_step_s"], "tflops": tflops,
+           "share_of_bf16_peak": tflops * 1e12 / PEAK_FLOPS[torch.bfloat16],
+           "per_rank": dryrun.per_rank_bytes(
+               get_arch(args.arch), "train", args.batch, args.seq, None),
+           "card_memory_bytes": torch.cuda.get_device_properties(0)
+           .total_memory, "card": smi}
+    say(f"[dryrun] {args.arch} batch {args.batch} x {args.seq}, "
+        f"{args.microbatches} microbatches: dry-run peak "
+        f"{rec['peak_bytes'] / 2 ** 30:.3f} GiB, measured "
+        f"{peak / 2 ** 30:.3f} GiB (ratio {ratio:.4f}); "
+        f"{rec['flops']:.4e} FLOPs without RSC, less RSC's skipped "
+        f"{skipped:.4e}: {step_flops:.4e} over the warm step "
+        f"{warm['warm_step_s']:.4f} s = {tflops:.2f} TFLOP/s, "
+        f"{out['share_of_bf16_peak']:.4f} of the bf16 dense peak; "
+        f"card memory {out['card_memory_bytes']} B ({smi}); "
+        f"run {rec['lower_s']} s on the host")
+    if any(launched.values()):
+        raise AssertionError(f"the dry run launched kernels: {launched}")
+    if ratio < 1 - DRYRUN_UNDER:
+        raise AssertionError(f"the dry run's peak is {1 - ratio:.1%} below "
+                             f"the measured one (limit {DRYRUN_UNDER:.0%})")
+    return out
+
+
+class SpmmFirstCalls:
+    """Stands in for ``bcoo_spmm`` and ``bcoo_spmm_in_range`` (the GNN
+    path's two SpMM entries): every call passes through unchanged (the
+    wrapper still counts its own launches), and the first call of each
+    signature (width, plan length, row blocks, epilogue) keeps copies of
+    its inputs and of the output it returned."""
+
+    NAMES = ("bcoo_spmm", "bcoo_spmm_in_range")
+
+    def __init__(self, kmod):
+        self.kmod, self.calls = kmod, {}
+
+    def __enter__(self):
+        self.inner = {n: getattr(self.kmod, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(self.kmod, n, functools.partial(self._call, n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.inner.items():
+            setattr(self.kmod, n, fn)
+
+    def _call(self, name, *args, **kw):
+        out = self.inner[name](*args, **kw)
+        key = (args[4].shape[1], args[1].shape[0], kw["n_row_blocks"],
+               kw.get("bias") is not None, kw.get("residual") is not None,
+               kw.get("relu", False))
+        if key not in self.calls:
+            def keep(t):
+                return t.detach().clone() if torch.is_tensor(t) else t
+            self.calls[key] = ([keep(a) for a in args],
+                               {k: keep(v) for k, v in kw.items()},
+                               keep(out))
+        return out
+
+
+def quickstart_on_card(ops, kmod, bcoo_spmm_ref,
+                       smi: str) -> tuple[int, dict]:
+    """Phase 14b (b): the quickstart's two trainings on the card, through
+    ``bcoo_spmm``; its launches; the output of each SpMM signature's
+    first call against the plain version on that call's inputs."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("torch_quickstart",
+                                                  QUICKSTART)
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with SpmmFirstCalls(kmod) as tap:
+        base, rsc = qs.run("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    by_var = ops.launch_counts_by_variant()["bcoo_spmm"]
+    errs = []
+    with torch.no_grad():
+        for args, kw, got in tap.calls.values():
+            ref = bcoo_spmm_ref(*args, n_row_blocks=kw["n_row_blocks"],
+                                bm=kw["bm"], bk=kw["bk"],
+                                bias=kw.get("bias"),
+                                residual=kw.get("residual"),
+                                relu=kw.get("relu", False))
+            if got.shape != ref.shape or got.dtype != args[0].dtype:
+                raise AssertionError(f"quickstart SpMM gave {got.dtype} "
+                                     f"{tuple(got.shape)}, plain "
+                                     f"{tuple(ref.shape)}")
+            errs.append(assert_close(got, ref, args[0].dtype))
+    widths = sorted({k[0] for k in tap.calls})
+    out = {"baseline_test": base["best_test"], "rsc_test": rsc["best_test"],
+           "flops_fraction": rsc["flops_fraction"],
+           "refreshes": rsc["cache_stats"].refreshes, "run_s": wall,
+           "launches": counts["bcoo_spmm"], "by_variant": by_var,
+           "signatures_checked": len(errs), "widths": widths,
+           "max_abs_err": max(errs, default=0.0), "card": smi}
+    say(f"[quickstart] baseline test {base['best_test']:.4f}, RSC "
+        f"{rsc['best_test']:.4f}, flops kept {rsc['flops_fraction']:.4f}, "
+        f"{wall:.2f} s, launches {counts}, bcoo_spmm by variant {by_var}; "
+        f"{len(errs)} SpMM signatures (widths {widths}) against the plain "
+        f"version: max abs err {out['max_abs_err']:.3e}")
+    if counts["bcoo_spmm"] == 0 or counts["flash_attention"] \
+            or counts["gather_matmul"]:
+        raise AssertionError(f"quickstart launches {counts}: bcoo_spmm only")
+    if not {64, 10} <= set(widths):
+        raise AssertionError(f"quickstart SpMM widths {widths}: expected "
+                             "the hidden 64 and the 10 classes")
+    if not rsc["best_test"] > base["best_test"] - 0.05:
+        raise AssertionError("the quickstart's RSC run is more than 0.05 "
+                             "below its baseline")
+    if not rsc["flops_fraction"] <= 0.1:
+        raise AssertionError(f"flops_fraction {rsc['flops_fraction']} over "
+                             "the 0.1 budget")
+    return counts["bcoo_spmm"], out
 
 
 class ParamSnapshot:
@@ -5029,7 +5207,7 @@ def main(argv=None) -> int:
     from repro_torch.models.lm.layers import apply_norm
     from repro_torch.kernels import gather_matmul as gmod
     from repro_torch.kernels.ref import gather_matmul_ref
-    from repro_torch.launch import train
+    from repro_torch.launch import dryrun, train
     from repro_torch.launch.profile_serve import kernel_table
     from repro_torch.train.loop import GNNTrainer, TrainConfig
     from repro_torch.train.lm_steps import make_train_step
@@ -5162,6 +5340,12 @@ def main(argv=None) -> int:
     del train_out["params"], tap
     gc.collect()
     torch.cuda.empty_cache()
+    dryrun_slice = {"step": dryrun_check(dryrun, get_arch, train_args,
+                                         train_warm, peak, ops, smi)}
+    qs_launches, dryrun_slice["quickstart"] = quickstart_on_card(
+        ops, kmod, bcoo_spmm_ref, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     t13c = time.perf_counter()
     family_starts, family_refs = mesh_family_reference(ops, gmod, dev)
     moe_ref = moe_full_reference(ops, dev)
@@ -5201,7 +5385,7 @@ def main(argv=None) -> int:
             for m in serving) + obs_gnn["launches"]
         + obs_slice["minibatch"]["launches"]
         + obs_slice["save_serve"]["serve_launches"]
-        + frontend["launches"] + dp_launches,
+        + frontend["launches"] + dp_launches + qs_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": hidden["ms"], "plain_ms": hidden["plain_ms"],
         "bound_ms": hidden["bound_ms"], "bound_by": hidden["bound_by"],
@@ -5261,6 +5445,7 @@ def main(argv=None) -> int:
         "warm": train_warm, "gather_sweep": gather_res,
         "small_reference": train_ref, "path_checks": path_checks,
         "gather_shapes": gather_rows}}))
+    say(json.dumps({"dryrun_slice": dryrun_slice}))
     say(json.dumps({"lm_mesh_slice": mesh_slice}))
     say(json.dumps({"build": build_rep,
                     "total_s": time.perf_counter() - t_start}))

@@ -18,12 +18,22 @@ that lies on the CPU it runs the plain version,
 ``repro_torch.kernels.ref.flash_attention_ref``. Nothing falls back from
 one to the other. ``launches`` counts kernel launches (never plain-version
 calls) and ``launches_by_variant`` splits them by variant.
+
+The wrapper calls the custom op ``torch.ops.repro_torch.flash_attention_fwd``,
+whose implementation is that dispatch. On ``meta`` tensors (the dry run,
+``launch/dryrun.py``) or under a ``FakeTensorMode`` its registered fake
+runs instead: an empty tensor of q's shape and dtype, after the kernel's
+own shape checks; a FLOP counter counts its registered formula
+(``flops``: the operations of the kernel's bound), not the plain
+version's (b, h, q, k) scores.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
@@ -126,6 +136,17 @@ def flash_attention(
     misaligned tensors) and ``RuntimeError`` if the launch fails.
     """
     _check(q, k, v, q_offset, window)
+    return torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, q_offset, bool(causal), window or 0)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         q_offset: int, causal: bool,
+                         window: int) -> torch.Tensor:
+    """The kernel on CUDA tensors, the plain version on CPU tensors
+    (``window`` 0: none)."""
+    window = window or None
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_offset=q_offset, causal=causal,
                                    window=window)
@@ -137,6 +158,42 @@ def flash_attention(
     if q.shape[1] > 0 and q.shape[0] > 0:
         launch(q, k, v, out, q_offset=q_offset, causal=causal, window=window)
     return out
+
+
+@_flash_attention_fwd.register_fake
+def _(q, k, v, q_offset, causal, window):
+    variant(q.dtype, q.shape[3])          # raises where the kernel would
+    if q.shape[0] * q.shape[2] > _GRID_Y_MAX:
+        raise ValueError(f"b * nq = {q.shape[0] * q.shape[2]} exceeds the "
+                         "kernel's grid")
+    return torch.empty_like(q)
+
+
+def attended_pairs(tq: int, tk: int, q_offset: int = 0, causal: bool = True,
+                   window: int | None = None) -> int:
+    """The (query, key) pairs the masks keep: query ``i`` at position
+    ``q_offset + i`` sees keys ``j`` with ``j <= q_offset + i`` (causal)
+    and ``j > q_offset + i - window``."""
+    qpos = q_offset + np.arange(tq, dtype=np.int64)
+    hi = np.minimum(tk - 1, qpos) if causal else np.full(tq, tk - 1)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(tq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flops(q_shape, k_shape, q_offset: int = 0, causal: bool = True,
+          window: int | None = None) -> int:
+    """The kernel's operations, as its bound counts them: ``4·hd`` (Q·Kᵀ
+    and P·V, a multiply and an add each) for every attended (query, key)
+    pair of every batch row and query head."""
+    b, tq, nq, hd = q_shape
+    return 4 * b * nq * hd * attended_pairs(tq, k_shape[1], q_offset, causal,
+                                            window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flash_flops(q_shape, k_shape, v_shape, q_offset, causal, window, *,
+                 out_shape=None, **kwargs) -> int:
+    return flops(q_shape, k_shape, q_offset, causal, window or None)
 
 
 def launch(q, k, v, out, *, q_offset, causal, window) -> None:

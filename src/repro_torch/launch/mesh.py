@@ -20,14 +20,24 @@ through the host (gloo gathers no CUDA tensors): that is a functional
 path, not a measure of NCCL.
 
 A bound mesh counts its collectives in ``stats`` (``{op: {"calls",
-"ms", "bytes"}}``, host clock, bytes of this rank's input); with
-``sync_timing`` set it synchronises the card around each one, so ``ms``
-is the collective's time and not its enqueue (NCCL returns at once).
+"ms", "bytes", "result_bytes"}}``, host clock, bytes of this rank's input
+and of its result: an all-gather's result is n times its input, a
+reduce-scatter's 1/n); with ``sync_timing`` set it synchronises the card
+around each one, so ``ms`` is the collective's time and not its enqueue
+(NCCL returns at once). ``collective_bytes`` gives the count and result
+bytes in the layout of the reference's ``launch/hlo_stats.py``.
+
+``fake_world`` binds a mesh to a fake process group (``torch.distributed``'s
+``fake`` backend: every collective returns at once, its result
+uninitialised) of the mesh's size, as one of its ranks: on ``meta``
+tensors a rank's step of any mesh then runs in one process without
+memory or data (``launch/dryrun.py``).
 
 ``make_production_mesh`` (TPU pod shapes) is not ported.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 
@@ -74,13 +84,28 @@ class Mesh:
         self.device = None
         self._groups: dict[tuple[str, ...], object] = {}
         self._bound = False
+        self.fake = False        # bound to a fake process group
         self.sync_timing = False
         self.reset_stats()
 
     def reset_stats(self) -> None:
-        self.stats = {op: {"calls": 0, "ms": 0.0, "bytes": 0}
+        self.stats = {op: {"calls": 0, "ms": 0.0, "bytes": 0,
+                           "result_bytes": 0}
                       for op in ("all_gather", "reduce_scatter",
                                  "all_reduce")}
+
+    def collective_bytes(self) -> dict:
+        """``stats`` in the reference's ``hlo_stats.collective_bytes``
+        layout: ``{kind: {"count", "bytes"}}`` (result bytes),
+        ``total_bytes`` and ``total_count``."""
+        kinds = {kind: {"count": self.stats[op]["calls"],
+                        "bytes": self.stats[op]["result_bytes"]}
+                 for op, kind in (("all_gather", "all-gather"),
+                                  ("all_reduce", "all-reduce"),
+                                  ("reduce_scatter", "reduce-scatter"))}
+        return {**kinds,
+                "total_bytes": sum(v["bytes"] for v in kinds.values()),
+                "total_count": sum(v["count"] for v in kinds.values())}
 
     def _timed(self, op: str, t: torch.Tensor, fn):
         """Run ``fn()`` (the collective on ``t``) and count it."""
@@ -95,6 +120,7 @@ class Mesh:
         st["calls"] += 1
         st["ms"] += (time.perf_counter() - t0) * 1e3
         st["bytes"] += t.numel() * t.element_size()
+        st["result_bytes"] += out.numel() * out.element_size()
         return out
 
     # ------------------------------------------------------------ shape
@@ -182,6 +208,7 @@ class Mesh:
         out = Mesh(self.sizes, self.axis_names, self.ranks)
         me = dist.get_rank()
         out.rank = me if me in self.ranks else None
+        out.fake = dist.get_backend() == "fake"
         out.device = torch.device(device) if device is not None else None
         subsets = [(a,) for a in self.axis_names]
         if len(self.dp_axes) > 1:
@@ -325,6 +352,25 @@ class Mesh:
         flat = self.all_reduce(torch.cat([t.reshape(-1) for t in ts]), axes)
         return [flat[a:a + t.numel()].view(t.shape)
                 for t, a in zip(ts, _offsets(ts))]
+
+
+@contextlib.contextmanager
+def fake_world(mesh: Mesh, rank: int = 0):
+    """``mesh`` bound as global ``rank`` of a fake process group of the
+    mesh's size (see the module's docstring), torn down on exit. Needs a
+    process with no process group (run it in a process of its own, or
+    where none exists yet)."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_world needs a process without a process "
+                           "group; this one has one")
+    # registers the "fake" backend (no tensor of it touches the store)
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    dist.init_process_group("fake", store=dist.HashStore(), rank=rank,
+                            world_size=mesh.size)
+    try:
+        yield mesh.bind()
+    finally:
+        dist.destroy_process_group()
 
 
 def _offsets(ts) -> list[int]:

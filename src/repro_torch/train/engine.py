@@ -550,11 +550,20 @@ class Engine:
         """
         if self.ckpt is None or self.ckpt.latest_step() is None:
             return None
+        step = step if step is not None else self.ckpt.latest_step()
+        aux = self.ckpt.load_aux(step)
+        world = self.group.world_size if self.group is not None else 1
+        saved = saved_shards(aux) if aux is not None else None
+        if saved is not None and saved != world:
+            raise ValueError(
+                f"the checkpoint of step {step} holds the engine state of "
+                f"{saved} data-parallel shard(s), this run has {world} "
+                f"rank(s): restore it on {saved} (the state is not "
+                "re-sharded)")
         step, tree = self.ckpt.restore(
             gnn_state_tree(self.model, self.opt_state), step=step,
             device=self.source.device)
         self.opt_state = load_gnn_state(self.model, self.opt_state, tree)
-        aux = self.ckpt.load_aux(step)
         if aux is not None:
             self.planner.load_state_dict(aux.get("planner"))
             self.runner.load_state_dict(aux.get("runner"))
@@ -788,6 +797,25 @@ class Engine:
         if self.stream_eval is not None:
             return self.stream_eval.evaluate(self.model, mfn)
         return self.source.evaluate(self.eval_logits, mfn, self.model)
+
+
+def saved_shards(aux: dict) -> int | None:
+    """The number of data-parallel shards whose engine state a
+    checkpoint's ``aux`` holds: the planner's list of shards, the dropout
+    generators' rows, the error feedback's leading axis (1 for a
+    single-device run's state), or None where it holds no such state."""
+    planner, gen = aux.get("planner"), aux.get("torch_generator")
+    if isinstance(planner, list):
+        return len(planner)
+    if gen is not None:
+        return len(gen) if np.ndim(gen) == 2 else 1
+    runner = aux.get("runner")
+    while isinstance(runner, (dict, list, tuple)) and runner:
+        runner = next(iter(runner.values())) if isinstance(runner, dict) \
+            else runner[0]
+    if runner is not None and np.ndim(runner) > 0:
+        return int(np.shape(runner)[0])
+    return 1 if isinstance(planner, dict) else None
 
 
 def _seeded_key(seed: int) -> np.ndarray:

@@ -24,11 +24,32 @@ class GNNTrainer:
         self.graph = graph
         self.engine: Engine = full_batch_engine(cfg, graph, model=model)
 
+    # The reference's accessors (its examples and benches reach for these).
     @property
     def params(self):
         return self.engine.model
+
+    @property
+    def ops(self):
+        return self.engine.source.ops
+
+    @property
+    def cache(self):
+        """The planner's ``PlanCache`` (None without RSC)."""
+        return getattr(self.engine.planner, "cache", None)
+
+    @property
+    def schedule(self):
+        return self.engine.schedule
+
+    @property
+    def history(self):
+        return self.engine.history
 
     def train(self, epochs: int | None = None, eval_every: int = 10,
               verbose: bool = False) -> dict:
         return self.engine.train(epochs=epochs, eval_every=eval_every,
                                  verbose=verbose)
+
+    def evaluate(self, mfn=None) -> tuple[float, float]:
+        return self.engine.evaluate(mfn)

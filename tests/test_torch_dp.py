@@ -582,8 +582,22 @@ def port_rank(group, ref_path: str, ckpt_dir: str) -> dict:
     out["resume"] = {"step": step, "a": _history(ra), "b": _history(rb),
                      "a_final": _params(a.params),
                      "b_final": _params(b.params),
-                     "best": (ra["best_test"], rb["best_test"])}
+                     "best": (ra["best_test"], rb["best_test"]),
+                     "ckpt_dir": ckpt_dir}
     return out
+
+
+def restore_rank(group, ckpt_dir: str) -> str:
+    """A rank of a group of another size than the checkpoint's (or a
+    trainer without a group, ``group`` None): its restore raises; returns
+    the message."""
+    dp = {"dp": group.world_size, "compress_grads": True} if group else {}
+    tr = MinibatchTrainer(MinibatchConfig(
+        device="cpu", rsc=True, **dp, **dict(COMMON, ckpt_dir=ckpt_dir)),
+        sbm_graph(**GRAPH), group=group)
+    with pytest.raises(ValueError) as err:
+        tr.engine.restore(step=5)
+    return str(err.value)
 
 
 @pytest.fixture(scope="module")
@@ -737,6 +751,24 @@ def test_dp_resume_is_step_exact(port):
         assert res["b"]["compress"] == res["a"]["compress"][5:]
         assert _max_diff(res["a_final"], res["b_final"]) == 0.0
         assert res["best"][0] == res["best"][1]
+
+
+@pytest.mark.parametrize("world", [1, 4])
+def test_dp_restore_at_another_world_size_names_both(port, world):
+    """The ``--dp 2`` checkpoint of the resume run, restored by 1 rank (a
+    trainer without a group) or by 4 gloo ranks: a ``ValueError`` naming
+    both counts, before any rank indexes the saved shards."""
+    ckpt_dir = port[0]["resume"]["ckpt_dir"]
+    if world == 1:
+        msgs = [restore_rank(None, ckpt_dir)]
+    else:
+        msgs = launch(restore_rank, (ckpt_dir,),
+                      plan=plan_group(world, force_host_devices=world,
+                                      device="cpu"), threads=1)
+    assert len(msgs) == world
+    for m in msgs:
+        assert f"2 data-parallel shard(s), this run has {world} rank(s)" \
+            in m, m
 
 
 # ------------------------------------------------------------------- (h) CLI

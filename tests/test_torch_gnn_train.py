@@ -197,6 +197,31 @@ def test_trajectory_matches_reference(graph, reference_run, backend):
                                    atol=TRAJ_RTOL * np.abs(ref).max())
 
 
+def test_trainer_accessors_match_reference(graph, reference_run):
+    """``GNNTrainer``'s ``history``, ``cache``, ``schedule``, ``ops`` and
+    ``evaluate`` after the trajectory's run, against the reference
+    trainer's: losses within ``TRAJ_RTOL``, modes and refreshes equal;
+    ``evaluate()`` repeats the last evaluation ``train`` recorded."""
+    init, jres = reference_run[:2]
+    tr = GNNTrainer(TrainConfig(**TRAJ, device="cpu"), graph,
+                    model=convert.gnn_params_from_numpy("gcn", init,
+                                                        device="cpu"))
+    tr.train(eval_every=10)
+    assert tr.history is tr.engine.history
+    assert tr.history["mode"] == jres["history"]["mode"]
+    np.testing.assert_allclose(tr.history["loss"], jres["history"]["loss"],
+                               rtol=TRAJ_RTOL)
+    assert tr.cache.stats.refreshes == jres["cache_stats"].refreshes == 2
+    assert tr.schedule is tr.engine.schedule
+    assert tr.schedule.total_steps == TRAJ["epochs"]
+    assert tr.ops is tr.engine.source.ops
+    assert tr.evaluate() == (tr.history["val"][-1][1],
+                             tr.history["test"][-1][1])
+    exact = GNNTrainer(TrainConfig(**{**TRAJ, "rsc": False}, device="cpu"),
+                       graph)
+    assert exact.cache is None
+
+
 def test_params_round_trip(reference_run):
     init = reference_run[0]
     back = convert.gnn_params_to_numpy(
