@@ -119,33 +119,37 @@ class PlanCache:
         grad_row_norms[name]: (n_rows_of_∇H,) — ‖∇H^{(l+1)}_{i,:}‖₂ per node.
         """
         t0 = time.perf_counter()
+        tracer = obs.get_tracer()
         names = list(self.ops.keys())
         layers = []
-        for n in names:
-            e = self.ops[n]
-            g = grad_row_norms[n].astype(np.float64)
-            scores = block_scores(e.meta.col_norm,
-                                  g[: e.meta.col_norm.shape[0]],
-                                  e.at.bk, e.at.n_col_blocks)
-            gfro = float(np.sqrt(np.sum(g * g)))
-            layers.append(LayerSpec(scores=scores,
-                                    tiles=e.meta.col_block_tiles,
-                                    d=e.d,
-                                    norm=e.a_fro * max(gfro, 1e-30)))
-        if self.strategy == "greedy":
-            alloc = greedy_allocate(layers, self.budget_frac, self.step_frac)
-        else:
-            alloc = uniform_allocate(layers, self.budget_frac)
+        with tracer.span("plan.allocate"):
+            for n in names:
+                e = self.ops[n]
+                g = grad_row_norms[n].astype(np.float64)
+                scores = block_scores(e.meta.col_norm,
+                                      g[: e.meta.col_norm.shape[0]],
+                                      e.at.bk, e.at.n_col_blocks)
+                gfro = float(np.sqrt(np.sum(g * g)))
+                layers.append(LayerSpec(scores=scores,
+                                        tiles=e.meta.col_block_tiles,
+                                        d=e.d,
+                                        norm=e.a_fro * max(gfro, 1e-30)))
+            if self.strategy == "greedy":
+                alloc = greedy_allocate(layers, self.budget_frac,
+                                        self.step_frac)
+            else:
+                alloc = uniform_allocate(layers, self.budget_frac)
 
-        for n, spec, keep in zip(names, layers, alloc.keep):
-            e = self.ops[n]
-            e.plan = build_plan(e.meta, keep, e.at.n_row_blocks,
-                                e.at.s_total, bucket=self._bucket(e.at),
-                                device=self.device)
-            if e.last_scores is not None:
-                self.stats.auc_history.append(
-                    topk_overlap_auc(e.last_scores, keep))
-            e.last_scores = spec.scores
+        with tracer.span("plan.build"):
+            for n, spec, keep in zip(names, layers, alloc.keep):
+                e = self.ops[n]
+                e.plan = build_plan(e.meta, keep, e.at.n_row_blocks,
+                                    e.at.s_total, bucket=self._bucket(e.at),
+                                    device=self.device)
+                if e.last_scores is not None:
+                    self.stats.auc_history.append(
+                        topk_overlap_auc(e.last_scores, keep))
+                e.last_scores = spec.scores
         self.stats.refreshes += 1
         self.stats.allocations += 1
         self.stats.k_history.append(alloc.k.copy())

@@ -38,6 +38,10 @@ backward SpMM against the pre-transposed ``at`` under the sampled plan
 from ``core.plan`` / ``exact_plan``, in range by construction, so the
 kernel runs without the host check of the indices (no device sync).
 
+With tracing on, each SpMM of the two directions is timed on the card as
+the device span ``gpu.spmm.forward`` / ``gpu.spmm.backward`` (arguments
+``d``, ``n_active``, ``s_pad`` of its plan).
+
 Bias note (paper §3.1.2): the approximation sits strictly behind the ReLU
 mask computed from exact pre-activations, so gradients stay unbiased when
 the sampler is.
@@ -189,7 +193,11 @@ class _Spmm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, at, plan, h, bias, residual, backend, relu):
-        out = _apply(a, exact_plan(a), h, backend, bias, residual, relu)
+        fwd = exact_plan(a)
+        with obs.get_tracer().device_span(
+                "spmm.forward", h.device, d=h.shape[-1],
+                n_active=fwd.n_active, s_pad=fwd.s_pad):
+            out = _apply(a, fwd, h, backend, bias, residual, relu)
         # relu'(x) = 1 <=> x > 0 <=> max(x, 0) > 0: the mask recomputes
         # exactly from the fused output, so the pre-activation is not kept.
         if relu:
@@ -210,7 +218,10 @@ class _Spmm(torch.autograd.Function):
         if ctx.needs_input_grad[3]:
             # ∇J = SpMM_sampled(Ãᵀ, ∇H_pre): only the tiles the plan kept.
             plan = ctx.plan if ctx.plan is not None else exact_plan(ctx.at)
-            dh = _apply(ctx.at, plan, gp, ctx.backend)
+            with obs.get_tracer().device_span(
+                    "spmm.backward", gp.device, d=gp.shape[-1],
+                    n_active=plan.n_active, s_pad=plan.s_pad):
+                dh = _apply(ctx.at, plan, gp, ctx.backend)
         dbias = gp.sum(0) if ctx.has_bias else None
         dres = gp if ctx.has_residual else None
         return None, None, None, dh, dbias, dres, None, None

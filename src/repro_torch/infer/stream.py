@@ -767,10 +767,14 @@ class StreamEvaluator:
         if self.si is None:
             self.si = StreamingInference(self.graph, self.model, params,
                                          self.cfg)
-        logits = self.si.forward(params, store=False)
+        tracer = obs.get_tracer()
+        with tracer.span("eval.logits"):
+            with tracer.device_span("eval", torch.device(self.cfg.device)):
+                logits = self.si.forward(params, store=False)
         si = self.si
-        val = mfn(logits, si.labels, si.val_mask & si.valid)
-        test = mfn(logits, si.labels, si.test_mask & si.valid)
+        with tracer.span("eval.score"):
+            val = mfn(logits, si.labels, si.val_mask & si.valid)
+            test = mfn(logits, si.labels, si.test_mask & si.valid)
         self.evals += 1
         obs.get_registry().observe("stream.eval_ms",
                                    (time.perf_counter() - t0) * 1e3)

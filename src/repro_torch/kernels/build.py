@@ -87,6 +87,12 @@ def sass_counts(path: Path, opcodes: tuple[str, ...]) -> dict[str, int]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``'s library."""
-    path, _ = build(name)
-    return ctypes.CDLL(str(path))
+    """Build (if needed) and load ``csrc/<name>.cu``'s library, under the
+    span ``kernels.build`` (arguments ``name``, and ``compiled``: whether
+    ``nvcc`` ran)."""
+    from repro_torch import obs
+    with obs.get_tracer().span("kernels.build", name=name) as sp:
+        compiled = not library_path(name).exists()
+        path, _ = build(name)
+        sp.set(compiled=compiled)
+        return ctypes.CDLL(str(path))

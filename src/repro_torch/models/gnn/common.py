@@ -40,9 +40,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.core.plan import SamplePlan
 from repro_torch.core.rsc_spmm import exact_spmm, rsc_spmm
-from repro_torch.sparse.bcoo import (BlockCOO, BlockMeta, csr_to_bcoo,
+from repro_torch.sparse.bcoo import (BlockCOO, BlockMeta, csr_to_bcoo_host,
                                      degree_sort_permutation)
 from repro_torch.sparse.topology import mean_normalize, sym_normalize
 
@@ -94,41 +95,53 @@ def build_operands(g, bm: int = 128, bk: int = 128,
     masks and Frobenius norms (f64).
 
     Each operand is built on the host, uploaded and its host tiles freed
-    before the next is built. ``mean_agg=False`` (a model whose
+    before the next is built. With tracing on, the stages are spans:
+    ``operands.normalize`` (degree order, the normalised matrices and
+    their transposes), then per operand ``operands.tile`` and
+    ``operands.upload`` (``op`` names it; ``nodes`` for the node arrays).
+    ``mean_agg=False`` (a model whose
     ``uses_mean_agg()`` is false, such as GCN) skips the mean-normalised
     pair: ``am``, ``amt`` and ``amt_meta`` are then ``None``; no result
     of such a model changes, and the card holds half the tiles.
     """
-    adj = g.adj
-    feats, labels = g.features, g.labels
-    tr, va, te = g.train_mask, g.val_mask, g.test_mask
-    if degree_sort:
-        adj, feats, labels, tr, va, te, _ = degree_sorted_arrays(
-            adj, feats, labels, tr, va, te)
+    tracer = obs.get_tracer()
+    with tracer.span("operands.normalize"):
+        adj = g.adj
+        feats, labels = g.features, g.labels
+        tr, va, te = g.train_mask, g.val_mask, g.test_mask
+        if degree_sort:
+            adj, feats, labels, tr, va, te, _ = degree_sorted_arrays(
+                adj, feats, labels, tr, va, te)
+        a_csr = sym_normalize(adj)
+        am_csr = mean_normalize(adj)
+        csrs = {"a": a_csr, "at": a_csr.transpose()}
+        if mean_agg:
+            csrs.update(am=am_csr, amt=am_csr.transpose())
 
-    def tile(csr):
-        return csr_to_bcoo(csr, bm, bk, device=device)
+    tiled = {}
+    for name, csr in csrs.items():
+        with tracer.span("operands.tile", op=name):
+            host, meta = csr_to_bcoo_host(csr, bm, bk)
+        with tracer.span("operands.upload", op=name):
+            tiled[name] = (host.to_device(device), meta)
+        del host
+    (a, _), (at, at_meta) = tiled["a"], tiled["at"]
+    am, _ = tiled.get("am", (None, None))
+    amt, amt_meta = tiled.get("amt", (None, None))
 
-    a_csr = sym_normalize(adj)
-    a, _ = tile(a_csr)
-    at, at_meta = tile(a_csr.transpose())
-    am = amt = amt_meta = None
-    am_csr = mean_normalize(adj)
-    if mean_agg:
-        am, _ = tile(am_csr)
-        amt, amt_meta = tile(am_csr.transpose())
+    with tracer.span("operands.upload", op="nodes"):
+        feats_p, labels_p, tr_p, va_p, te_p = pad_node_arrays(
+            a.n_rows, feats, labels, tr, va, te, g.multilabel)
 
-    feats_p, labels_p, tr_p, va_p, te_p = pad_node_arrays(
-        a.n_rows, feats, labels, tr, va, te, g.multilabel)
+        def up(x):
+            return torch.from_numpy(x).to(device)
 
-    def up(x):
-        return torch.from_numpy(x).to(device)
-
-    ops = GraphOperands(
-        a=a, at=at, am=am, amt=amt,
-        features=up(feats_p), labels=up(labels_p),
-        train_mask=up(tr_p), val_mask=up(va_p), test_mask=up(te_p),
-        n_valid=g.n, num_classes=g.num_classes, multilabel=g.multilabel)
+        ops = GraphOperands(
+            a=a, at=at, am=am, amt=amt,
+            features=up(feats_p), labels=up(labels_p),
+            train_mask=up(tr_p), val_mask=up(va_p), test_mask=up(te_p),
+            n_valid=g.n, num_classes=g.num_classes,
+            multilabel=g.multilabel)
     meta = OperandMeta(at_meta=at_meta, amt_meta=amt_meta,
                        a_fro=_fro(a_csr.val), am_fro=_fro(am_csr.val))
     return ops, meta

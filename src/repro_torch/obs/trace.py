@@ -28,9 +28,24 @@ trace-annotated spans of each multi-thread trace are stitched into Chrome
 per request across the thread tracks.
 
 Timestamps are monotonic (``perf_counter``) microseconds from the
-tracer's construction. The event buffer is bounded (``max_events``);
+tracer's ``origin`` (its construction or last ``reset``; the Chrome
+export writes it as ``otherData.origin_perf_s``, so a device trace taken
+with a host mark lines up with the spans). The event buffer is bounded
+(``max_events``);
 overflow drops newest events and counts them in ``dropped`` so a
 truncated trace is never mistaken for a complete one.
+
+**Device spans:** ``device_span(name, device)`` times a region on the
+card: a CUDA event at each bound on the current stream, queued (from any
+thread: the backward runs on autograd's) until ``resolve_device()``, which
+the caller makes right after a read that synchronised. It records an
+anchor event on the idle stream and takes the host time once it has
+completed. When the trace is read, each pair lands on the host clock as
+the anchor's host time less the pair's lead over the anchor
+(:func:`device_interval`): spans ``gpu.<name>`` on a track of their own
+(thread name ``device``), nested by time. Nothing is recorded,
+and no event made, with tracing off, for work off a CUDA device, or while
+``torch.profiler`` records (the profiler is then the device's clock).
 
 **Crash safety:** ``install_flush(chrome=..., jsonl=...)`` registers an
 atexit hook (and arms ``flush()``) so a run that dies mid-span still
@@ -103,7 +118,7 @@ class _Span:
         ev = {
             "kind": "span",
             "name": self.name,
-            "ts_us": round((self._t0 - self._tracer._origin) * 1e6, 1),
+            "ts_us": round((self._t0 - self._tracer.origin) * 1e6, 1),
             "dur_us": round((t1 - self._t0) * 1e6, 1),
             "depth": self._depth,
             "parent": self._parent,
@@ -119,6 +134,44 @@ class _Span:
         return False
 
 
+class _DeviceSpan:
+    """A region timed on the device by a pair of CUDA events, both on the
+    stream current at its start."""
+
+    __slots__ = ("_tracer", "name", "args", "_stream", "_start")
+
+    def __init__(self, tracer: "Tracer", name: str, args: dict):
+        self._tracer = tracer
+        self.name = name
+        self.args = args
+
+    def __enter__(self):
+        import torch
+        self._stream = torch.cuda.current_stream()
+        self._start = torch.cuda.Event(enable_timing=True)
+        self._start.record(self._stream)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(self._stream)
+        with self._tracer._lock:
+            self._tracer._device.append((self.name, self.args, self._start,
+                                         end))
+        return False
+
+
+def device_interval(start, end, anchor, t_anchor: float
+                    ) -> tuple[float, float]:
+    """Host-clock seconds of the device interval between events ``start``
+    and ``end``, given an ``anchor`` event that completed at host time
+    ``t_anchor``: each event lies ``event.elapsed_time(anchor)``
+    milliseconds before it."""
+    return (t_anchor - start.elapsed_time(anchor) / 1e3,
+            t_anchor - end.elapsed_time(anchor) / 1e3)
+
+
 class Tracer:
     """Nested-span recorder with JSONL and Chrome-trace exporters."""
 
@@ -126,8 +179,10 @@ class Tracer:
         self.enabled = enabled
         self.max_events = max_events
         self.dropped = 0
-        self._origin = perf_now()
+        self.origin = perf_now()   # perf_counter seconds of ts_us 0
         self._events: list[dict] = []
+        self._device: list[tuple] = []   # device spans awaiting an anchor
+        self._anchored: list[tuple] = []   # (anchor, host time, spans)
         self._lock = threading.Lock()
         self._local = threading.local()
         self._tids: dict[int, int] = {}
@@ -143,13 +198,16 @@ class Tracer:
             st = self._local.stack = []
         return st
 
-    def _tid(self) -> int:
-        ident = threading.get_ident()
-        tid = self._tids.get(ident)
+    def _tid(self, key=None, name: str | None = None) -> int:
+        """The track of the calling thread, or of ``key`` (named
+        ``name``)."""
+        key = threading.get_ident() if key is None else key
+        tid = self._tids.get(key)
         if tid is None:
             with self._lock:
-                tid = self._tids.setdefault(ident, len(self._tids))
-                self._tid_names[tid] = threading.current_thread().name
+                tid = self._tids.setdefault(key, len(self._tids))
+                self._tid_names[tid] = (name if name is not None else
+                                        threading.current_thread().name)
         return tid
 
     def _record(self, ev: dict) -> None:
@@ -159,7 +217,7 @@ class Tracer:
                 return
             self._events.append(ev)
 
-    def span(self, name: str, **args):
+    def span(self, name: str, /, **args):
         """``with tracer.span("step", step=3) as sp: ... sp.set(loss=x)``"""
         if not self.enabled:
             return _NULL_SPAN
@@ -185,7 +243,7 @@ class Tracer:
         ev = {
             "kind": "span",
             "name": name,
-            "ts_us": round((t0 - self._origin) * 1e6, 1),
+            "ts_us": round((t0 - self.origin) * 1e6, 1),
             "dur_us": round(max(t1 - t0, 0.0) * 1e6, 1),
             "depth": 0,
             "parent": None,
@@ -199,23 +257,88 @@ class Tracer:
             ev["parent_span"] = c.parent_id
         self._record(ev)
 
+    def device_span(self, name: str, device, /, **args):
+        """``with tracer.device_span("forward", x.device): ...`` times the
+        region's work on the card as the span ``gpu.<name>``, once
+        ``resolve_device`` has run. A no-op with tracing off, for a
+        ``device`` that is not CUDA, or under ``torch.profiler``."""
+        if not self.enabled or getattr(device, "type", None) != "cuda":
+            return _NULL_SPAN
+        import torch
+        if torch.autograd._profiler_enabled():
+            return _NULL_SPAN
+        return _DeviceSpan(self, "gpu." + name, args)
+
+    def resolve_device(self) -> int:
+        """Tie the device spans queued so far to the host clock: call it
+        right after a read that synchronised with the card. It records an
+        anchor event on the idle stream and takes the host time once the
+        anchor has completed; the spans are made from the pairs and their
+        anchor when the trace is read (``snapshot`` and the exports), off
+        the caller's path. Returns the number of spans anchored."""
+        if not self._device:
+            return 0
+        import torch
+        with self._lock:
+            pending, self._device = self._device, []
+        anchor = torch.cuda.Event(enable_timing=True)
+        anchor.record()
+        anchor.synchronize()
+        t_anchor = perf_now()
+        with self._lock:
+            self._anchored.append((anchor, t_anchor, pending))
+        return len(pending)
+
+    def _materialize(self) -> None:
+        """The anchored device spans as events on the ``device`` track,
+        each anchor's spans nested by time."""
+        with self._lock:
+            batches, self._anchored = self._anchored, []
+        if not batches:
+            return
+        tid = self._tid("device", "device")
+        for anchor, t_anchor, pending in batches:
+            done = []
+            for name, args, start, end in pending:
+                end.synchronize()
+                done.append((*device_interval(start, end, anchor, t_anchor),
+                             name, args))
+            done.sort(key=lambda d: (d[0], -d[1]))
+            stack: list[tuple[str, float]] = []
+            for t0, t1, name, args in done:
+                while stack and stack[-1][1] < t1:
+                    stack.pop()
+                self._record({
+                    "kind": "span",
+                    "name": name,
+                    "ts_us": round((t0 - self.origin) * 1e6, 1),
+                    "dur_us": round(max(t1 - t0, 0.0) * 1e6, 1),
+                    "depth": len(stack),
+                    "parent": stack[-1][0] if stack else None,
+                    "tid": tid,
+                    "args": args,
+                })
+                stack.append((name, t1))
+
     def instant(self, name: str, **args) -> None:
         if not self.enabled:
             return
         self._record({
             "kind": "instant",
             "name": name,
-            "ts_us": round((perf_now() - self._origin) * 1e6, 1),
+            "ts_us": round((perf_now() - self.origin) * 1e6, 1),
             "tid": self._tid(),
             "args": args,
         })
 
     # ------------------------------------------------------------- reads
     def snapshot(self) -> list[dict]:
+        self._materialize()
         with self._lock:
             return [dict(ev) for ev in self._events]
 
     def span_names(self) -> set[str]:
+        self._materialize()
         with self._lock:
             return {ev["name"] for ev in self._events}
 
@@ -232,8 +355,10 @@ class Tracer:
     def reset(self) -> None:
         with self._lock:
             self._events.clear()
+            self._device.clear()
+            self._anchored.clear()
             self.dropped = 0
-        self._origin = perf_now()
+        self.origin = perf_now()
 
     # ------------------------------------------------------- crash flush
     def install_flush(self, chrome=None, jsonl=None) -> None:
@@ -336,7 +461,8 @@ class Tracer:
                 trace.append(rec)
         with open(path, "w") as f:
             json.dump({"traceEvents": trace, "displayTimeUnit": "ms",
-                       "otherData": {"dropped_events": self.dropped}}, f)
+                       "otherData": {"dropped_events": self.dropped,
+                                     "origin_perf_s": self.origin}}, f)
 
 
 class _Flushing:

@@ -41,6 +41,7 @@ from collections import OrderedDict
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.schedule import RSCSchedule
 from repro_torch.device import resolve_device
 from repro_torch.graphs.synthetic import GraphData
@@ -143,20 +144,26 @@ def pooled_evaluate(pool: SubgraphPool, eval_fn, mfn, params, *,
                        pinned=pinned)
     if fetchers is not None:
         fetchers.append(("eval", fetch))
+    tracer = obs.get_tracer()
     for sid, ops in fetch:
         sub = pool.subgraphs[sid]
-        logits = eval_fn(params, ops).cpu().numpy()[: sub.n_valid]
+        with tracer.span("eval.logits", sub=int(sid)):
+            with tracer.device_span("eval", ops.features.device):
+                logits = eval_fn(params, ops)
+            logits = logits.cpu().numpy()[: sub.n_valid]
         if sum_logits is None:
             sum_logits = np.zeros((pool.n_nodes, logits.shape[1]),
                                   dtype=np.float64)
         # parent ids are unique within one subgraph → plain fancy-index add
         sum_logits[sub.nodes] += logits
         counts[sub.nodes] += 1.0
-    seen = counts > 0
-    mean_logits = (sum_logits
-                   / np.maximum(counts, 1.0)[:, None]).astype(np.float32)
-    val = mfn(mean_logits, pool.node_labels, pool.node_val_mask & seen)
-    test = mfn(mean_logits, pool.node_labels, pool.node_test_mask & seen)
+    with tracer.span("eval.score"):
+        seen = counts > 0
+        mean_logits = (sum_logits / np.maximum(counts, 1.0)[:, None]
+                       ).astype(np.float32)
+        val = mfn(mean_logits, pool.node_labels, pool.node_val_mask & seen)
+        test = mfn(mean_logits, pool.node_labels,
+                   pool.node_test_mask & seen)
     return val, test
 
 

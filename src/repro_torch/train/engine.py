@@ -195,9 +195,16 @@ class FullGraphPlanner:
 
     def plans_for(self, tag, step: int, schedule: RSCSchedule):
         if self._last_norms is not None and schedule.refresh_due(step):
-            norms = host_norms(self._last_norms)
-            self.cache.refresh(norms)
-            self._refresh_norms = norms
+            tracer = obs.get_tracer()
+            with tracer.span("plan.refresh") as sp:
+                with tracer.span("plan.norms"):
+                    norms = host_norms(self._last_norms)
+                self.cache.refresh(norms)
+                self._refresh_norms = norms
+                if tracer.enabled:   # each op's kept tiles
+                    ops = self.cache.ops.items()
+                    sp.set(n_active={n: e.plan.n_active for n, e in ops},
+                           s_pad={n: e.plan.s_pad for n, e in ops})
         return self.cache.plans()
 
     def record(self, tag, norms) -> None:
@@ -220,7 +227,6 @@ class FullGraphPlanner:
         """Plan-cache clock stats → registry gauges (epoch-end dump)."""
         s = self.cache.stats
         registry.gauge("plan_cache.refreshes", s.refreshes)
-        registry.gauge("plan_cache.allocations", s.allocations)
         registry.gauge("plan_cache.host_seconds", s.host_seconds)
         registry.gauge("rsc.flops_fraction", self.flops_fraction())
         k = self.k_latest()
@@ -364,9 +370,11 @@ class FullGraphSource:
 
     def __init__(self, graph, cfg: TrainConfig, module):
         self.device = resolve_device(cfg.device)
-        self.ops, self.meta = build_operands(
-            graph, bm=cfg.block, bk=cfg.block, degree_sort=cfg.degree_sort,
-            mean_agg=module.uses_mean_agg(), device=self.device)
+        with obs.get_tracer().span("operands"):
+            self.ops, self.meta = build_operands(
+                graph, bm=cfg.block, bk=cfg.block,
+                degree_sort=cfg.degree_sort,
+                mean_agg=module.uses_mean_agg(), device=self.device)
         self.num_classes = graph.num_classes
         self.feat_dim = graph.features.shape[1]
         self.mean_agg = module.uses_mean_agg()
@@ -397,9 +405,14 @@ class FullGraphSource:
         pass
 
     def evaluate(self, eval_fn, mfn, model) -> tuple[float, float]:
-        logits = eval_fn(model, self.ops).cpu().numpy()
-        return (mfn(logits, self._labels, self._val),
-                mfn(logits, self._labels, self._test))
+        tracer = obs.get_tracer()
+        with tracer.span("eval.logits"):
+            with tracer.device_span("eval", self.device):
+                logits = eval_fn(model, self.ops)
+            logits = logits.cpu().numpy()
+        with tracer.span("eval.score"):
+            return (mfn(logits, self._labels, self._val),
+                    mfn(logits, self._labels, self._test))
 
 
 # ---------------------------------------------------------------------------
@@ -615,10 +628,6 @@ class Engine:
             batch_it = enumerate(self.source.batches(epoch, skip=skip),
                                  start=skip)
             while True:
-                # Fetch time: blocking on the source iterator is the
-                # prefetcher-starved time (~0 when the upload thread keeps
-                # up).
-                t_fetch = time.perf_counter()
                 if tracer.enabled:
                     trace_context.take_pending()   # drop any stale baton
                 try:
@@ -631,8 +640,6 @@ class Engine:
                 # its operands.
                 step_ctx = (trace_context.take_pending()
                             if tracer.enabled else None)
-                reg.observe("engine.sample_ms",
-                            (time.perf_counter() - t_fetch) * 1e3)
                 approx = self.schedule.use_rsc(gstep)
                 use_rsc = cfg.rsc and approx
                 compress = (self.compress_grads
@@ -641,7 +648,7 @@ class Engine:
                 mode = "rsc" if use_rsc else "exact"
                 t0 = time.perf_counter()
                 with tracer.span_in(step_ctx, "step", step=gstep,
-                                    epoch=epoch, mode=mode) as sp:
+                                    epoch=epoch, mode=mode):
                     if use_rsc:
                         with tracer.span("plan"):
                             plans = self.planner.plans_for(
@@ -650,7 +657,8 @@ class Engine:
                             self.model, self.opt_state, lv, norms = \
                                 self.rsc_step(self.model, self.opt_state,
                                               ops, plans, gen, compress)
-                            loss = float(lv)   # the step's one read
+                            with tracer.span("loss_read"):
+                                loss = float(lv)   # the step's one read
                         self.planner.record(tag, norms)
                         if ledger.enabled:
                             tiles = {n: p.n_active for n, p in plans.items()}
@@ -661,19 +669,21 @@ class Engine:
                         # Every 16th step: the gauges are last-write-wins,
                         # and reading the norms' means syncs with the card.
                         if reg.enabled and gstep % 16 == 0:
-                            self._record_rsc_gauges(reg, plans, norms)
+                            self._record_rsc_gauges(reg, norms)
                     else:
                         with tracer.span("device_step", mode=mode):
                             self.model, self.opt_state, lv = \
                                 self.exact_step(self.model, self.opt_state,
                                                 ops, gen, compress)
-                            loss = float(lv)
+                            with tracer.span("loss_read"):
+                                loss = float(lv)
                         if ledger.enabled:
                             ledger.note_step(mode="exact")
+                    # the loss read synchronised: anchor the step's device
+                    # spans to the host clock
+                    tracer.resolve_device()
                     dt = time.perf_counter() - t0
-                    sp.set(dur_ms=round(dt * 1e3, 3))
                 reg.observe("engine.step_ms", dt * 1e3, mode=mode)
-                reg.counter("engine.steps", mode=mode)
 
                 self.history["step_time"].append(dt)
                 self.history["loss"].append(loss)
@@ -706,6 +716,7 @@ class Engine:
                 with tracer.span("eval", epoch=epoch), \
                         reg.timer("engine.eval_ms"):
                     val, test = self.evaluate(mfn)
+                tracer.resolve_device()
                 reg.gauge("engine.val_metric", val)
                 reg.gauge("engine.test_metric", test)
                 self.history["val"].append((epoch, val))
@@ -773,12 +784,9 @@ class Engine:
                     reg.gauge("rsc.probe.ci_hi", res.ci_hi, layer=name)
 
     @staticmethod
-    def _record_rsc_gauges(reg, plans, norms) -> None:
-        """Per-op sampled fraction (host ints) and mean ∇H row norm (one
-        read from the card per op) gauges."""
-        for name, p in plans.items():
-            reg.gauge("rsc.sampled_frac",
-                      p.n_active / max(int(p.s_pad), 1), op=name)
+    def _record_rsc_gauges(reg, norms) -> None:
+        """Per-op mean ∇H row norm gauges (one read from the card per op):
+        a layer that no block of its backward reaches reads 0."""
         for name, v in norms.items():
             reg.gauge("rsc.grad_row_norm", float(v.float().mean()),
                       op=name)

@@ -86,26 +86,34 @@ def make_gnn_grads(module, dims: dict[str, int], rsc_names,
     """
     rsc_names = tuple(rsc_names)
 
-    def _grads(model, ops, taps, plans, gen):
-        logits = module.apply(model, ops, taps, plans, dropout_rate=dropout,
-                              train=True, generator=gen, backend=backend)
-        loss = gnn_loss(logits, ops)
+    def _grads(model, ops, tap_names, plans, gen):
+        """The loss, the parameters' gradients and the row norms of the
+        taps ``tap_names``, under the ``forward`` and ``backward`` spans
+        (host and device)."""
+        tracer, dev = obs.get_tracer(), ops.features.device
+        with tracer.span("forward"), tracer.device_span("forward", dev):
+            n_pad = ops.features.shape[0]
+            taps = {k: torch.zeros((n_pad, dims[k]), dtype=torch.float32,
+                                   device=dev, requires_grad=True)
+                    for k in tap_names}
+            logits = module.apply(model, ops, taps, plans,
+                                  dropout_rate=dropout, train=True,
+                                  generator=gen, backend=backend)
+            loss = gnn_loss(logits, ops)
         params = dict(model.named_parameters())
-        out = torch.autograd.grad(loss, [*params.values(), *taps.values()])
+        with tracer.span("backward"), tracer.device_span("backward", dev):
+            out = torch.autograd.grad(loss,
+                                      [*params.values(), *taps.values()])
+            norms = {k: row_norms(g)
+                     for k, g in zip(taps, out[len(params):])}
         grads = dict(zip(params, out[:len(params)]))
-        return loss.detach(), grads, dict(zip(taps, out[len(params):]))
+        return loss.detach(), grads, norms
 
     def rsc_grads(model, ops, plans, gen):
-        n_pad = ops.features.shape[0]
-        taps = {k: torch.zeros((n_pad, dims[k]), dtype=torch.float32,
-                               device=ops.features.device,
-                               requires_grad=True)
-                for k in rsc_names}
-        loss, grads, gt = _grads(model, ops, taps, plans, gen)
-        return loss, grads, {k: row_norms(g) for k, g in gt.items()}
+        return _grads(model, ops, rsc_names, plans, gen)
 
     def exact_grads(model, ops, gen):
-        loss, grads, _ = _grads(model, ops, {}, None, gen)
+        loss, grads, _ = _grads(model, ops, (), None, gen)
         return loss, grads
 
     @torch.no_grad()
@@ -114,6 +122,18 @@ def make_gnn_grads(module, dims: dict[str, int], rsc_names,
                             train=False, generator=None, backend=backend)
 
     return rsc_grads, exact_grads, eval_logits
+
+
+def _update(opt: Adam, model, opt_state, grads):
+    """One optimizer step on ``model``'s parameters, in place, under the
+    ``optimizer`` spans (host and device); the new optimizer state."""
+    tracer = obs.get_tracer()
+    params = dict(model.named_parameters())
+    dev = next(iter(params.values())).device
+    with tracer.span("optimizer"), tracer.device_span("optimizer", dev):
+        upd, opt_state = opt.update(grads, opt_state, params)
+        apply_updates(params, upd)
+    return opt_state
 
 
 def make_gnn_steps(module, opt: Adam, dims: dict[str, int], rsc_names,
@@ -128,19 +148,13 @@ def make_gnn_steps(module, opt: Adam, dims: dict[str, int], rsc_names,
     rsc_grads, exact_grads, eval_logits = make_gnn_grads(
         module, dims, rsc_names, dropout=dropout, backend=backend)
 
-    def _update(model, opt_state, grads):
-        params = dict(model.named_parameters())
-        upd, opt_state = opt.update(grads, opt_state, params)
-        apply_updates(params, upd)
-        return opt_state
-
     def rsc_step(model, opt_state, ops, plans, gen):
         loss, grads, norms = rsc_grads(model, ops, plans, gen)
-        return model, _update(model, opt_state, grads), loss, norms
+        return model, _update(opt, model, opt_state, grads), loss, norms
 
     def exact_step(model, opt_state, ops, gen):
         loss, grads = exact_grads(model, ops, gen)
-        return model, _update(model, opt_state, grads), loss
+        return model, _update(opt, model, opt_state, grads), loss
 
     return rsc_step, exact_step, eval_logits
 
@@ -359,20 +373,14 @@ def make_dp_gnn_steps(module, opt: Adam, dims: dict[str, int], rsc_names,
     rsc_grads, exact_grads, eval_logits = make_gnn_grads(
         module, dims, rsc_names, dropout=dropout, backend=backend)
 
-    def _update(model, opt_state, grads):
-        params = dict(model.named_parameters())
-        upd, opt_state = opt.update(grads, opt_state, params)
-        apply_updates(params, upd)
-        return opt_state
-
     def rsc_step(model, opt_state, err, ops, plans, gen, compress: bool):
         (loss, grads, norms), err = reducer.run(
             lambda: rsc_grads(model, ops, plans, gen), model, err, compress)
-        return model, _update(model, opt_state, grads), loss, norms, err
+        return model, _update(opt, model, opt_state, grads), loss, norms, err
 
     def exact_step(model, opt_state, err, ops, gen, compress: bool):
         (loss, grads), err = reducer.run(
             lambda: exact_grads(model, ops, gen), model, err, compress)
-        return model, _update(model, opt_state, grads), loss, err
+        return model, _update(opt, model, opt_state, grads), loss, err
 
     return rsc_step, exact_step, eval_logits

@@ -182,6 +182,8 @@ def test_trace_event_structure_matches_reference(tmp_path):
     a = json.loads((tmp_path / "a.json").read_text())
     b = json.loads((tmp_path / "b.json").read_text())
     assert _structure(a["traceEvents"]) == _structure(b["traceEvents"])
+    # the port adds its clock's origin
+    assert a["otherData"].pop("origin_perf_s") == ours.origin
     assert a["otherData"] == b["otherData"]
 
 
@@ -441,6 +443,167 @@ def test_chrome_export_is_valid_trace(tmp_path):
     x = next(e for e in evs if e["ph"] == "X")
     assert x["name"] == "step" and x["dur"] >= 0 and "ts" in x
     assert doc["otherData"]["dropped_events"] == 0
+
+
+def test_chrome_export_carries_the_origin(tmp_path):
+    tr = Tracer(enabled=True)
+    with tr.span("step"):
+        pass
+    tr.export_chrome(tmp_path / "trace.json")
+    doc = json.loads((tmp_path / "trace.json").read_text())
+    assert doc["otherData"]["origin_perf_s"] == tr.origin
+    x = next(e for e in doc["traceEvents"] if e["ph"] == "X")
+    assert tr.origin + x["ts"] / 1e6 <= time.perf_counter()
+    tr.reset()
+    tr.export_chrome(tmp_path / "again.json")
+    again = json.loads((tmp_path / "again.json").read_text())
+    assert again["otherData"]["origin_perf_s"] == tr.origin
+
+
+class _FakeEvent:
+    """A CUDA event on a fake device clock (ms): ``record`` stamps the
+    clock's time, ``elapsed_time`` is the ms from this event to ``end``."""
+
+    clock = [0.0]
+
+    def __init__(self, enable_timing=False, done=True):
+        self.t, self.done = None, done
+
+    def record(self, stream=None):
+        self.t = self.clock[0]
+
+    def synchronize(self):
+        pass
+
+    def query(self):
+        return self.done
+
+    def elapsed_time(self, end):
+        return end.t - self.t
+
+
+def test_device_interval_is_the_anchor_less_each_lead():
+    from repro_torch.obs.trace import device_interval
+    start, end, anchor = _FakeEvent(), _FakeEvent(), _FakeEvent()
+    start.t, end.t, anchor.t = 10.0, 12.5, 20.0      # ms, device clock
+    t0, t1 = device_interval(start, end, anchor, t_anchor=100.0)
+    assert t0 == pytest.approx(100.0 - 0.010)
+    assert t1 == pytest.approx(100.0 - 0.0075)
+    assert t1 - t0 == pytest.approx(0.0025)
+
+
+def test_device_spans_resolve_nested_on_the_device_track(monkeypatch,
+                                                        tmp_path):
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: "stream")
+    clock = _FakeEvent.clock
+    clock[0] = 0.0
+    tr = Tracer(enabled=True)
+    cuda = torch.device("cuda")
+    with tr.device_span("forward", cuda):
+        clock[0] += 1.0
+        with tr.device_span("spmm.forward", cuda, d=8, n_active=2):
+            clock[0] += 3.0
+        clock[0] += 1.0
+    with tr.device_span("backward", cuda):
+        clock[0] += 2.0
+    assert tr.span_names() == set()              # queued until resolved
+    clock[0] += 4.0                              # the anchor: 11 ms
+    t_before = time.perf_counter()
+    assert tr.resolve_device() == 3
+    t_after = time.perf_counter()
+    by = {e["name"]: e for e in tr.snapshot()}
+    assert set(by) == {"gpu.forward", "gpu.spmm.forward", "gpu.backward"}
+    assert [by[n]["dur_us"] for n in ("gpu.forward", "gpu.spmm.forward",
+                                      "gpu.backward")] == [5e3, 3e3, 2e3]
+    assert by["gpu.spmm.forward"]["ts_us"] - by["gpu.forward"]["ts_us"] \
+        == pytest.approx(1e3, abs=0.2)
+    assert by["gpu.spmm.forward"]["parent"] == "gpu.forward"
+    assert by["gpu.spmm.forward"]["depth"] == 1
+    assert by["gpu.backward"]["depth"] == 0
+    assert by["gpu.spmm.forward"]["args"] == {"d": 8, "n_active": 2}
+    # the backward ended 4 ms (device clock) before the anchor, which
+    # completed between t_before and t_after
+    end = tr.origin + (by["gpu.backward"]["ts_us"]
+                       + by["gpu.backward"]["dur_us"]) / 1e6
+    assert t_before - 0.004 - 1e-6 <= end <= t_after - 0.004 + 1e-6
+    assert tr.resolve_device() == 0
+    tr.export_chrome(tmp_path / "t.json")
+    doc = json.loads((tmp_path / "t.json").read_text())
+    tracks = {e["tid"]: e["args"]["name"] for e in doc["traceEvents"]
+              if e["ph"] == "M"}
+    assert {tracks[e["tid"]] for e in doc["traceEvents"]
+            if e["ph"] == "X"} == {"device"}
+
+
+def test_device_spans_are_made_when_the_trace_is_read(monkeypatch):
+    """``resolve_device`` only anchors the queued pairs; reading the trace
+    makes the spans, once, waiting for an end that has not completed."""
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: "stream")
+    waited = []
+    monkeypatch.setattr(_FakeEvent, "synchronize",
+                        lambda self: waited.append(self))
+    tr = Tracer(enabled=True)
+    with tr.device_span("eval", torch.device("cuda")) as sp:
+        pass
+    end = tr._device[0][3]
+    assert tr.resolve_device() == 1
+    assert tr._events == [] and not tr._device and len(tr._anchored) == 1
+    assert [e["name"] for e in tr.snapshot()] == ["gpu.eval"]
+    assert end in waited and sp.args == {}
+    assert [e["name"] for e in tr.snapshot()] == ["gpu.eval"]
+    tr.reset()
+    with tr.device_span("eval", torch.device("cuda")):
+        pass
+    tr.resolve_device()
+    tr.reset()
+    assert tr.snapshot() == []
+
+
+def test_device_span_records_nothing_off_the_card_or_under_a_profiler(
+        monkeypatch):
+    def no_event(*a, **k):
+        raise AssertionError("a CUDA event was made")
+    monkeypatch.setattr(torch.cuda, "Event", no_event)
+    off = Tracer(enabled=False)
+    on = Tracer(enabled=True)
+    for tr, dev in ((off, torch.device("cuda")), (on, torch.device("cpu")),
+                    (on, None)):
+        with tr.device_span("forward", dev) as sp:
+            sp.set(x=1)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with on.device_span("forward", torch.device("cuda")):
+            pass
+    assert on.resolve_device() == 0 and on.snapshot() == []
+
+
+def test_operand_and_kernel_build_spans(graph, monkeypatch, tmp_path):
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models.gnn import MODELS
+    from repro_torch.train.engine import FullGraphSource
+    ob = obs.reset(trace=True)
+    FullGraphSource(graph, TrainConfig(**{**ENGINE, "model": "graphsage"},
+                                       device="cpu"), MODELS["graphsage"])
+    events = ob.tracer.snapshot()
+    assert _children(events, "operands") == [
+        ["operands.normalize"]
+        + ["operands.tile", "operands.upload"] * 4 + ["operands.upload"]]
+    assert [e["args"]["op"] for e in events
+            if e["name"] == "operands.upload"] == ["a", "at", "am", "amt",
+                                                   "nodes"]
+    lib = tmp_path / "libx.so"
+    monkeypatch.setattr(kbuild, "library_path", lambda name: lib)
+    monkeypatch.setattr(kbuild, "build",
+                        lambda name: (lib.touch(), (lib, ""))[1])
+    monkeypatch.setattr(kbuild.ctypes, "CDLL", lambda path: path)
+    assert kbuild.load("bcoo_spmm") == str(lib)
+    assert kbuild.load("bcoo_spmm") == str(lib)
+    builds = [e["args"] for e in ob.tracer.snapshot()
+              if e["name"] == "kernels.build"]
+    assert builds == [{"name": "bcoo_spmm", "compiled": True},
+                      {"name": "bcoo_spmm", "compiled": False}]
 
 
 def test_disabled_tracer_records_nothing():
@@ -1095,12 +1258,33 @@ def test_engine_ledger_and_probes_match_reference(graph,
                                jres["history"]["loss"], rtol=1e-5)
 
 
+def _children(events, outer: str) -> list[list[str]]:
+    """The names of the spans directly inside each ``outer`` span of the
+    same thread, in order."""
+    out = []
+    for o in (e for e in events if e["name"] == outer):
+        t0, t1 = o["ts_us"], o["ts_us"] + o["dur_us"]
+        out.append([e["name"] for e in sorted(events,
+                                              key=lambda e: e["ts_us"])
+                    if e["tid"] == o["tid"] and e["parent"] == outer
+                    and e["depth"] == o["depth"] + 1
+                    and t0 <= e["ts_us"] <= t1])
+    return out
+
+
 def test_engine_observability_changes_no_numerics(graph,
-                                                  reference_ledger_run):
+                                                  reference_ledger_run,
+                                                  monkeypatch):
     """Metrics, tracing, the ledger and the probes on give the losses and
     final parameters of the run with them off, bit for bit; the step
-    histograms count every step and the spans nest as the reference's."""
+    histograms count every step and the spans nest as the reference's,
+    with the step's, the planner's and the evaluation's spans inside; on
+    the CPU no device span is recorded and no CUDA event made."""
     init = reference_ledger_run[0]
+
+    def no_event(*a, **k):
+        raise AssertionError("a CUDA event was made")
+    monkeypatch.setattr(torch.cuda, "Event", no_event)
     off, res_off, _ = _port_run(graph, init, on=False)
     on, res_on, ob = _port_run(graph, init, on=True)
     assert res_on["history"]["loss"] == res_off["history"]["loss"]
@@ -1112,15 +1296,37 @@ def test_engine_observability_changes_no_numerics(graph,
     modes = res_on["history"]["mode"]
     for mode in ("rsc", "exact"):
         assert reg.get_histogram("engine.step_ms", mode=mode)["count"] == \
-            modes.count(mode) == reg.get_counter("engine.steps", mode=mode)
+            modes.count(mode)
     assert reg.get_histogram("engine.eval_ms")["count"] == 4
-    assert reg.get_histogram("engine.sample_ms")["count"] == 30
-    names = [e["name"] for e in ob.tracer.snapshot()]
+    snap = reg.snapshot()
+    assert not [k for k in snap["counters"] if k.startswith("engine.steps")]
+    assert not [k for k in snap["histograms"] if "sample_ms" in k]
+    assert not [k for k in snap["gauges"]
+                if k.startswith(("rsc.sampled_frac",
+                                 "plan_cache.allocations"))]
+    events = ob.tracer.snapshot()
+    names = [e["name"] for e in events]
     assert names.count("step") == names.count("device_step") == 30
     assert names.count("plan") == modes.count("rsc")
     assert names.count("probe") == 30 and names.count("eval") == 4
-    parents = {e["name"]: e["parent"] for e in ob.tracer.snapshot()}
+    parents = {e["name"]: e["parent"] for e in events}
     assert parents["plan"] == parents["device_step"] == "step"
+    assert not [n for n in names if n.startswith("gpu.")]
+    steps = [e for e in events if e["name"] == "step"]
+    assert all("dur_ms" not in e["args"] for e in steps)
+    assert _children(events, "device_step") == \
+        [["forward", "backward", "optimizer", "loss_read"]] * 30
+    assert _children(events, "eval") == [["eval.logits", "eval.score"]] * 4
+    refreshes = [e for e in events if e["name"] == "plan.refresh"]
+    assert len(refreshes) == on.engine.planner.cache.stats.refreshes > 0
+    assert all(e["parent"] == "plan" for e in refreshes)
+    assert _children(events, "plan.refresh") == \
+        [["plan.norms", "plan.allocate", "plan.build"]] * len(refreshes)
+    ops = set(on.engine.planner.cache.ops)
+    for e in refreshes:
+        assert set(e["args"]["n_active"]) == set(e["args"]["s_pad"]) == ops
+        assert all(0 <= e["args"]["n_active"][k] <= e["args"]["s_pad"][k]
+                   for k in ops)
 
 
 # ================================================================== the CLI
