@@ -128,10 +128,10 @@ def compare(prog: dict, ref: dict, n_rows: int,
 
 
 def judge(numbers: dict, limits: dict) -> tuple[bool, dict]:
-    """``correct`` and each compared number beside its limit (a number
-    the cell's limits leave out is not compared)."""
-    out = {k: {"value": numbers[k], "limit": limits[k]}
-           for k in NAMES if k in limits}
+    """``correct`` and each compared number beside its limit, in the
+    limits' order (a number the cell's limits leave out is not
+    compared)."""
+    out = {k: {"value": numbers[k], "limit": v} for k, v in limits.items()}
     ok = all(np.isfinite(v["value"]) and v["value"] <= v["limit"]
              for v in out.values())
     return ok, out

@@ -1,24 +1,48 @@
 """One run of one cell: set-up, the measured window, the traced reading,
-and the comparison with the plain reference.
+and the comparison with the plain reference; the same for every model
+family.
 
 A cell (an entry of ``BENCHMARK.json``'s ``workloads``) names a
-configuration (``configs/<config>.json``: the model, its widths and the
-synthetic graph) and a traffic mix (``traffic/<traffic>.json``: the
-training job: epochs, the RSC schedule, evaluation). Its limits are in
+configuration (``configs/<config>.json``) and a traffic mix
+(``traffic/<traffic>.json``). Its limits are in
 ``limits/<workload>.json``; each per-layer metric is read by
-``metrics/<name>.py``. Everything is found by name.
+``metrics/<name>.py``; the configuration's ``family`` key (``gnn`` where
+it has none) names the module that runs it, ``families/<family>.py``. A
+traffic mix carries the same key. Everything is found by name, so a new
+family's cell is new files only.
 
-Set-up makes the graph from the seed (``gb_graph``), builds the program's
-``FullGraphSource`` once (operands built and uploaded), and warms up with
-one short training that runs RSC steps, a plan refresh, exact steps and
-evaluations. The window runs whole trainings of the job back to back, each
-a fresh ``Engine`` over that source (new parameters made on the device
-from the seed and the training's index, Adam state, planner, schedule),
-through ``Engine.train``, until the window's time is up; the unfinished
-training stops before its next step. The first training of the window is
-the one the reference follows: its losses, first gradient, parameters
-after the followed steps, evaluation logits and plan refreshes are kept
-as the window produces them, and judged once the window has closed.
+A family module supplies:
+
+* ``NAMES``: the numbers its check returns, which its limits may use;
+* ``check_config(config)``: raises on a configuration it cannot run;
+* ``tiny(cell, **traffic)``: the cell cut to the size of the CPU tests;
+* ``faults(cell)``: the faults the cell can have, for the tests;
+* ``end_to_end(out)``: its own end-to-end values by metric name;
+* ``Run(cell, seed, device)``: set-up (inputs from the seed, the
+  program's source of work), with ``parts``, the named seconds of set-up
+  (``operands_s`` among them where the family builds operands), and:
+
+  - ``warm_up()``: every shape the window uses;
+  - ``planted(fault)``: a context in which the program runs with the
+    fault planted (none: as it is);
+  - ``job(index, deadline=, follow=, profiled=, fault=,
+    followed_only=False)``: one job of the window, set up; calling it
+    runs it until it ends or, before its next step, the deadline has
+    passed; ``record()`` then holds ``steps`` done, ``nonfinite`` losses,
+    ``done`` and what its readers need; where ``follow``, ``kept()`` is
+    what the check judges;
+  - ``work(record)``: the counted work of the profiled job;
+  - ``release()``: frees the program's state before the check;
+  - ``check(kept, every_leaf=False)``: ``({name: value}, notes)``;
+  - ``control()``: the control's name and the control in the program's
+    place, as ``kept``;
+  - ``detail(out, notes)``: the family's part of the result's detail.
+
+The driver keeps TF32 off on the card, runs the window's jobs back to
+back until its time is up (the first is the one the check follows, and
+with ``--trace 1`` the one ``torch.profiler`` records), reads the peak
+memory, frees the program's state and judges the check's numbers against
+the cell's limits.
 """
 from __future__ import annotations
 
@@ -26,64 +50,93 @@ import contextlib
 import gc
 import importlib.util
 import json
-import math
-import statistics
+import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 import gb_check
 import gb_devtrace
-import gb_graph
-import gb_reference
-import gb_work
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
-
-
-# The warm-up training's index: no training of a window has it.
-WARMUP_INDEX = 1 << 32
-# The plan refreshes the reference follows. Under GCN's first plan no
-# gradient flows (Alg. 1 drops every block of the output layer's
-# backward); the later plans give blocks back.
-REFRESHES = 3
-
-
-class WindowClosed(Exception):
-    """Raised before a step that would start after the window's end."""
+DEFAULT_FAMILY = "gnn"
 
 
 # ------------------------------------------------------------- the cell
 
+def family_name(entry: dict) -> str:
+    """The family a configuration or a traffic mix belongs to."""
+    return entry.get("family", DEFAULT_FAMILY)
+
+
+_FAMILIES: dict[Path, object] = {}
+
+
+def family(name: str, home: Path = HERE):
+    """``families/<name>.py`` of the benchmark directory ``home``."""
+    path = (home / "families" / f"{name}.py").resolve()
+    if path not in _FAMILIES:
+        if not path.is_file():
+            have = sorted(p.stem for p in (home / "families").glob("*.py"))
+            raise KeyError(f"no model family {name!r}: {path} is missing "
+                           f"(have {have})")
+        spec = importlib.util.spec_from_file_location(
+            f"gb_family_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod
+        spec.loader.exec_module(mod)
+        _FAMILIES[path] = mod
+    return _FAMILIES[path]
+
+
+def family_of(cell: dict):
+    return family(cell["family"], cell["home"])
+
+
 def load_cell(name: str, bench_path: Path | None = None) -> dict:
     """The cell's entry, configuration, traffic, limits and metrics, as
-    ``BENCHMARK.json`` names them."""
-    bench = json.loads((bench_path or ROOT / "BENCHMARK.json").read_text())
+    ``BENCHMARK.json`` names them, checked by the configuration's family.
+    The benchmark's files lie under the first of its ``paths``."""
+    bench_path = Path(bench_path or ROOT / "BENCHMARK.json")
+    root = bench_path.parent
+    bench = json.loads(bench_path.read_text())
+    home = root / bench["paths"][0]
     work = {w["name"]: w for w in bench["workloads"]}
     if name not in work:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json "
                        f"(have {sorted(work)})")
     w = work[name]
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
-    config = json.loads((ROOT / conf["file"]).read_text())
-    traffic = json.loads((HERE / "traffic" / f"{w['traffic']}.json")
+    config = json.loads((root / conf["file"]).read_text())
+    traffic = json.loads((home / "traffic" / f"{w['traffic']}.json")
                          .read_text())
-    limits = json.loads((HERE / "limits" / f"{name}.json").read_text())
+    limits = json.loads((home / "limits" / f"{name}.json").read_text())
+    fam_name = family_name(config)
+    fam = family(fam_name, home)
+    if family_name(traffic) != fam_name:
+        raise ValueError(f"cell {name!r}: traffic {w['traffic']!r} is of "
+                         f"family {family_name(traffic)!r}, its "
+                         f"configuration of {fam_name!r}")
+    fam.check_config(config)
+    unknown = set(limits) - set(fam.NAMES)
+    if unknown:
+        raise ValueError(f"cell {name!r}: limits {sorted(unknown)} are no "
+                         f"number of family {fam_name!r} ({fam.NAMES})")
 
     def applies(m):
         return "workloads" not in m or name in m["workloads"]
     return {"name": name, "workload": w, "config": config,
-            "traffic": traffic, "limits": limits,
+            "traffic": traffic, "limits": limits, "family": fam_name,
+            "home": home,
             "end_to_end": [m for m in bench["end_to_end"] if applies(m)],
             "per_layer": [m for m in bench["per_layer"] if applies(m)]}
 
 
-def metric_reader(name: str):
+def metric_reader(name: str, home: Path = HERE):
     """``metrics/<name>.py``'s ``read`` function."""
-    path = HERE / "metrics" / f"{name}.py"
+    path = home / "metrics" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
         "gpubench_metric_" + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
@@ -91,412 +144,11 @@ def metric_reader(name: str):
     return mod.read
 
 
-def model_cfg(config: dict) -> dict:
-    """The keys the reference and the work counts take."""
-    return {k: config[k] for k in ("model", "n_layers", "hidden", "batchnorm",
-                                   "dropout", "lr", "block", "feat_dim",
-                                   "classes")}
-
-
-def follow_steps(traffic: dict) -> list[int]:
-    """The steps the reference follows: 0-2; with RSC, for each of the
-    first ``REFRESHES`` plan refreshes before the switch-back, the step
-    whose gradients it scores, its own step and two more under its plan;
-    with the switch-back, its first exact step and the next."""
-    if not traffic["rsc"]:
-        return [0, 1, 2]
-    r = gb_reference.refresh_every(traffic)
-    back = (int(traffic["epochs"] * traffic["rsc_fraction"])
-            if traffic["switching"] else traffic["epochs"])
-    out = [0, 1, 2]
-    for k in range(1, REFRESHES + 1):
-        if k * r < back:
-            out += [k * r - 1, k * r, k * r + 1, k * r + 2]
-    if traffic["switching"]:
-        out += [back, back + 1]
-    return sorted(set(out))
-
-
-def eval_epochs(traffic: dict) -> list[int]:
-    """The evaluations the reference judges: those after a followed
-    step."""
-    return [e for e in follow_steps(traffic)
-            if e % traffic["eval_every"] == 0]
-
-
-def training_seed(seed: int, index: int) -> int:
-    return int(np.random.SeedSequence([seed % 2**63, index])
-               .generate_state(1, np.uint64)[0] >> 2)
-
-
-# ------------------------------------------------------------- inputs
-
-def init_weights(cfg: dict, seed: int, device) -> dict:
-    """He-normal weights ``N(0, 2 / d_in)``, zero biases, batchnorm scale 1
-    and shift 0, under the reference's leaf names: one draw on the device
-    for all weights."""
-    shapes = gb_reference.leaf_shapes(cfg, cfg["classes"])
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    ws = [k for k in shapes if k.endswith(".w")]
-    flat = torch.randn(sum(math.prod(shapes[k]) for k in ws), generator=gen,
-                       device=device)
-    out, off = {}, 0
-    for k, shp in shapes.items():
-        if k.endswith(".w"):
-            n = math.prod(shp)
-            out[k] = flat[off:off + n].view(shp) * math.sqrt(2.0 / shp[0])
-            off += n
-        elif k.startswith("bn.") and k.endswith(".g"):
-            out[k] = torch.ones(shp, device=device)
-        else:
-            out[k] = torch.zeros(shp, device=device)
-    return out
-
-
-def program_tree(cfg: dict, w: dict) -> dict:
-    """The weights as the program's loader takes them (host arrays)."""
-    L = cfg["n_layers"]
-    heads = ["lin"] if cfg["model"] == "gcn" else ["self", "neigh"]
-
-    def host(k):
-        return w[k].cpu().numpy()
-    tree = {h: [{"w": host(f"{h}.{l}.w"), "b": host(f"{h}.{l}.b")}
-                for l in range(L)] for h in heads}
-    tree["bn"] = [({"g": host(f"bn.{l}.g"), "b": host(f"bn.{l}.b")}
-                   if cfg["batchnorm"] and l < L - 1 else None)
-                  for l in range(L)]
-    return tree
-
-
-_MODULE_NAMES = {"lin": "lin", "self_lin": "self", "neigh_lin": "neigh",
-                 "bn": "bn"}
-
-def leaf_name(prog_name: str) -> str:
-    """The reference's name of a program parameter (``lin.0.weight`` ->
-    ``lin.0.w``, ``bn.0.weight`` -> ``bn.0.g``)."""
-    mod, idx, attr = prog_name.split(".")
-    head = _MODULE_NAMES[mod]
-    if attr == "weight":
-        return f"{head}.{idx}.{'g' if head == 'bn' else 'w'}"
-    return f"{head}.{idx}.b"
-
-
-def program_graph(g: gb_graph.Graph):
-    """The generated graph in the program's types."""
-    from repro_torch.graphs.synthetic import GraphData
-    from repro_torch.sparse.csr import CSR
-    adj = CSR(rowptr=g.rowptr, col=g.col,
-              val=np.ones(g.nnz, np.float32), shape=(g.n, g.n))
-    return GraphData(adj=adj, features=g.features, labels=g.labels,
-                     train_mask=g.train_mask, val_mask=g.val_mask,
-                     test_mask=g.test_mask, num_classes=g.num_classes)
-
-
-def train_config(config: dict, traffic: dict, seed: int, device: str):
-    from repro_torch.train.engine import TrainConfig
-    return TrainConfig(
-        model=config["model"], n_layers=config["n_layers"],
-        hidden=config["hidden"], dropout=config["dropout"],
-        batchnorm=config["batchnorm"], lr=config["lr"],
-        epochs=traffic["epochs"], seed=seed, rsc=traffic["rsc"],
-        budget=traffic["budget"], step_frac=traffic["step_frac"],
-        refresh_every=traffic["refresh_every"],
-        rsc_fraction=traffic["rsc_fraction"], caching=traffic["caching"],
-        switching=traffic["switching"], strategy=traffic["strategy"],
-        backend="kernel", block=config["block"],
-        degree_sort=config["degree_sort"], autotune=False, device=device,
-        probe_every=0)
-
-
-# ------------------------------------------------------------- a training
-
-class Tap:
-    """Wraps one engine's step, planner and evaluation calls: stops it at
-    the window's end, keeps what the reference judges, and (in the
-    control tests only) plants a fault.
-
-    Kept for the ``follow`` steps (a list): each one's loss, the state
-    (parameters, Adam's moments and count) at its start and after it,
-    the logits of the evaluations after the ``evals`` epochs with the
-    parameters they evaluated, and every plan refresh up to the last of
-    them."""
-
-    def __init__(self, engine, *, deadline=None, follow=(), evals=(),
-                 stop_at=None, keep_plans=False, fault=None):
-        self.engine, self.deadline = engine, deadline
-        self.follow, self.evals = set(follow), set(evals)
-        self.at = self.follow | {k + 1 for k in self.follow}
-        self.last = max(self.at, default=-1)
-        self.stop_at, self.fault = stop_at, fault
-        self.steps = 0
-        self.loss, self.states = {}, {}
-        self.logits, self.eval_params = {}, {}
-        self.plans, self.keep_plans = {}, keep_plans
-        self._rsc, self._exact = engine.rsc_step, engine.exact_step
-        engine.rsc_step = self._rsc_step
-        engine.exact_step = self._exact_step
-        self._eval = engine.eval_logits
-        engine.eval_logits = self._eval_logits
-        if hasattr(engine.planner, "plans_for"):
-            self._plans_for = engine.planner.plans_for
-            engine.planner.plans_for = self._plans_for_step
-        self._last_plans = None
-
-    def _state(self, model, opt_state) -> None:
-        if self.steps in self.at and self.steps not in self.states:
-            self.states[self.steps] = {
-                "count": opt_state["count"],
-                "params": _clone(dict(model.named_parameters())),
-                "m": _clone(opt_state["m"]), "v": _clone(opt_state["v"])}
-
-    def _before(self, model, opt_state):
-        self._state(model, opt_state)
-        # the followed steps run whatever the window's length
-        if (self.deadline is not None and self.steps >= self.last
-                and time.perf_counter() >= self.deadline):
-            raise WindowClosed
-        if self.stop_at is not None and self.steps >= self.stop_at:
-            raise WindowClosed
-        if self.fault == "frozen":
-            return (_clone(dict(model.named_parameters())),
-                    {s: _clone(opt_state[s]) for s in ("m", "v")})
-        return None
-
-    def _after(self, out, saved):
-        model, opt_state, lv = out[0], out[1], out[2]
-        if saved is not None:
-            with torch.no_grad():
-                for k, p in model.named_parameters():
-                    p.copy_(saved[0][k])
-                for s in ("m", "v"):
-                    for k, v in opt_state[s].items():
-                        v.copy_(saved[1][s][k])
-        if self.steps in self.follow:
-            self.loss[self.steps] = lv.detach()
-        self.steps += 1
-        if self.steps == self.last:
-            self._state(model, opt_state)
-
-    def _rsc_step(self, model, opt_state, *rest):
-        saved = self._before(model, opt_state)
-        out = self._rsc(model, opt_state, *rest)
-        self._after(out, saved)
-        return out
-
-    def _exact_step(self, model, opt_state, *rest):
-        saved = self._before(model, opt_state)
-        out = self._exact(model, opt_state, *rest)
-        self._after(out, saved)
-        return out
-
-    def _plans_for_step(self, tag, step, schedule):
-        plans = self._plans_for(tag, step, schedule)
-        changed = (self._last_plans is None or any(
-            plans[k] is not self._last_plans.get(k) for k in plans))
-        if changed and (self.keep_plans or step < self.last):
-            self.plans[step] = plans
-        self._last_plans = plans
-        return plans
-
-    def _eval_logits(self, model, ops):
-        out = self._eval(model, ops)
-        epoch = self.steps - 1
-        if epoch in self.evals:
-            if self.fault == "answer":
-                out = out.clone()
-                out[0, 0] += 1.0
-            self.logits[epoch] = out.detach().clone()
-            self.eval_params[epoch] = _ref_names(
-                _clone(dict(model.named_parameters())))
-        return out
-
-    def keep_masks(self) -> dict:
-        """The plans kept, as ``step -> {layer: column-block keep mask}``:
-        the column blocks in which a plan holds a real (non-sentinel)
-        tile."""
-        cache = self.engine.planner.cache
-        out = {}
-        for step, plans in self.plans.items():
-            masks = {}
-            for op, plan in plans.items():
-                at = cache.ops[op].at
-                sel = plan.sel.long()
-                cols = plan.col_ids.long()[sel < at.s_total]
-                m = np.zeros(at.n_col_blocks, bool)
-                m[torch.unique(cols).cpu().numpy()] = True
-                masks[int(op.rsplit("spmm", 1)[1])] = m
-            out[step] = masks
-        return out
-
-    def capture(self) -> dict:
-        """What the reference judges, under its leaf names (the format of
-        ``gb_reference.follow``'s result)."""
-        b1 = gb_reference.ADAM["b1"]
-        states = {k: {"count": s["count"],
-                      **{n: _ref_names(s[n]) for n in ("params", "m", "v")}}
-                  for k, s in self.states.items()}
-        update = {}
-        for k in sorted(self.follow):
-            if k in states and k + 1 in states:
-                a, b = states[k]["params"], states[k + 1]["params"]
-                update[k] = {n: float(torch.linalg.vector_norm(b[n] - a[n]))
-                             for n in a}
-        grad1 = ({n: float(torch.linalg.vector_norm(v)) / (1 - b1)
-                  for n, v in states[1]["m"].items()} if 1 in states else {})
-        return {
-            "loss": {s: float(v) for s, v in self.loss.items()},
-            "grad1": grad1, "update": update, "states": states,
-            "logits": self.logits, "eval_params": self.eval_params,
-            "plans": self.keep_masks() if self.plans else {},
-        }
-
-
-def _clone(tensors: dict) -> dict:
-    return {k: v.detach().clone() for k, v in tensors.items()}
-
-
-def _ref_names(tensors: dict) -> dict:
-    """Program tensors under the reference's names and layout (a linear's
-    weight transposed to ``(d_in, d_out)``)."""
-    return {leaf_name(k): (v.t() if v.dim() == 2 else v)
-            for k, v in tensors.items()}
-
-
-FAULTS = ("frozen", "half_batch", "answer", "layer0", "plan")
-
-
-def faults_of(traffic: dict) -> tuple[str, ...]:
-    """The faults a cell can have (``plan`` needs the planner)."""
-    return FAULTS if traffic["rsc"] else FAULTS[:-1]
-
-
-class _ZeroFirstRows(torch.autograd.Function):
-    """The identity; its backward zeroes the first ``rows`` rows."""
-
-    @staticmethod
-    def forward(ctx, h, rows):
-        ctx.rows = rows
-        return h.view_as(h)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone()
-        g[:ctx.rows] = 0
-        return g, None
-
-
-@contextlib.contextmanager
-def planted(fault: str | None, cfg: dict | None = None):
-    """A fault in the timed path, for the control tests and readings
-    (``frozen`` and ``answer`` are the ``Tap``'s own):
-
-    * ``half_batch``: the loss's mean over every other training node;
-    * ``layer0``: the lowest backward SpMM's result (the gradient it hands
-      to the layer below) loses its first row block, whatever the plan;
-    * ``plan``: the planner allocates half of the budget."""
-    if fault == "half_batch":
-        from repro_torch.train import steps
-        real, name = steps.gnn_loss, "gnn_loss"
-        target = steps
-
-        def half(logits, ops):
-            valid = torch.arange(logits.shape[0], device=logits.device) \
-                < ops.n_valid
-            m = (ops.train_mask & valid).float()
-            idx = torch.nonzero(m)[:, 0]
-            m[idx[1::2]] = 0.0
-            logp = torch.log_softmax(logits, dim=-1)
-            per = -logp.gather(-1, ops.labels.long()[:, None])[:, 0]
-            return torch.sum(per * m) / torch.clamp(torch.sum(m), min=1.0)
-        fake = half
-    elif fault == "layer0":
-        from repro_torch.models.gnn import common as target
-        real, name = target.spmm_op, "spmm_op"
-        # the SpMMs whose input needs a gradient, in layer order, per
-        # training forward: the first of them is the lowest backward SpMM
-        per_forward = len(gb_reference.spmm_names(cfg))
-        calls = [0]
-
-        def fake(a, at, h, *args, **kw):
-            if torch.is_grad_enabled() and h.requires_grad:
-                calls[0] += 1
-                if calls[0] % per_forward == 1 % per_forward:
-                    h = _ZeroFirstRows.apply(h, cfg["block"])
-            return real(a, at, h, *args, **kw)
-    elif fault == "plan":
-        from repro_torch.core import cache as target
-        real, name = target.greedy_allocate, "greedy_allocate"
-
-        def fake(layers, budget_frac, *args, **kw):
-            return real(layers, budget_frac / 2, *args, **kw)
-    else:
-        yield
-        return
-    setattr(target, name, fake)
-    try:
-        yield
-    finally:
-        setattr(target, name, real)
-
-
 # ------------------------------------------------------------- the run
 
-class Run:
-    """Set-up state of one cell on one device."""
-
-    def __init__(self, cell: dict, seed: int, device: str):
-        self.cell, self.seed, self.device = cell, seed, device
-        self.config, self.traffic = cell["config"], cell["traffic"]
-        self.cfg = model_cfg(self.config)
-        t0 = time.perf_counter()
-        self.graph = gb_graph.graph_of(self.config, seed % 2**63)
-        self.graph_s = time.perf_counter() - t0
-        from repro_torch.models.gnn import MODELS
-        from repro_torch.train.engine import FullGraphSource
-        self.module = MODELS[self.config["model"]]
-        tc = train_config(self.config, self.traffic, 0, device)
-        t0 = time.perf_counter()
-        self.source = FullGraphSource(program_graph(self.graph), tc,
-                                      self.module)
-        self._sync()
-        self.operands_s = time.perf_counter() - t0
-
-    def _sync(self):
-        if self.device == "cuda":
-            torch.cuda.synchronize()
-
-    def engine(self, index: int, epochs: int | None = None):
-        """A fresh engine over the shared source for training ``index``,
-        and its initial weights (the reference's names)."""
-        from repro_torch.convert import gnn_params_from_numpy
-        from repro_torch.train.engine import Engine, FullGraphPlanner
-        seed = training_seed(self.seed, index)
-        traffic = dict(self.traffic)
-        if epochs is not None:
-            traffic["epochs"] = epochs
-        tc = train_config(self.config, traffic, seed, self.device)
-        w = init_weights(self.cfg, seed, self.device)
-        model = gnn_params_from_numpy(self.config["model"],
-                                      program_tree(self.cfg, w),
-                                      device=self.device)
-        planner = None
-        if tc.rsc:
-            at, meta, fro = self.source.planner_operand()
-            planner = FullGraphPlanner(tc, self.module, at, meta, fro,
-                                       self.source.num_classes,
-                                       self.source.device)
-        return Engine(tc, self.source, planner=planner, model=model), w, seed
-
-    def warm_up(self) -> None:
-        """One short training: RSC steps, a refresh, exact steps and
-        evaluations, on every shape the window uses."""
-        eng, _, _ = self.engine(WARMUP_INDEX,
-                                epochs=self.traffic["refresh_every"] + 5)
-        eng.train(eval_every=self.traffic["eval_every"])
-        self._sync()
-        del eng
-        gc.collect()
+def _sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
 
 
 def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
@@ -510,13 +162,10 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     if device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    run = Run(cell, seed, device)
+    run = family_of(cell).Run(cell, seed, device)
     t_warm = time.perf_counter()
     run.warm_up()
     t_warm = time.perf_counter() - t_warm
-    traffic = run.traffic
-    follow = follow_steps(traffic)
-    evals = eval_epochs(traffic)
 
     if trace:
         ob = obs.reset(metrics=True, trace=True)
@@ -524,13 +173,13 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
         t_origin = time.perf_counter()
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    trainings, setups = [], []
+    jobs, setups = [], []
     prof = t_mark = None
     first = None
     t_start = time.perf_counter()
     deadline = t_start + seconds
     index = 0
-    with planted(fault, run.cfg):
+    with run.planted(fault):
         while time.perf_counter() < deadline:
             profiled = trace and index == 0
             ctx = (torch.profiler.profile(activities=[
@@ -541,92 +190,54 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
                 t0 = time.perf_counter()
                 if profiled and device == "cuda":
                     prof, t_mark = p, gb_devtrace.mark()
-                eng, w, tseed = run.engine(index)
-                tap = Tap(eng, deadline=None if profiled else deadline,
-                          follow=follow if index == 0 else (),
-                          evals=evals if index == 0 else (),
-                          keep_plans=profiled, fault=fault)
+                job = run.job(index, deadline=None if profiled else deadline,
+                              follow=index == 0, profiled=profiled,
+                              fault=fault)
                 setups.append((t0, time.perf_counter()))
-                done = True
-                try:
-                    res = eng.train(eval_every=traffic["eval_every"])
-                except WindowClosed:
-                    done, res = False, None
-                run._sync()
+                job()
+                _sync(device)
                 t1 = time.perf_counter()
-            hist = eng.history
-            trainings.append({
-                "done": done, "steps": len(hist["loss"]), "t0": t0, "t1": t1,
-                "best_test": res["best_test"] if done else _best(hist),
-                "flops_fraction": res["flops_fraction"] if done else None,
-                "modes": list(hist["mode"]),
-                "nonfinite": sum(not math.isfinite(v) for v in hist["loss"]),
-                "plans": tap.keep_masks() if profiled and tap.plans else {},
-                "evals": [e for e, _ in hist["val"]]})
+            jobs.append({**job.record(), "t0": t0, "t1": t1})
             if index == 0:
-                first = (tap, w, tseed)
-            else:
-                del tap
-            del eng
+                first = job
+            del job
             index += 1
     t_end = time.perf_counter()
     window_s = t_end - t_start
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
 
+    parts = {**run.parts, "warm_up_s": t_warm}
     out = {"t_process": t_process, "t_start": t_start, "window_s": window_s,
-           "trained_s": sum(t["t1"] - t["t0"] for t in trainings),
-           "setup_s": t_start - t_process, "operands_s": run.operands_s,
-           "setup_parts": {"graph_s": run.graph_s,
-                           "operands_s": run.operands_s, "warm_up_s": t_warm},
-           "trainings": trainings, "peak_bytes": peak, "device": device,
+           "trained_s": sum(t["t1"] - t["t0"] for t in jobs),
+           "setup_s": t_start - t_process,
+           "operands_s": parts.get("operands_s"), "setup_parts": parts,
+           "trainings": jobs, "peak_bytes": peak, "device": device,
            "cell": cell, "seconds": seconds}
     if trace:
         out["spans"] = _spans(ob.tracer, t_origin) + [
             ("engine_setup", a, b) for a, b in setups]
-        out["work"] = _work(run, trainings[0])
+        out["work"] = run.work(jobs[0])
         if prof is not None:
-            tr = trainings[0]
+            tr = jobs[0]
             out["profile"] = _profile(prof, t_mark, tr["t0"], tr["t1"],
                                       out["spans"])
         obs.reset()
 
     # The check: once the window has closed and the peak is read, with
     # the program's state freed.
-    tap, w0, tseed = first
-    prog = tap.capture()
-    del tap, first
-    graph, cfg = run.graph, run.cfg
-    run.source = None
+    kept = first.kept()
+    del first
+    run.release()
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    ops = gb_reference.build_operands(graph, cfg["model"], cfg["block"],
-                                      device)
-    ref = gb_reference.follow(cfg, traffic, ops, w0, tseed, follow,
-                              evals, states=prog["states"],
-                              eval_params=prog["eval_params"],
-                              prog_plans=prog["plans"])
-    where = {}
-    numbers = gb_check.compare(prog, ref, graph.n, where)
-    out["check_where"] = where
-    out["correct"], out["checks"] = gb_check.judge(numbers,
-                                                   cell["limits"])
-    out["plan_refreshes"] = {s: {k: v for k, v in r.items() if k != "keep"}
-                             for s, r in ref["plans"].items()}
-    out["grad_norm"] = {s: math.sqrt(sum(v * v for v in g.values()))
-                        for s, g in ref["grad_norm"].items()}
+    numbers, notes = run.check(kept)
+    out["correct"], out["checks"] = gb_check.judge(numbers, cell["limits"])
     out["check_s"] = time.perf_counter() - t_check
-    out["graph"] = {"n": graph.n, "nnz": graph.nnz}
+    out["detail"] = {"window_s": window_s, "check_s": out["check_s"],
+                     "setup_parts": parts, **run.detail(out, notes)}
     return out
-
-
-def _best(hist) -> float | None:
-    best_val, best_test = -1.0, None
-    for (_, v), (_, t) in zip(hist["val"], hist["test"]):
-        if v > best_val:
-            best_val, best_test = v, t
-    return best_test
 
 
 def _spans(tracer, t_origin: float) -> list[tuple[str, float, float]]:
@@ -634,19 +245,6 @@ def _spans(tracer, t_origin: float) -> list[tuple[str, float, float]]:
     return [(e["name"], t_origin + e["ts_us"] / 1e6,
              t_origin + (e["ts_us"] + e["dur_us"]) / 1e6)
             for e in tracer.snapshot() if e.get("kind") == "span"]
-
-
-def _work(run: Run, tr: dict) -> dict:
-    """The counted work of the profiled training."""
-    cfg = run.cfg
-    g = run.graph
-    row_nnz = np.diff(g.rowptr)[gb_reference.degree_order(g.rowptr)]
-    if cfg["model"] == "gcn":
-        row_nnz = row_nnz + 1
-    gw = gb_work.GraphWork.of(row_nnz, cfg["block"])
-    w = gb_work.training(cfg, gw, tr["modes"], tr["plans"], tr["evals"])
-    return {"flops": w.flops, "spmm_flops": w.spmm_flops,
-            "spmm_least_s": w.spmm_least_s, "spmm_launches": w.spmm_launches}
 
 
 def _profile(prof, t_mark, t0, t1, spans) -> dict:
@@ -662,18 +260,15 @@ def _profile(prof, t_mark, t0, t1, spans) -> dict:
 # ------------------------------------------------------------- the report
 
 def end_to_end(out: dict) -> dict:
-    """The end-to-end metrics, by name."""
-    trs = out["trainings"]
-    epochs = sum(t["steps"] for t in trs)
-    done = [t["best_test"] for t in trs if t["done"]]
-    if not done:                      # no training finished in the window
-        done = [t["best_test"] for t in trs if t["best_test"] is not None]
-    vals = {"epoch_ms": out["window_s"] * 1e3 / max(epochs, 1),
-            "test_acc": statistics.fmean(done) if done else None,
+    """The end-to-end metrics, by name: ``epoch_ms`` is the window's wall
+    time over the optimizer steps its jobs completed (one full-batch GNN
+    step is one epoch), and the family adds its own."""
+    steps = sum(t["steps"] for t in out["trainings"])
+    vals = {"epoch_ms": out["window_s"] * 1e3 / max(steps, 1),
             "setup_s": out["setup_s"]}
     if out["peak_bytes"] is not None:
         vals["peak_mem_gib"] = out["peak_bytes"] / 2**30
-    return vals
+    return {**vals, **family_of(out["cell"]).end_to_end(out)}
 
 
 def metrics_line(out: dict, trace: bool) -> dict:
@@ -687,7 +282,7 @@ def metrics_line(out: dict, trace: bool) -> dict:
                 if vals.get(m["name"]) is not None}
     line = {}
     for m in cell["per_layer"]:
-        v = metric_reader(m["name"])(out)
+        v = metric_reader(m["name"], cell["home"])(out)
         if v is not None:
             line[m["name"]] = {"value": v, "unit": m["unit"]}
     return line

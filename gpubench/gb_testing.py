@@ -5,8 +5,10 @@ plain versions. (Not a ``conftest.py``: the repository's tests import
 their own ``conftest`` by name.)
 
 ``CELLS`` are ``BENCHMARK.json``'s workloads; ``VARIANTS`` adds, for each,
-the same cell under every other traffic mix in ``traffic/`` (named
-``<config>-<mix>``), so a mix no cell runs yet stays tested."""
+the same cell under every other traffic mix of its family in ``traffic/``
+(named ``<config>-<mix>``), so a mix no cell runs yet stays tested;
+``FAMILY`` gives each variant's family. Each family cuts its cells to the
+tiny size (its ``tiny``)."""
 import copy
 import json
 import sys
@@ -23,32 +25,34 @@ import gb_harness  # noqa: E402
 
 _BENCH = json.loads((gb_harness.ROOT / "BENCHMARK.json").read_text())
 CELLS = tuple(w["name"] for w in _BENCH["workloads"])
-_MIXES = sorted(p.stem for p in (gb_harness.HERE / "traffic").glob("*.json"))
+_MIXES = {p.stem: gb_harness.family_name(json.loads(p.read_text()))
+          for p in sorted((gb_harness.HERE / "traffic").glob("*.json"))}
 # variant name -> (cell it copies, traffic mix it runs)
 VARIANTS = {name: (name, None) for name in CELLS}
+FAMILY = {name: gb_harness.load_cell(name)["family"] for name in CELLS}
 for _w in _BENCH["workloads"]:
-    for _mix in _MIXES:
+    for _mix, _fam in _MIXES.items():
         _name = f"{_w['config']}-{_mix}"
-        if _mix != _w["traffic"] and _name not in VARIANTS:
+        if (_mix != _w["traffic"] and _fam == FAMILY[_w["name"]]
+                and _name not in VARIANTS):
             VARIANTS[_name] = (_w["name"], _mix)
-# Every width cut, the graph to a few hundred nodes, a training to 30
-# epochs: the first plan refresh (step 10), the switch-back (step 24) and
-# evaluations stay in.
-TINY = {"nodes": 640, "feat_dim": 24, "hidden": 16, "block": 32,
-        "avg_degree": 12.0}
+            FAMILY[_name] = _fam
+
+
+def of_family(family: str) -> list[str]:
+    """The variants of one family."""
+    return [v for v in VARIANTS if FAMILY[v] == family]
 
 
 def tiny_cell(name: str, **traffic) -> dict:
-    """A cell of ``VARIANTS`` cut to the tiny size; its limits are those of
-    the cell it copies."""
+    """A cell of ``VARIANTS`` cut by its family to the tiny size; its
+    limits are those of the cell it copies."""
     base, mix = VARIANTS[name]
     cell = copy.deepcopy(gb_harness.load_cell(base))
     if mix is not None:
         cell["traffic"] = json.loads((gb_harness.HERE / "traffic"
                                       / f"{mix}.json").read_text())
-    cell["config"].update(TINY)
-    cell["traffic"].update({"epochs": 30, **traffic})
-    return cell
+    return gb_harness.family_of(cell).tiny(cell, **traffic)
 
 
 @pytest.fixture(autouse=True, scope="module")

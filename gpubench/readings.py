@@ -1,10 +1,10 @@
 """The readings the limits of ``correct`` are set from, at a cell's own
-size: for each seed, the program as it runs (sound), the control (the
-plain reference in TF32 put in the program's place, one precision below
-the configuration's float32) and the program with each fault planted.
-Each is held against the float32 reference by the benchmark's own numbers
-(``gb_check``), every leaf's gaps kept beside them. The benchmark's runs
-never run this.
+size: for each seed, the program as it runs (sound), the control (for the
+``gnn`` family the plain reference in TF32 put in the program's place, one
+precision below the configuration's float32) and the program with each
+fault planted.
+Each is held against the float32 reference by the cell's family's check,
+every leaf's gaps kept beside them. The benchmark's runs never run this.
 
     python3 gpubench/readings.py --workload gcn-reddit-rsc \\
         --seeds 11,12,13 --fault-seeds 2 --out build/readings.jsonl
@@ -25,64 +25,31 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 
-def _plans_of(ref: dict) -> dict:
-    return {s: r["keep"] for s, r in ref["plans"].items()}
-
-
 def read_seed(cell: dict, seed: int, device: str, faults=None,
               control: bool = True) -> list:
-    """The readings of one seed: ``[{"reading", "numbers", ...}]``;
-    ``faults`` None: every fault the cell can have."""
-    import gb_check
+    """The readings of one seed, through the cell's family: ``[{"reading",
+    "numbers", ...the check's notes}]``; ``faults`` None: every fault the
+    cell can have."""
     import gb_harness as H
-    import gb_reference as R
-    run = H.Run(cell, seed, device)
-    traffic, cfg = run.traffic, run.cfg
-    faults = H.faults_of(traffic) if faults is None else faults
-    follow = H.follow_steps(traffic)
-    evals = H.eval_epochs(traffic)
-    ops = R.build_operands(run.graph, cfg["model"], cfg["block"], device)
+    fam = H.family_of(cell)
+    run = fam.Run(cell, seed, device)
+    faults = fam.faults(cell) if faults is None else faults
     rows = []
 
-    def row(reading, prog, ref):
-        where = {}
-        numbers = gb_check.compare(prog, ref, run.graph.n, where,
-                                   every_leaf=True)
-        return {"reading": reading, "numbers": numbers, "where": where,
-                "plans": _plan_info(ref), "grad_norm": ref["grad_norm"]}
-
-    def program(fault):
-        eng, w, tseed = run.engine(0)
-        tap = H.Tap(eng, follow=follow, evals=evals, stop_at=max(follow) + 1,
-                    fault=fault)
-        with H.planted(fault, cfg):
-            try:
-                eng.train(eval_every=traffic["eval_every"])
-            except H.WindowClosed:
-                pass
-        return tap.capture(), w, tseed
+    def row(reading, kept):
+        numbers, notes = run.check(kept, every_leaf=True)
+        return {"reading": reading, "numbers": numbers, **notes}
 
     for fault in (None, *faults):
-        prog, w, tseed = program(fault)
-        ref = R.follow(cfg, traffic, ops, w, tseed, follow, evals,
-                       states=prog["states"], eval_params=prog["eval_params"],
-                       prog_plans=prog["plans"])
-        rows.append(row(fault or "sound", prog, ref))
-    if not control:
-        return rows
-    _, w, tseed = run.engine(0)
-    low = R.follow(cfg, traffic, ops, w, tseed, follow, evals,
-                   precision="tf32")
-    ref = R.follow(cfg, traffic, ops, w, tseed, follow, evals,
-                   states=low["states"], eval_params=low["eval_params"],
-                   prog_plans=_plans_of(low))
-    rows.append(row("control_tf32", low, ref))
+        with run.planted(fault):
+            job = run.job(0, follow=True, fault=fault, followed_only=True)
+            job()
+        kept = job.kept()
+        del job
+        rows.append(row(fault or "sound", kept))
+    if control:
+        rows.append(row(*run.control()))
     return rows
-
-
-def _plan_info(ref: dict) -> dict:
-    return {str(s): {k: v for k, v in r.items() if k != "keep"}
-            for s, r in ref["plans"].items()}
 
 
 def main(argv=None) -> int:

@@ -118,14 +118,7 @@ def main(argv=None) -> int:
             "idle_gaps": sorted(([n, s] for n, s in
                                  prof["idle_by_span"].items()),
                                 key=lambda r: -r[1])[:10]}
-    result["detail"] = {
-        "trainings": [{k: t[k] for k in ("done", "steps", "best_test",
-                                          "flops_fraction")}
-                      for t in out["trainings"]],
-        "window_s": out["window_s"], "check_s": out["check_s"],
-        "setup_parts": out["setup_parts"], "check_where": out["check_where"],
-        "graph": out["graph"], "plan_refreshes": out["plan_refreshes"],
-        "grad_norm": out["grad_norm"]}
+    result["detail"] = out["detail"]
     result["checks"] = out["checks"]
     for name, c in out["checks"].items():
         print(f"check {name}: {c['value']!r} (limit {c['limit']!r})",

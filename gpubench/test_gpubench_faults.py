@@ -1,19 +1,25 @@
-"""The check catches each fault a cell can have, planted in the timed path
-of a whole run at a tiny size on the CPU: a step that returns its state
-unchanged, the loss's mean over half of the training nodes, an answer (an
-evaluation logit) altered where it is produced, the lowest backward SpMM's
-result wrong in one row block, and (with RSC) a planner that allocates
-half of the budget. One card, so no exchange between cards to leave
-out."""
+"""The check catches each fault a cell can have (its family's ``faults``),
+planted in the timed path of a whole run at a tiny size on the CPU; for
+the ``gnn`` family: a step that returns its state unchanged, the loss's
+mean over half of the training nodes, an answer (an evaluation logit)
+altered where it is produced, the lowest backward SpMM's result wrong in
+one row block, and (with RSC) a planner that allocates half of the
+budget. One card, so no exchange between cards to leave out."""
 import pytest
 
 import gb_check
 import gb_harness
 import readings
-from gb_testing import VARIANTS, one_torch_thread, tiny_cell  # noqa: F401
+from gb_testing import (VARIANTS, of_family, one_torch_thread,  # noqa: F401
+                        tiny_cell)
 
-CASES = [(name, fault) for name in VARIANTS
-         for fault in gb_harness.faults_of(tiny_cell(name)["traffic"])]
+
+def _faults(name):
+    cell = tiny_cell(name)
+    return gb_harness.family_of(cell).faults(cell)
+
+
+CASES = [(name, fault) for name in VARIANTS for fault in _faults(name)]
 
 
 @pytest.mark.parametrize("name,fault", CASES,
@@ -24,7 +30,7 @@ def test_fault_is_not_correct(name, fault):
     assert not out["correct"], out["checks"]
 
 
-@pytest.mark.parametrize("name", VARIANTS)
+@pytest.mark.parametrize("name", of_family("gnn"))
 def test_layer0_fault_shows_in_its_layer(name):
     """The fault below the lowest backward SpMM moves that layer's leaves:
     the per-layer numbers fail where the median over all leaves need

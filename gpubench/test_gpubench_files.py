@@ -46,17 +46,23 @@ def test_config_files(conf):
     cfg = json.loads((gb_harness.ROOT / entry["file"]).read_text())
     assert cfg["name"] == conf and cfg["source"] == entry["source"]
     assert cfg["reduced"] == entry["reduced"]
-    gb_harness.model_cfg(cfg)            # every key the run takes is there
-    assert cfg["published"]["nodes"] > cfg["nodes"]
+    family = gb_harness.family_name(cfg)
+    gb_harness.family(family).check_config(cfg)
+    if family == "gnn":
+        gb_harness.family("gnn").model_cfg(cfg)   # every key the run takes
+        assert cfg["published"]["nodes"] > cfg["nodes"]
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_cells_load(name):
     cell = gb_harness.load_cell(name)
+    family = gb_harness.family_of(cell)
     assert cell["workload"]["chips"] == 1
-    assert cell["limits"] and set(cell["limits"]) <= set(gb_check.NAMES)
-    if cell["traffic"]["rsc"]:
-        assert cell["limits"]["plan"] == 0, "an exact count"
+    assert cell["limits"] and set(cell["limits"]) <= set(family.NAMES)
+    if cell["family"] == "gnn":
+        assert set(cell["limits"]) <= set(gb_check.NAMES)
+        if cell["traffic"]["rsc"]:
+            assert cell["limits"]["plan"] == 0, "an exact count"
     e2e = {m["name"] for m in cell["end_to_end"]}
     assert "setup_s" in e2e and len(e2e) >= 2
     assert cell["per_layer"], "every cell reports a per-layer metric"

@@ -10,16 +10,18 @@ import pytest
 
 import gb_harness
 import run as run_entry
-from gb_testing import VARIANTS, one_torch_thread, tiny_cell  # noqa: F401
+from gb_testing import of_family, one_torch_thread, tiny_cell  # noqa: F401
+
+GNN = gb_harness.family("gnn")
 
 
-@pytest.mark.parametrize("name", VARIANTS)
+@pytest.mark.parametrize("name", of_family("gnn"))
 def test_tiny_run_is_correct(name):
     cell = tiny_cell(name)
     out = gb_harness.run_cell(cell, 2**31 + 77, 1.5, trace=False,
                               device="cpu")
     assert out["correct"], out["checks"]
-    assert out["trainings"][0]["steps"] >= gb_harness.follow_steps(
+    assert out["trainings"][0]["steps"] >= GNN.follow_steps(
         cell["traffic"])[0]
     line = gb_harness.metrics_line(out, trace=False)
     # no device, no peak memory: only host-clock metrics
@@ -27,8 +29,9 @@ def test_tiny_run_is_correct(name):
         "peak_mem_gib"}
     assert all(v["value"] > 0 for v in line.values())
     if cell["traffic"]["rsc"]:
-        assert out["plan_refreshes"], "the followed steps hold a refresh"
-        assert all(r["ok"] for r in out["plan_refreshes"].values())
+        refreshes = out["detail"]["plan_refreshes"]
+        assert refreshes, "the followed steps hold a refresh"
+        assert all(r["ok"] for r in refreshes.values())
 
 
 def test_cpu_trace_reports_no_device_metric():
